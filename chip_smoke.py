@@ -16,10 +16,19 @@ Phases (any failed check exits non-zero; nothing is caught):
      before, read just after. All 90 decrypted sums must equal the clear
      sums and be found; the weights must match GD run by the port on the
      CPU from the same sums.
-  4. Print the survey's wall time (median of timed runs after a warm-up),
-     the kernels' times, launch counts and bounds as one JSON line, the
-     card's name and power limit, and last the contract line
-     {"ok": true, "device": {...}}.
+  4. Print the survey's wall time (median of timed runs after a warm-up).
+  5. Run the proofs-on data collection at the same width (10 DPs x 90
+     values shifted by 16^5/2, ranges (16, 5), 3 servers: 13,500 digit
+     proofs) through `service.collect_with_range_proofs`, with the launch
+     counts set to 0 just before and read just after. Check (a) the D
+     equation of every value with the G1 kernels, (b) every challenge
+     recomputed on the host from the serialized payload bytes, (c) the
+     pairing equation of sampled digit proofs by the host oracle, read from
+     the payload bytes, and (d) that (c) rejects a tampered Zv. Print the
+     phase's wall time (median of warm runs) and its split by stage.
+  Last, the kernels' times, launch counts and bounds as one JSON line, the
+  card's name and power limit, and the contract line
+  {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the drynx_tpu package.
 """
@@ -29,6 +38,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Pima width of the reference's exec benchmark (bench.py:bench_exec)
@@ -39,7 +49,23 @@ KERNEL_REPS = 10
 # key switch xK and decrypt; aggregate and the two key-switch sums;
 # encrypt, key switch and its finish, decrypt; one normalize
 EXPECTED_LAUNCHES = {"fixed_base_mul": 5, "scalar_mul": 2, "point_reduce": 3,
-                     "point_add": 4, "fp_inv": 1}
+                     "point_add": 4, "fp_inv": 1, "f2_inv": 0,
+                     "g2_scalar_mul": 0, "f12_mul": 0, "f12_mulreduce8": 0}
+# the proofs-on survey's ranges (bench.py:RANGES, reference simulation
+# preset 18) and its data collection's launches: encrypt rB, |m|B, rP and
+# D's two fixed-base products; encrypt's add and D's; normalize of the
+# ciphertexts and of D, of the blinded signatures V; the ladder of V; two
+# passes each of the digit power and of gtB^t; the product a
+U, L = 16, 5
+SIG_SEED, PROOF_SEED = 5, 7
+PROOF_RUNS = 3
+CHECK_SAMPLES = [(dp, i, val, j) for dp, val, j in
+                 ((0, 0, 0), (0, 45, 2), (NUM_DPS - 1, 17, 1),
+                  (NUM_DPS - 1, 89, 4)) for i in range(N_SERVERS)]
+EXPECTED_LAUNCHES_PROOFS = {"fixed_base_mul": 5, "scalar_mul": 0,
+                            "point_reduce": 0, "point_add": 2, "fp_inv": 2,
+                            "f2_inv": 1, "g2_scalar_mul": 1, "f12_mul": 1,
+                            "f12_mulreduce8": 4}
 
 # H100 SXM: 132 SMs, 64 32-bit integer multiply-adds per SM per clock,
 # 3.35 TB/s device memory (NVIDIA data sheet and Hopper white paper)
@@ -48,6 +74,13 @@ SMS, IMAD_PER_CLK_SM, MEM_BYTES_PER_S = 132, 64, 3.35e12
 IMAD_PER_MONT_MUL = 256
 # Montgomery products per element (counted from the algorithms)
 MM_PADD = 23          # complete add: 16 for the add, 7 for the double
+# G2 over Fp2 (3 products per Fp2 product, 2 per square): a double is
+# 5 squares + 2 products = 16, a complete add 5 squares + 11 products + a
+# double = 59; the ladder builds 7 doubles and 7 adds, then 63 windows of
+# 4 doubles and an add
+MM_G2_LADDER = 7 * 16 + 7 * 59 + 63 * (4 * 16 + 59)
+MM_F2_INV = 2 + 255 + 124 + 2   # norm, Fermat over p - 2, two products
+MM_F12_MUL = 18 * 3             # 18 Fp2 products
 
 
 def smi(query):
@@ -74,6 +107,53 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def parse_payload(buf):
+    """A DP's range-proof payload (RangeProofList bytes) -> its batches,
+    each a dict of numpy byte arrays in the wire layout."""
+    def take(n, dtype=np.uint8):
+        nonlocal off
+        out = np.frombuffer(buf[off:off + n], dtype=dtype)
+        off += n
+        return out
+
+    off = 0
+    _n_values, n_batches = take(16, "<i8")
+    batches = []
+    for _ in range(int(n_batches)):
+        n_idx, _n_blob = take(16, "<i8")
+        b = {"idx": take(8 * int(n_idx), "<i8")}
+        u, l, v, ns = (int(x) for x in take(32, "<i8"))
+        b.update(u=u, l=l)
+        for name, shape in (("commit", (v, 128)), ("challenge", (v, 32)),
+                            ("zr", (v, 32)), ("d", (v, 64)),
+                            ("zphi", (v, l, 32)), ("zv", (ns, v, l, 32)),
+                            ("v", (ns, v, l, 128)), ("a", (ns, v, l, 384))):
+            b[name] = take(int(np.prod(shape))).reshape(shape)
+        batches.append(b)
+    if off != len(buf):
+        raise SystemExit("payload has trailing bytes")
+    return batches
+
+
+def big(b):
+    """A big-endian byte row -> a Python int."""
+    return int.from_bytes(b.tobytes(), "big")
+
+
+def digit_pairing_ok(refimpl, gtb, c, y, zphi, zv, v_bytes, a_bytes):
+    """a == e(c y - Zphi B, V) gtB^Zv by the host oracle, every operand
+    read from the wire bytes."""
+    vals = [big(v_bytes[32 * k:32 * (k + 1)]) for k in range(4)]
+    vpt = (None if not any(vals)
+           else ((vals[0], vals[1]), (vals[2], vals[3])))
+    a = tuple((big(a_bytes[64 * k:64 * k + 32]),
+               big(a_bytes[64 * k + 32:64 * (k + 1)])) for k in range(6))
+    g1 = refimpl.g1_add(refimpl.g1_mul(y, c),
+                        refimpl.g1_neg(refimpl.g1_mul(refimpl.G1, zphi)))
+    return refimpl.fp12_mul(refimpl.pair(g1, vpt),
+                            refimpl.fp12_pow(gtb, zv)) == a
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -82,7 +162,11 @@ def main():
     from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
     from drynx_tpu_torch.crypto import curve as C
     from drynx_tpu_torch.crypto import elgamal as eg
+    from drynx_tpu_torch.crypto import refimpl
     from drynx_tpu_torch.models import logreg as lr
+    from drynx_tpu_torch.proofs import encoding as enc
+    from drynx_tpu_torch.proofs import range_proof as rp
+    from drynx_tpu_torch.service import service as svc
     from drynx_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda")
@@ -126,6 +210,41 @@ def main():
     b900[0], b900[1] = a900[0], C.neg(a900[1:2])[0]
     b900[2] = C.infinity((), dev)
     zs = cts[0, :, 1, 2].contiguous()                        # (V, 16) nonzero Z
+
+    # proofs-on setup: the servers' digit signatures and their GT window
+    # tables (host pairings, timed as setup), then the four proof kernels'
+    # inputs at the shapes of phase 5, built from the same tables and digits
+    t0 = time.perf_counter()
+    sigs = svc.make_range_sigs(U, N_SERVERS, seed=SIG_SEED, device=dev)
+    gtb_table = rp.gt_base_table().to(dev)
+    print(f"setup: {N_SERVERS} signature sets of u={U}, their {N_SERVERS * U}"
+          f" host pairings and GT window tables "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ranges = [(U, L)] * V
+    n_vals = NUM_DPS * V
+    n_proofs = N_SERVERS * n_vals * L
+    digits = torch.from_numpy(rp.to_base(
+        (stats + U ** L // 2).reshape(-1).cpu().numpy(), U, L)).to(dev)
+    A_tab = torch.stack([sg.A for sg in sigs]).to(dev)
+    kgen = torch.Generator(device=dev).manual_seed(PROOF_SEED + 1)
+    g2_p = A_tab[:, digits.long()].reshape(-1, 3, 2, 16)    # (13500, 3, 2, 16)
+    g2_k = eg.random_scalars((n_proofs,), kgen, dev)
+    g2_z = cuda_pairing.g2_scalar_mul_flat(g2_p, g2_k)[:, 2].contiguous()
+    win = torch.arange(64, device=dev)
+    base_idx = (torch.arange(N_SERVERS, device=dev)[:, None, None] * U
+                + digits.long()[None]).reshape(-1)
+    g_multi = rp.sig_gt_pow_tables(sigs, dev)[
+        base_idx[:, None], win[None, :], cuda_pairing.window_digits(g2_k)]
+    g_multi = g_multi.reshape(-1, 8, 6, 2, 16)             # (108000, 8, ...)
+    g_multi2 = cuda_pairing.f12_mulreduce8_flat(g_multi).reshape(
+        -1, 8, 6, 2, 16)
+    t_k = eg.random_scalars((n_vals * L,), kgen, dev)
+    g_gtb = gtb_table[win[None, :], cuda_pairing.window_digits(t_k)].reshape(
+        -1, 8, 6, 2, 16)                                   # (36000, 8, ...)
+    g_gtb2 = cuda_pairing.f12_mulreduce8_flat(g_gtb).reshape(-1, 8, 6, 2, 16)
+    gt1 = cuda_pairing.f12_mulreduce8_flat(g_multi2)
+    gt2 = cuda_pairing.f12_mulreduce8_flat(g_gtb2).expand(
+        N_SERVERS, -1, 6, 2, 16).reshape(-1, 6, 2, 16).contiguous()
 
     K = NUM_DPS * V
     cases = {
@@ -196,6 +315,34 @@ def main():
             (f"N={V} (normalize)", lambda: cuda_pairing.fp_inv_flat(zs),
              lambda: cuda_pairing.fp_inv_plain(zs), 255 + 124, V, 2 * V * 64),
         ],
+        "f2_inv": [
+            (f"N={n_proofs} (normalize V)",
+             lambda: cuda_pairing.f2_inv_flat(g2_z),
+             lambda: cuda_pairing.f2_inv_plain(g2_z), MM_F2_INV, n_proofs,
+             2 * nbytes(g2_z)),
+        ],
+        "g2_scalar_mul": [
+            (f"N={n_proofs} (V = v A[digit])",
+             lambda: cuda_pairing.g2_scalar_mul_flat(g2_p, g2_k),
+             lambda: cuda_pairing.g2_scalar_mul_plain(g2_p, g2_k),
+             MM_G2_LADDER, n_proofs, 2 * nbytes(g2_p) + nbytes(g2_k)),
+        ],
+        "f12_mul": [
+            (f"N={n_proofs} (a = gt1 gt2)",
+             lambda: cuda_pairing.f12_mul_flat(gt1, gt2),
+             lambda: cuda_pairing.f12_mul_plain(gt1, gt2), MM_F12_MUL,
+             n_proofs, 3 * nbytes(gt1)),
+        ],
+        "f12_mulreduce8": [
+            (f"N={g.shape[0]} ({what})",
+             (lambda g=g: cuda_pairing.f12_mulreduce8_flat(g)),
+             (lambda g=g: cuda_pairing.f12_mulreduce8_plain(g)),
+             7 * MM_F12_MUL, g.shape[0], nbytes(g) * 9 // 8)
+            for g, what in ((g_multi, "digit power, pass 1"),
+                            (g_multi2, "digit power, pass 2"),
+                            (g_gtb, "gtB^t, pass 1"),
+                            (g_gtb2, "gtB^t, pass 2"))
+        ],
     }
     meta = {
         "fixed_base_mul": ("drynx_tpu_torch/csrc/g1_ops.cu",
@@ -208,6 +355,14 @@ def main():
                       "drynx_tpu/crypto/pallas_ops.py:429"),
         "fp_inv": ("drynx_tpu_torch/csrc/fp_inv.cu",
                    "drynx_tpu/crypto/pallas_pairing.py:949"),
+        "f2_inv": ("drynx_tpu_torch/csrc/g2_ops.cu",
+                   "drynx_tpu/crypto/pallas_pairing.py:993"),
+        "g2_scalar_mul": ("drynx_tpu_torch/csrc/g2_ops.cu",
+                          "drynx_tpu/crypto/pallas_pairing.py:1114"),
+        "f12_mul": ("drynx_tpu_torch/csrc/gt_ops.cu",
+                    "drynx_tpu/crypto/pallas_pairing.py:529"),
+        "f12_mulreduce8": ("drynx_tpu_torch/csrc/gt_ops.cu",
+                           "drynx_tpu/crypto/pallas_pairing.py:629"),
     }
 
     # -- phase 2: every kernel against its plain version ---------------------
@@ -295,13 +450,150 @@ def main():
           f"{[round(x, 4) for x in walls]}); GD alone median "
           f"{statistics.median(gd_s):.4f} s", flush=True)
 
+    # -- phase 5: proofs-on data collection, counted --------------------------
+    coll_tbl = setup.coll_pub_table
+
+    def collect():
+        gen = torch.Generator(device=dev).manual_seed(PROOF_SEED)
+        cts5, lists = svc.collect_with_range_proofs(
+            stats, enc_rs, ranges, {U: sigs}, coll_tbl, generator=gen)
+        return cts5, lists, [lst.to_bytes() for lst in lists]
+
+    for counts in (cuda_ops.LAUNCHES, cuda_pairing.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cts5, lists, payloads = collect()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches5 = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
+    print(f"phase 5: first proofs-on collection ({n_vals} values, {n_proofs} "
+          f"digit proofs) {first_s:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches5}", flush=True)
+    if launches5 != EXPECTED_LAUNCHES_PROOFS:
+        raise SystemExit(f"proofs-on launches {launches5} differ from "
+                         f"{EXPECTED_LAUNCHES_PROOFS}")
+
+    # (a) D == c C2 + Zr P + (sum_j u^j Zphi_j) B for every value
+    pbs = [lst.batches[0][1] for lst in lists]
+    if len(lists) != NUM_DPS or any(
+            len(lst.batches) != 1 or lst.batches[0][0].tolist() != list(range(V))
+            for lst in lists):
+        raise SystemExit("a payload does not cover its DP's values in one batch")
+    cat = lambda name: torch.cat([getattr(pb, name) for pb in pbs])
+    if not torch.equal(cat("commit"), cts5.reshape(-1, 2, 3, 16)):
+        raise SystemExit("the proofs commit to other ciphertexts")
+    wz = rp._weighted_sum_mod_n(cat("zphi"), rp._upow_mont(U, L, dev))
+    d_want = C.add(C.scalar_mul(cat("commit")[:, 1], cat("challenge")),
+                   C.add(eg.fixed_base_mul(coll_tbl, cat("zr")),
+                         eg.fixed_base_mul(base, wz)))
+    d_ok = C.eq(d_want, cat("d"))
+    if d_ok.shape != (n_vals,) or not bool(d_ok.all()):
+        raise SystemExit(f"D equation fails for {int((~d_ok).sum())} values")
+
+    # (b) every challenge, recomputed from the serialized payload bytes
+    wires = [parse_payload(p)[0] for p in payloads]
+    sum_y = rp.sum_publics_bytes(sigs)
+    for dp, w in enumerate(wires):
+        if (w["u"], w["l"]) != (U, L) or w["idx"].tolist() != list(range(V)):
+            raise SystemExit(f"DP {dp}: payload header differs")
+        c_host = rp.challenge_from_wire(w, sum_y, U, L)
+        if not np.array_equal(enc.limbs_to_bytes(c_host), w["challenge"]):
+            raise SystemExit(f"DP {dp}: a challenge does not hash its "
+                             f"transcript")
+
+    # (c) the pairing equation of sampled digit proofs, by the host oracle,
+    # and (d) a changed Zv fails it
+    gtb = refimpl.pair(refimpl.G1, refimpl.G2)
+    t0 = time.perf_counter()
+    for dp, i, val, j in CHECK_SAMPLES:
+        w = wires[dp]
+        args = (big(w["challenge"][val]), sigs[i].public,
+                big(w["zphi"][val, j]), big(w["zv"][i, val, j]),
+                w["v"][i, val, j], w["a"][i, val, j])
+        if not digit_pairing_ok(refimpl, gtb, *args):
+            raise SystemExit(f"pairing equation fails at DP {dp} server {i}"
+                             f" value {val} digit {j}")
+    dp, i, val, j = CHECK_SAMPLES[-1]
+    w = wires[dp]
+    bad_zv = (big(w["zv"][i, val, j]) + 1) % refimpl.N
+    if digit_pairing_ok(refimpl, gtb, big(w["challenge"][val]),
+                        sigs[i].public, big(w["zphi"][val, j]), bad_zv,
+                        w["v"][i, val, j], w["a"][i, val, j]):
+        raise SystemExit("the pairing check accepts a tampered Zv")
+    print(f"  (a) D equation holds for all {n_vals} values; (b) all "
+          f"{n_vals} challenges recomputed from the payload bytes; (c) "
+          f"pairing equation holds for {len(CHECK_SAMPLES)} sampled digit "
+          f"proofs (DPs 0 and {NUM_DPS - 1}, all {N_SERVERS} servers, last "
+          f"value and digit); (d) a tampered Zv fails it "
+          f"({time.perf_counter() - t0:.1f} s on the host)", flush=True)
+
+    # timings: whole collections, then the same work stage by stage (the
+    # same generator seed, so the same bytes)
+    def staged():
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        mark()
+        gen = torch.Generator(device=dev).manual_seed(PROOF_SEED)
+        shifted = stats.to(torch.int64) + U ** L // 2
+        cts_s = eg.encrypt_ints_with_tables(base, coll_tbl, shifted, enc_rs)
+        mark()
+        ctf = cts_s.reshape(-1, 2, 3, 16)
+        dig = torch.from_numpy(rp.to_base(shifted.reshape(-1).cpu().numpy(),
+                                          U, L)).to(dev, torch.int64)
+        s_, t_, m_, v_ = [eg.random_scalars(shape, gen, dev) for shape in
+                          [(n_vals, L)] * 3 + [(N_SERVERS, n_vals, L)]]
+        d5, m_tot, v_pts, a5 = rp._commit_kernel(
+            dig, s_, t_, m_, v_, A_tab, coll_tbl,
+            rp.sig_gt_pow_tables(sigs, dev), U, L)
+        mark()
+        wire = rp._range_wire_dict(ctf, d5, v_pts, a5)
+        c5 = rp.challenge_from_wire(wire, sum_y, U, L).to(dev)
+        mark()
+        zphi, zr, zv = rp._response_kernel(dig, c5, enc_rs.reshape(-1, 16),
+                                           s_, t_, m_tot, v_)
+        whole = rp.RangeProofBatch(ctf, c5, zr, d5, zphi, zv, v_pts, a5, U,
+                                   L, wire)
+        out = [rp.RangeProofList(V, [(np.arange(V), rp._slice_batch(
+            whole, np.arange(dp * V, (dp + 1) * V)))]).to_bytes()
+            for dp in range(NUM_DPS)]
+        mark()
+        if out != payloads:
+            raise SystemExit("the staged run's payloads differ")
+        return np.diff(marks)
+
+    walls5 = []
+    for _ in range(PROOF_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, again = collect()
+        torch.cuda.synchronize()
+        walls5.append(time.perf_counter() - t0)
+        if again != payloads:
+            raise SystemExit("a warm collection's payloads differ")
+    split = np.median([staged() for _ in range(PROOF_RUNS)], axis=0)
+    print(f"phase 5: proofs-on collection wall time median "
+          f"{statistics.median(walls5):.4f} s over {PROOF_RUNS} warm runs "
+          f"(all: {[round(x, 4) for x in walls5]}); staged split, median of "
+          f"{PROOF_RUNS}: encryption {split[0]:.4f} s, commit kernels "
+          f"{split[1]:.4f} s, wire encoding + hash {split[2]:.4f} s, "
+          f"response + payloads {split[3]:.4f} s", flush=True)
+
     kernels = []
     for name, tot in summary.items():
         source, replaces = meta[name]
         ops_ms, bytes_ms = tot["ops_ms"], tot["bytes_ms"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + launches5[name],
             "max_abs_err": tot["err"], "ms": round(tot["ms"], 6),
             "plain_ms": round(tot["plain_ms"], 3),
             "bound_ms": round(max(ops_ms, bytes_ms), 6),
@@ -309,7 +601,8 @@ def main():
             "library_ms": None,
         })
     print("(ms, plain_ms, bound_ms: summed over the kernel's main-path shapes "
-          "above, one launch each)")
+          "above, one launch each; launches: the survey's plus the proofs-on "
+          "collection's)")
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -192,37 +192,12 @@ def point_add_plain(p, q):
 # Wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
-def _check_operands(*named):
-    device = named[0][1].device
-    for name, t in named:
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32 limbs, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no route for tensors on {device}")
-    return device
-
-
-def _check_shape(name, t, shape):
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-
-
 def _launch(kernel, entry, out, inputs, ints):
     """Launch csrc/g1_ops.cu's `entry` on the current stream into `out`
     and count it; raises if CUDA refused the launch."""
     if out.shape[0] == 0:
         return out
-    lib = cuda_build.load("g1_ops")
-    inputs = [t.contiguous() for t in inputs]   # held until after the launch
-    # the runtime launches on the current device: make it the tensors' one
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(*[t.data_ptr() for t in inputs],
-                                 out.data_ptr(), *ints, stream)
-    cuda_build.check(rc, entry)
+    cuda_build.launch("g1_ops", entry, out, inputs, ints)
     LAUNCHES[kernel] += 1
     return out
 
@@ -235,9 +210,9 @@ def fixed_base_mul_flat(table, k, n_windows: int = 64):
     """k*P via a shared fixed-base window table. table: (64, 16, 3, 16) as
     built by elgamal.FixedBase; k: (N, 16) plain scalars -> (N, 3, 16).
     n_windows < 64 truncates the ladder for small scalars (k < 16^W)."""
-    device = _check_operands(("table", table), ("k", k))
-    _check_shape("table", table, (64, WINDOW_ENTRIES, 3, NUM_LIMBS))
-    _check_shape("k", k, (k.shape[0], NUM_LIMBS))
+    device = cuda_build.check_operands(("table", table), ("k", k))
+    cuda_build.check_shape("table", table, (64, WINDOW_ENTRIES, 3, NUM_LIMBS))
+    cuda_build.check_shape("k", k, (k.shape[0], NUM_LIMBS))
     if not 1 <= n_windows <= 64:
         raise ValueError(f"n_windows must be in [1, 64], got {n_windows}")
     if device.type == "cpu":
@@ -251,10 +226,10 @@ def scalar_mul_flat(p, k, n_windows: int = 64):
     """k*P batched: p (N, 3, 16) Jacobian Montgomery, k (N, 16) plain
     scalars -> (N, 3, 16). n_windows < 64 truncates the ladder for short
     scalars (k < 16^W)."""
-    device = _check_operands(("p", p), ("k", k))
+    device = cuda_build.check_operands(("p", p), ("k", k))
     n = p.shape[0]
-    _check_shape("p", p, (n, 3, NUM_LIMBS))
-    _check_shape("k", k, (n, NUM_LIMBS))
+    cuda_build.check_shape("p", p, (n, 3, NUM_LIMBS))
+    cuda_build.check_shape("k", k, (n, NUM_LIMBS))
     if not 1 <= n_windows <= 64:
         raise ValueError(f"n_windows must be in [1, 64], got {n_windows}")
     if device.type == "cpu":
@@ -265,9 +240,9 @@ def scalar_mul_flat(p, k, n_windows: int = 64):
 
 def point_reduce_flat(pts):
     """Group-add reduce over axis 0: (R, N, 3, 16) -> (N, 3, 16)."""
-    device = _check_operands(("pts", pts))
+    device = cuda_build.check_operands(("pts", pts))
     R, n = pts.shape[0], pts.shape[1]
-    _check_shape("pts", pts, (R, n, 3, NUM_LIMBS))
+    cuda_build.check_shape("pts", pts, (R, n, 3, NUM_LIMBS))
     if R < 1:
         raise ValueError("point_reduce_flat needs at least one row")
     if device.type == "cpu":
@@ -278,10 +253,10 @@ def point_reduce_flat(pts):
 
 def point_add_flat(p, q):
     """Complete add, (N, 3, 16) x (N, 3, 16) -> (N, 3, 16)."""
-    device = _check_operands(("p", p), ("q", q))
+    device = cuda_build.check_operands(("p", p), ("q", q))
     n = p.shape[0]
-    _check_shape("p", p, (n, 3, NUM_LIMBS))
-    _check_shape("q", q, (n, 3, NUM_LIMBS))
+    cuda_build.check_shape("p", p, (n, 3, NUM_LIMBS))
+    cuda_build.check_shape("q", q, (n, 3, NUM_LIMBS))
     if device.type == "cpu":
         return point_add_plain(p, q)
     return _launch("point_add", "g1_point_add", _empty_points(n, device),

@@ -120,6 +120,13 @@ def magnitude_limbs(values: torch.Tensor):
     return limbs.to(torch.int32), neg
 
 
+def int_to_scalar(values: torch.Tensor) -> torch.Tensor:
+    """Signed int64 (...,) -> mod-n scalar limbs (..., 16), int32: v for
+    v >= 0, n - |v| for v < 0 (as kyber's SetInt64)."""
+    limbs, neg = magnitude_limbs(values)
+    return torch.where(neg[..., None], F.neg(limbs, FN), limbs)
+
+
 # ---------------------------------------------------------------------------
 # Core ElGamal ops
 # ---------------------------------------------------------------------------
@@ -235,7 +242,7 @@ def decrypt_ints(ct, secret: int, table: DecryptionTable):
 
 __all__ = [
     "keygen", "secret_to_limbs", "FixedBase", "fixed_base_mul", "BASE_TABLE",
-    "pub_table", "random_scalars", "magnitude_limbs",
+    "pub_table", "random_scalars", "magnitude_limbs", "int_to_scalar",
     "encrypt_ints_with_tables", "decrypt_point",
     "DecryptionTable", "decrypt_ints",
 ]

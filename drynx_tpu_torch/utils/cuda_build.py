@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "drynx_tpu_torch"
@@ -40,6 +42,14 @@ ENTRY_POINTS = {
     },
     "fp_inv": {
         "fp_inv": (2, 1),
+    },
+    "g2_ops": {
+        "g2_scalar_mul": (3, 1),
+        "f2_inv": (2, 1),
+    },
+    "gt_ops": {
+        "f12_mul": (3, 1),
+        "f12_mulreduce8": (2, 1),
     },
 }
 
@@ -142,5 +152,43 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
 
 
-__all__ = ["build_all", "load", "check", "ptxas_report", "library_path",
-           "nvcc_path", "BUILD_DIR"]
+def check_operands(*named):
+    """Every (name, tensor) int32 and on one CPU or CUDA device; returns
+    the device."""
+    device = named[0][1].device
+    for name, t in named:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32 limbs, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no route for tensors on {device}")
+    return device
+
+
+def check_shape(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def launch(name: str, entry: str, out, inputs, ints) -> None:
+    """Call entry point `entry` of csrc/<name>.cu on the current stream of
+    `out`'s device: input pointers, the output pointer, the ints, the
+    stream. Inputs are made contiguous (and 16-byte aligned, for the
+    kernels' vector loads) and held until the call returns; raises if CUDA
+    refused the launch."""
+    lib = load(name)
+    inputs = [t.contiguous() for t in inputs]
+    inputs = [t.clone() if t.data_ptr() % 16 else t for t in inputs]
+    # the runtime launches on the current device: make it the tensors' one
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*[t.data_ptr() for t in inputs],
+                                 out.data_ptr(), *ints, stream)
+    check(rc, entry)
+
+
+__all__ = ["build_all", "load", "check", "check_operands", "check_shape",
+           "launch", "ptxas_report", "library_path", "nvcc_path",
+           "BUILD_DIR"]

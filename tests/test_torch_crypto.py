@@ -275,7 +275,28 @@ def test_normalize_and_curve_helpers_match_oracle():
                                                      dtype=torch.int32),
                                          torch.zeros(2, 16, dtype=torch.int32)),
     lambda: cuda_pairing.fp_inv_flat(torch.zeros(2, 8, dtype=torch.int32)),
-], ids=["dtype", "shape", "windows", "table", "limbs"])
+    lambda: cuda_pairing.f2_inv_flat(torch.zeros(2, 2, 16, dtype=torch.int64)),
+    lambda: cuda_pairing.f2_inv_flat(torch.zeros(2, 16, dtype=torch.int32)),
+    lambda: cuda_pairing.g2_scalar_mul_flat(
+        torch.zeros(2, 3, 2, 16, dtype=torch.int32),
+        torch.zeros(3, 16, dtype=torch.int32)),
+    lambda: cuda_pairing.g2_scalar_mul_flat(
+        torch.zeros(2, 3, 16, dtype=torch.int32),
+        torch.zeros(2, 16, dtype=torch.int32)),
+    lambda: cuda_pairing.f12_mul_flat(
+        torch.zeros(2, 6, 2, 16, dtype=torch.int32),
+        torch.zeros(2, 6, 2, 16, dtype=torch.uint8)),
+    lambda: cuda_pairing.f12_mul_flat(
+        torch.zeros(2, 6, 2, 16, dtype=torch.int32),
+        torch.zeros(1, 6, 2, 16, dtype=torch.int32)),
+    lambda: cuda_pairing.f12_mulreduce8_flat(
+        torch.zeros(2, 7, 6, 2, 16, dtype=torch.int32)),
+    lambda: cuda_pairing.f12_mulreduce8_flat(
+        torch.zeros(2, 8, 6, 2, 16, dtype=torch.float32)),
+], ids=["dtype", "shape", "windows", "table", "limbs", "f2_inv-dtype",
+        "f2_inv-shape", "g2_scalar_mul-batch", "g2_scalar_mul-point",
+        "f12_mul-dtype", "f12_mul-batch", "f12_mulreduce8-rows",
+        "f12_mulreduce8-dtype"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises((TypeError, ValueError)):
         call()

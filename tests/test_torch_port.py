@@ -24,7 +24,11 @@ from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
 from drynx_tpu_torch.crypto import elgamal as eg
 from drynx_tpu_torch.crypto import field as F
+from drynx_tpu_torch.crypto import fp2 as F2
+from drynx_tpu_torch.crypto import fp12 as F12
+from drynx_tpu_torch.crypto import g2 as G2
 from drynx_tpu_torch.crypto import params, refimpl
+from drynx_tpu_torch.service import service as svc
 from drynx_tpu_torch.utils import cuda_build
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -70,18 +74,42 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
                                  flagship.pima_shaped_problem(1, 4, 2, 1)[2],
                                  num_dps=1),
     lambda: flagship.entry(),
-], ids=["create", "from_numpy", "make_inputs", "entry"])
+    lambda: svc.make_range_sigs(u=4, n_servers=1),
+], ids=["create", "from_numpy", "make_inputs", "entry", "range_sigs"])
 def test_entry_points_need_cuda_unless_the_cpu_is_named(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
 
 
-def test_cpu_tensors_take_the_plain_versions_without_counting():
+def _gt(k):
+    """gtB^k on the host: (6, 2, 16) limbs."""
+    return F12.from_ref(refimpl.fp12_pow(refimpl.pair(refimpl.G1, refimpl.G2),
+                                         k))
+
+
+@pytest.mark.parametrize("kernel", ["point_add", "f2_inv", "g2_scalar_mul",
+                                    "f12_mul", "f12_mulreduce8"])
+def test_cpu_tensors_take_the_plain_versions_without_counting(kernel):
     before = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
-    g = C.from_ref(refimpl.G1)[None]
-    two_g = cuda_ops.point_add_flat(g, g)
-    assert C.to_ref(two_g) == [refimpl.g1_add(refimpl.G1, refimpl.G1)]
+    if kernel == "point_add":
+        g = C.from_ref(refimpl.G1)[None]
+        two_g = cuda_ops.point_add_flat(g, g)
+        assert C.to_ref(two_g) == [refimpl.g1_add(refimpl.G1, refimpl.G1)]
+    elif kernel == "f2_inv":
+        x = F2.from_ref((5, 7))
+        assert F2.to_ref(F2.mul(cuda_pairing.f2_inv_flat(x[None])[0], x)) \
+            == (1, 0)
+    elif kernel == "g2_scalar_mul":
+        q = G2.from_ref(refimpl.G2)[None]
+        out = cuda_pairing.g2_scalar_mul_flat(q, F.from_int([3]))
+        assert G2.to_ref(out) == [refimpl.g2_mul(refimpl.G2, 3)]
+    elif kernel == "f12_mul":
+        out = cuda_pairing.f12_mul_flat(_gt(2)[None], _gt(3)[None])
+        assert torch.equal(out[0], _gt(5))
+    else:
+        g = torch.stack([_gt(k) for k in range(1, 9)])[None]
+        assert torch.equal(cuda_pairing.f12_mulreduce8_flat(g)[0], _gt(36))
     assert {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES} == before
 
 
@@ -93,6 +121,11 @@ def test_kernel_build_targets_hopper_and_names_every_source():
         assert cuda_build.library_path(name).parent == cuda_build.BUILD_DIR
     sources = {p.stem for p in cuda_build.CSRC.glob("*.cu")}
     assert sources == set(cuda_build.ENTRY_POINTS)
+    assert {"g2_ops", "gt_ops"} <= sources
+    assert set(cuda_build.ENTRY_POINTS["g2_ops"]) == {"g2_scalar_mul",
+                                                      "f2_inv"}
+    assert set(cuda_build.ENTRY_POINTS["gt_ops"]) == {"f12_mul",
+                                                      "f12_mulreduce8"}
 
 
 # ---------------------------------------------------------------------------
@@ -113,11 +146,42 @@ def _operands(n, device):
     return pts.to(device), F.from_int(ks).to(device)
 
 
+# 16 a + 15 with 16 a = 15 (mod n): the ladder's last add is Q' + Q' with
+# Q' = 15 Q, so it takes the complete add's doubling branch
+K_LAST_ADD_DOUBLES = 16 * (15 * pow(16, -1, params.N) % params.N) + 15
+
+
+def _g2_operands(n, device):
+    """n twist points (the last at infinity) and their scalars: 0, n - 1,
+    K_LAST_ADD_DOUBLES, then random ones."""
+    rng = np.random.default_rng(8)
+    ks = [0, params.N - 1, K_LAST_ADD_DOUBLES] + [
+        int.from_bytes(rng.bytes(32), "little") % params.N
+        for _ in range(n - 3)]
+    pts = [refimpl.g2_mul(refimpl.G2, 5 + i) for i in range(n - 1)] + [None]
+    return (torch.stack([G2.from_ref(p) for p in pts]).to(device),
+            F.from_int(ks).to(device))
+
+
+def _gt_operands(n, device):
+    """n distinct GT elements gtB^(i + 2), built by host products."""
+    base = refimpl.pair(refimpl.G1, refimpl.G2)
+    out, cur = [], refimpl.fp12_mul(base, base)
+    for _ in range(n):
+        out.append(F12.from_ref(cur))
+        cur = refimpl.fp12_mul(cur, base)
+    return torch.stack(out).to(device)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["fixed_base_mul", "scalar_mul",
-                                    "point_reduce", "point_add", "fp_inv"])
+                                    "point_reduce", "point_add", "fp_inv",
+                                    "f2_inv", "g2_scalar_mul", "f12_mul",
+                                    "f12_mulreduce8"])
 def test_kernel_equals_plain_version_on_the_card(cuda, kernel):
     pts, ks = _operands(130, cuda)
+    g2p, g2k = _g2_operands(130, cuda)
+    gts = _gt_operands(160, cuda)
     base = eg.BASE_TABLE.table.to(cuda)
     q = pts.flip(0).clone()
     q[0], q[1], q[2] = pts[0], C.neg(pts[1:2])[0], C.infinity((), cuda)
@@ -133,6 +197,17 @@ def test_kernel_equals_plain_version_on_the_card(cuda, kernel):
                       lambda: cuda_ops.point_add_plain(pts, q)),
         "fp_inv": (lambda: cuda_pairing.fp_inv_flat(pts[:, 2].contiguous()),
                    lambda: cuda_pairing.fp_inv_plain(pts[:, 2])),
+        "f2_inv": (lambda: cuda_pairing.f2_inv_flat(g2p[:, 0].contiguous()),
+                   lambda: cuda_pairing.f2_inv_plain(g2p[:, 0])),
+        "g2_scalar_mul": (lambda: cuda_pairing.g2_scalar_mul_flat(g2p, g2k),
+                          lambda: cuda_pairing.g2_scalar_mul_plain(g2p, g2k)),
+        "f12_mul": (lambda: cuda_pairing.f12_mul_flat(gts[:130], gts[30:]),
+                    lambda: cuda_pairing.f12_mul_plain(gts[:130], gts[30:])),
+        "f12_mulreduce8": (
+            lambda: cuda_pairing.f12_mulreduce8_flat(
+                gts.reshape(20, 8, 6, 2, 16)),
+            lambda: cuda_pairing.f12_mulreduce8_plain(
+                gts.reshape(20, 8, 6, 2, 16))),
     }
     kern, plain = calls[kernel]
     counts = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
