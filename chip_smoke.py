@@ -26,6 +26,14 @@ Phases (any failed check exits non-zero; nothing is caught):
      pairing equation of sampled digit proofs by the host oracle, read from
      the payload bytes, and (d) that (c) rejects a tampered Zv. Print the
      phase's wall time (median of warm runs) and its split by stage.
+  6. Run the verifying node's joint check of the ten phase-5 payloads
+     through `service.verify_collected_range_proofs`, counted as above: all
+     ten accepted; with one Zv byte of one DP changed, only that DP
+     rejected. Run the per-value check (one pairing per digit proof) once
+     on the concatenated payloads, counted too: all 900 values accepted,
+     and on the tampered bytes only the tampered value rejected. Print the
+     joint check's wall time (median of warm runs), its split by stage and
+     the peak device memory.
   Last, the kernels' times, launch counts and bounds as one JSON line, the
   card's name and power limit, and the contract line
   {"ok": true, "device": {...}}.
@@ -48,9 +56,11 @@ KERNEL_REPS = 10
 # launches of one survey: encrypt rB, |m|B, rP and key switch rB, rQ;
 # key switch xK and decrypt; aggregate and the two key-switch sums;
 # encrypt, key switch and its finish, decrypt; one normalize
+VERIFY_KERNELS = ("miller", "f12_inv", "f12_csqr", "f12_slotmul", "f12_wpow")
 EXPECTED_LAUNCHES = {"fixed_base_mul": 5, "scalar_mul": 2, "point_reduce": 3,
                      "point_add": 4, "fp_inv": 1, "f2_inv": 0,
-                     "g2_scalar_mul": 0, "f12_mul": 0, "f12_mulreduce8": 0}
+                     "g2_scalar_mul": 0, "f12_mul": 0, "f12_mulreduce8": 0,
+                     **dict.fromkeys(VERIFY_KERNELS, 0)}
 # the proofs-on survey's ranges (bench.py:RANGES, reference simulation
 # preset 18) and its data collection's launches: encrypt rB, |m|B, rP and
 # D's two fixed-base products; encrypt's add and D's; normalize of the
@@ -65,7 +75,30 @@ CHECK_SAMPLES = [(dp, i, val, j) for dp, val, j in
 EXPECTED_LAUNCHES_PROOFS = {"fixed_base_mul": 5, "scalar_mul": 0,
                             "point_reduce": 0, "point_add": 2, "fp_inv": 2,
                             "f2_inv": 1, "g2_scalar_mul": 1, "f12_mul": 1,
-                            "f12_mulreduce8": 4}
+                            "f12_mulreduce8": 4,
+                            **dict.fromkeys(VERIFY_KERNELS, 0)}
+# the joint check's launches: the D equation (c C2, two fixed-base products,
+# two adds), the GPhi12 gate (two frob2, one product), the order gate (frob1,
+# a 128-bit power), gtB^(sum r Zv) (two passes); c y and -Zphi B, their sum,
+# the weighting by r, both normalizations, the Miller loop, a^r (a 63-bit
+# power); the folds of the Miller values and of a^r (five passes each, 13,500
+# padded to 8^5); one final exponentiation (an inverse, 14 slot
+# multiplications, three powers by u, four cyclotomic squares, 15 products);
+# the total's two products
+EXPECTED_LAUNCHES_VERIFY = {"fixed_base_mul": 3, "scalar_mul": 3,
+                            "point_reduce": 0, "point_add": 3, "fp_inv": 1,
+                            "f2_inv": 1, "g2_scalar_mul": 0, "f12_mul": 18,
+                            "f12_mulreduce8": 12, "miller": 1, "f12_inv": 1,
+                            "f12_csqr": 4, "f12_slotmul": 17, "f12_wpow": 5}
+# the per-value check's launches: the D equation as above; c y, -Zphi B and
+# their sum; both normalizations; one pairing of every digit proof (the
+# Miller loop and the final exponentiation above) times gtB^Zv (two passes)
+EXPECTED_LAUNCHES_PER_VALUE = {"fixed_base_mul": 3, "scalar_mul": 2,
+                               "point_reduce": 0, "point_add": 3, "fp_inv": 1,
+                               "f2_inv": 1, "g2_scalar_mul": 0, "f12_mul": 16,
+                               "f12_mulreduce8": 2, "miller": 1, "f12_inv": 1,
+                               "f12_csqr": 4, "f12_slotmul": 14, "f12_wpow": 3}
+TAMPER_DP = 3
 
 # H100 SXM: 132 SMs, 64 32-bit integer multiply-adds per SM per clock,
 # 3.35 TB/s device memory (NVIDIA data sheet and Hopper white paper)
@@ -81,6 +114,33 @@ MM_PADD = 23          # complete add: 16 for the add, 7 for the double
 MM_G2_LADDER = 7 * 16 + 7 * 59 + 63 * (4 * 16 + 59)
 MM_F2_INV = 2 + 255 + 124 + 2   # norm, Fermat over p - 2, two products
 MM_F12_MUL = 18 * 3             # 18 Fp2 products
+MM_F12_SQR = 12 * 3             # complex method: 12 Fp2 products
+MM_F12_CSQR = 9 * 2             # Granger-Scott: 9 Fp2 squares
+MM_F12_SLOTMUL = 6 * 3          # 6 Fp2 products by constants
+# the tower inverse: the norm (2 Fp6 products = 36), the Fp6 adjugate (3
+# squares, 6 products = 24), the Fp2 inverse (383) and 3 products (9), then
+# 2 Fp6 products (36)
+MM_F12_INV = 36 + 24 + MM_F2_INV + 9 + 36
+
+
+def mm_miller(ate_bits):
+    """Montgomery products of one Miller loop over the bits of 6u + 2 below
+    its leading one: a double step per bit (a square, 5 products, 2 by an
+    Fp element, 5 more squares = 31; the Fp12 square 36; the line product
+    54), an add step where the bit is set and for each of the 2 Frobenius
+    corrections (4 squares, 10 products, 2 by an Fp element = 42; the line
+    product 54). The kernel computes the add step at every bit and keeps it
+    by mask; the bits are public, so the bound counts only the adds kept."""
+    return (len(ate_bits) * (31 + MM_F12_SQR + MM_F12_MUL)
+            + (sum(ate_bits) + 2) * (42 + MM_F12_MUL))
+
+
+def mm_wpow(n_bits, cyc):
+    """Montgomery products of one windowed power: 3 squares and 3 products
+    for the table, then 3 squares and a product per further window."""
+    sq = MM_F12_CSQR if cyc else MM_F12_SQR
+    return 3 * (sq + MM_F12_MUL) + ((n_bits + 2) // 3 - 1) * (3 * sq
+                                                              + MM_F12_MUL)
 
 
 def smi(query):
@@ -154,6 +214,18 @@ def digit_pairing_ok(refimpl, gtb, c, y, zphi, zv, v_bytes, a_bytes):
                             refimpl.fp12_pow(gtb, zv)) == a
 
 
+def tamper_zv(buf):
+    """The payload with the last (least significant) byte of its first Zv
+    scalar (server 0, value 0, digit 0) changed."""
+    n_idx = int(np.frombuffer(buf[16:24], dtype="<i8")[0])
+    head = 32 + 8 * n_idx
+    _u, l, v, _ns = (int(x) for x in np.frombuffer(buf[head:head + 32], "<i8"))
+    at = head + 32 + v * (128 + 32 + 32 + 64) + v * l * 32 + 31
+    b = bytearray(buf)
+    b[at] ^= 1
+    return bytes(b)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -162,12 +234,24 @@ def main():
     from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
     from drynx_tpu_torch.crypto import curve as C
     from drynx_tpu_torch.crypto import elgamal as eg
+    from drynx_tpu_torch.crypto import field as F
+    from drynx_tpu_torch.crypto import fp12 as F12
+    from drynx_tpu_torch.crypto import g2 as G2
+    from drynx_tpu_torch.crypto import gt as GT
     from drynx_tpu_torch.crypto import refimpl
     from drynx_tpu_torch.models import logreg as lr
     from drynx_tpu_torch.proofs import encoding as enc
     from drynx_tpu_torch.proofs import range_proof as rp
     from drynx_tpu_torch.service import service as svc
     from drynx_tpu_torch.utils import cuda_build
+
+    def zero_launches():
+        for counts in (cuda_ops.LAUNCHES, cuda_pairing.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    def launch_counts():
+        return {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
 
     dev = torch.device("cuda")
     card = smi("name,power.limit")
@@ -245,6 +329,32 @@ def main():
     gt1 = cuda_pairing.f12_mulreduce8_flat(g_multi2)
     gt2 = cuda_pairing.f12_mulreduce8_flat(g_gtb2).expand(
         N_SERVERS, -1, 6, 2, 16).reshape(-1, 6, 2, 16).contiguous()
+
+    # the five verification kernels' inputs, from the payloads of one
+    # collection (phase 5's seed): the RLC check's weighted G1 arguments
+    # and blinded signatures, affine, for the Miller loop; the GT
+    # commitments a (GPhi12 members) and conj6(a) for the powers, the
+    # squares and the slot maps; the Miller values for the inverse
+    coll_tbl = setup.coll_pub_table
+    _, lists0 = svc.collect_with_range_proofs(
+        stats, enc_rs, ranges, {U: sigs}, coll_tbl,
+        generator=torch.Generator(device=dev).manual_seed(PROOF_SEED))
+    pubs = [sg.public for sg in sigs]
+    vb = rp._concat_batches([lst.batches[0][1] for lst in lists0])
+    r_w = eg.int_to_scalar(torch.from_numpy(
+        np.random.default_rng(PROOF_SEED).integers(
+            1, 1 << 62, size=(N_SERVERS, n_vals, L), dtype=np.int64)
+    ).to(dev)).reshape(-1, 16)
+    ml_px, ml_py, _ = C.normalize(C.scalar_mul_short(
+        rp._g1_args(vb, pubs).reshape(-1, 3, 16), r_w, 64))
+    ml_qx, ml_qy, _ = G2.normalize(vb.v_pts.reshape(-1, 3, 2, 16))
+    ml_in = (ml_px, ml_py, ml_qx, ml_qy)
+    gt_a = vb.a.reshape(-1, 6, 2, 16).contiguous()
+    gt_ca = F12.conj6(gt_a).contiguous()
+    t1_k = F.from_int(refimpl.P - refimpl.N).to(dev).expand(
+        n_proofs, 16).contiguous()
+    ml_out = cuda_pairing.miller_flat(*ml_in)
+    f12_bytes = nbytes(gt_a)
 
     K = NUM_DPS * V
     cases = {
@@ -343,6 +453,42 @@ def main():
                             (g_gtb, "gtB^t, pass 1"),
                             (g_gtb2, "gtB^t, pass 2"))
         ],
+        "miller": [
+            (f"N={n_proofs} (RLC Miller loop)",
+             lambda: cuda_pairing.miller_flat(*ml_in),
+             lambda: cuda_pairing.miller_plain(*ml_in),
+             mm_miller(cuda_pairing.ATE_BITS), n_proofs,
+             nbytes(*ml_in) + f12_bytes),
+        ],
+        "f12_inv": [
+            (f"N={n_proofs} (per-value final exp)",
+             lambda: cuda_pairing.f12_inv_flat(ml_out),
+             lambda: cuda_pairing.f12_inv_plain(ml_out), MM_F12_INV,
+             n_proofs, 2 * f12_bytes),
+        ],
+        "f12_csqr": [
+            (f"N={n_proofs} (per-value final exp)",
+             lambda: cuda_pairing.f12_csqr_flat(gt_a),
+             lambda: cuda_pairing.f12_csqr_plain(gt_a), MM_F12_CSQR,
+             n_proofs, 2 * f12_bytes),
+        ],
+        "f12_slotmul": [
+            (f"N={n_proofs} ({w})",
+             (lambda w=w: cuda_pairing.f12_slotmul_flat(gt_a, w)),
+             (lambda w=w: cuda_pairing.f12_slotmul_plain(gt_a, w)),
+             MM_F12_SLOTMUL, n_proofs, 2 * f12_bytes)
+            for w in cuda_pairing.SLOT_MAPS
+        ],
+        "f12_wpow": [
+            (f"N={n_proofs} 128 bits cyc (order gate)",
+             lambda: cuda_pairing.f12_wpow_flat(gt_a, t1_k, 128, cyc=True),
+             lambda: cuda_pairing.f12_wpow_plain(gt_a, t1_k, 128, True),
+             mm_wpow(128, True), n_proofs, 2 * f12_bytes + nbytes(t1_k)),
+            (f"N={n_proofs} 63 bits cyc (a^r)",
+             lambda: cuda_pairing.f12_wpow_flat(gt_ca, r_w, 63, cyc=True),
+             lambda: cuda_pairing.f12_wpow_plain(gt_ca, r_w, 63, True),
+             mm_wpow(63, True), n_proofs, 2 * f12_bytes + nbytes(r_w)),
+        ],
     }
     meta = {
         "fixed_base_mul": ("drynx_tpu_torch/csrc/g1_ops.cu",
@@ -363,6 +509,16 @@ def main():
                     "drynx_tpu/crypto/pallas_pairing.py:529"),
         "f12_mulreduce8": ("drynx_tpu_torch/csrc/gt_ops.cu",
                            "drynx_tpu/crypto/pallas_pairing.py:629"),
+        "miller": ("drynx_tpu_torch/csrc/miller.cu",
+                   "drynx_tpu/crypto/pallas_pairing.py:313"),
+        "f12_inv": ("drynx_tpu_torch/csrc/gt_ops.cu",
+                    "drynx_tpu/crypto/pallas_pairing.py:535"),
+        "f12_csqr": ("drynx_tpu_torch/csrc/gt_ops.cu",
+                     "drynx_tpu/crypto/pallas_pairing.py:851"),
+        "f12_slotmul": ("drynx_tpu_torch/csrc/gt_ops.cu",
+                        "drynx_tpu/crypto/pallas_pairing.py:645"),
+        "f12_wpow": ("drynx_tpu_torch/csrc/gt_ops.cu",
+                     "drynx_tpu/crypto/pallas_pairing.py:572"),
     }
 
     # -- phase 2: every kernel against its plain version ---------------------
@@ -398,15 +554,13 @@ def main():
 
     # -- phase 3: the main path, counted --------------------------------------
     fn = flagship.build_pipeline(setup, params)
-    for counts in (cuda_ops.LAUNCHES, cuda_pairing.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     w, dec, found = fn(stats, enc_rs, ks_rs)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
+    launches = launch_counts()
     print(f"phase 3: first survey run {first_s:.3f} s; launches {launches}",
           flush=True)
     if launches != EXPECTED_LAUNCHES:
@@ -451,24 +605,20 @@ def main():
           f"{statistics.median(gd_s):.4f} s", flush=True)
 
     # -- phase 5: proofs-on data collection, counted --------------------------
-    coll_tbl = setup.coll_pub_table
-
     def collect():
         gen = torch.Generator(device=dev).manual_seed(PROOF_SEED)
         cts5, lists = svc.collect_with_range_proofs(
             stats, enc_rs, ranges, {U: sigs}, coll_tbl, generator=gen)
         return cts5, lists, [lst.to_bytes() for lst in lists]
 
-    for counts in (cuda_ops.LAUNCHES, cuda_pairing.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cts5, lists, payloads = collect()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches5 = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
+    launches5 = launch_counts()
     print(f"phase 5: first proofs-on collection ({n_vals} values, {n_proofs} "
           f"digit proofs) {first_s:.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
@@ -586,6 +736,114 @@ def main():
           f"{split[1]:.4f} s, wire encoding + hash {split[2]:.4f} s, "
           f"response + payloads {split[3]:.4f} s", flush=True)
 
+    # -- phase 6: the verifying node's joint check, counted ------------------
+    def verify(datas):
+        return svc.verify_collected_range_proofs(datas, ranges, {U: sigs},
+                                                 coll_tbl)
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok6 = verify(payloads)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches6 = launch_counts()
+    print(f"phase 6: first joint check of the {NUM_DPS} payloads ({n_proofs} "
+          f"digit proofs) {first_s:.3f} s; verdicts {ok6}; launches "
+          f"{launches6}", flush=True)
+    if ok6 != [True] * NUM_DPS:
+        raise SystemExit(f"the joint check rejects honest payloads: {ok6}")
+    if launches6 != EXPECTED_LAUNCHES_VERIFY:
+        raise SystemExit(f"verification launches {launches6} differ from "
+                         f"{EXPECTED_LAUNCHES_VERIFY}")
+
+    bad = list(payloads)
+    bad[TAMPER_DP] = tamper_zv(payloads[TAMPER_DP])
+    ok_bad = verify(bad)
+    if ok_bad != [dp != TAMPER_DP for dp in range(NUM_DPS)]:
+        raise SystemExit(f"with DP {TAMPER_DP}'s Zv changed the joint check "
+                         f"gives {ok_bad}")
+
+    def decode(datas):
+        return rp._concat_batches([rp.RangeProofList.from_bytes(b, dev)
+                                   .batches[0][1] for b in datas])
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok_v = rp.verify_range_proofs(decode(payloads), pubs, coll_tbl)
+    torch.cuda.synchronize()
+    per_value_s = time.perf_counter() - t0
+    launches_pv = launch_counts()
+    if ok_v.shape != (n_vals,) or not ok_v.all():
+        raise SystemExit(f"the per-value check rejects {int((~ok_v).sum())} "
+                         f"honest values")
+    if launches_pv != EXPECTED_LAUNCHES_PER_VALUE:
+        raise SystemExit(f"per-value launches {launches_pv} differ from "
+                         f"{EXPECTED_LAUNCHES_PER_VALUE}")
+    ok_vb = rp.verify_range_proofs(decode(bad), pubs, coll_tbl)
+    want_vb = np.arange(n_vals) != TAMPER_DP * V
+    if not np.array_equal(ok_vb, want_vb):
+        raise SystemExit("the per-value check of the tampered bytes rejects "
+                         f"values {np.nonzero(~ok_vb)[0].tolist()}, not "
+                         f"[{TAMPER_DP * V}]")
+    print(f"  DP {TAMPER_DP} with one Zv byte changed: joint verdicts {ok_bad};"
+          f" per-value check: all {n_vals} honest values accepted "
+          f"({per_value_s:.3f} s, {n_proofs} pairings), on the tampered bytes"
+          f" only value {TAMPER_DP * V} rejected; per-value launches "
+          f"{launches_pv}", flush=True)
+
+    def staged_verify():
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        mark()
+        pb = decode(payloads)
+        mark()
+        pre_ok, r_int, gtb_s = rp.rlc_prelude(pb, pubs, coll_tbl)
+        mark()
+        r = eg.int_to_scalar(torch.from_numpy(r_int).to(dev))
+        px, py, _ = C.normalize(C.scalar_mul_short(rp._g1_args(pb, pubs), r,
+                                                   64))
+        qx, qy, _ = G2.normalize(pb.v_pts)
+        mark()
+        m = GT.miller(px, py, qx, qy)
+        mark()
+        ar = GT.gt_pow64(F12.conj6(pb.a), r)
+        mark()
+        fe = cuda_pairing.final_exp_flat(
+            GT.gt_reduce_prod(m.reshape(-1, 6, 2, 16))[None])
+        pa = GT.gt_reduce_prod(ar.reshape(-1, 6, 2, 16))
+        total = GT.gt_mul(GT.gt_mul(fe, pa[None]), gtb_s[None])[0]
+        mark()
+        if not pre_ok or not bool(F12.eq(total, F12.one((), dev))):
+            raise SystemExit("the staged joint check rejects")
+        return np.diff(marks)
+
+    walls6 = []
+    for _ in range(PROOF_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = verify(payloads)
+        torch.cuda.synchronize()
+        walls6.append(time.perf_counter() - t0)
+        if again != [True] * NUM_DPS:
+            raise SystemExit(f"a warm joint check gives {again}")
+    split6 = np.median([staged_verify() for _ in range(PROOF_RUNS)], axis=0)
+    print(f"phase 6: joint check wall time median "
+          f"{statistics.median(walls6):.4f} s over {PROOF_RUNS} warm runs "
+          f"(all: {[round(x, 4) for x in walls6]}); staged split, median of "
+          f"{PROOF_RUNS}: decode {split6[0]:.4f} s, prelude (D equation, "
+          f"challenges, GPhi12 and order gates, gtB^S) {split6[1]:.4f} s, G1 "
+          f"weighting + normalize {split6[2]:.4f} s, Miller {split6[3]:.4f} s,"
+          f" a^r {split6[4]:.4f} s, reductions + final exp {split6[5]:.4f} s;"
+          f" peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
     kernels = []
     for name, tot in summary.items():
         source, replaces = meta[name]
@@ -593,7 +851,8 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name] + launches5[name],
+            "launches": (launches[name] + launches5[name] + launches6[name]
+                         + launches_pv[name]),
             "max_abs_err": tot["err"], "ms": round(tot["ms"], 6),
             "plain_ms": round(tot["plain_ms"], 3),
             "bound_ms": round(max(ops_ms, bytes_ms), 6),
@@ -601,8 +860,8 @@ def main():
             "library_ms": None,
         })
     print("(ms, plain_ms, bound_ms: summed over the kernel's main-path shapes "
-          "above, one launch each; launches: the survey's plus the proofs-on "
-          "collection's)")
+          "above, one launch each; launches: the survey's, the proofs-on "
+          "collection's, the joint check's and the per-value check's)")
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,26 @@
 """CUDA kernels of the pairing module, each beside its plain PyTorch version.
 
 The port's counterpart of drynx_tpu/crypto/pallas_pairing.py. It holds the
-kernels that the survey and the range-proof creation run:
+kernels that the survey and the range proofs run:
 
   fp_inv_flat          replaces _fp_inv_kernel          (csrc/fp_inv.cu)
   f2_inv_flat          replaces _f2_inv_kernel          (csrc/g2_ops.cu)
   g2_scalar_mul_flat   replaces _g2_scalar_mul_kernel   (csrc/g2_ops.cu)
   f12_mul_flat         replaces _f12_mul_kernel         (csrc/gt_ops.cu)
   f12_mulreduce8_flat  replaces _f12_mulreduce8_kernel  (csrc/gt_ops.cu)
+  f12_inv_flat         replaces _f12_inv_kernel         (csrc/gt_ops.cu)
+  f12_csqr_flat        replaces _f12_csqr_kernel        (csrc/gt_ops.cu)
+  f12_slotmul_flat     replaces _f12_slotmul_kernel     (csrc/gt_ops.cu)
+  f12_wpow_flat        replaces _f12_wpow_kernel        (csrc/gt_ops.cu)
+  miller_flat          replaces _miller_kernel          (csrc/miller.cu)
 
-and the glue around them that the creation path needs: `window_digits`,
-`gt_pow_fixed` and `gt_pow_fixed_multi`, whose window-table gather stays
-torch indexing, as the reference leaves it to XLA. The wrappers follow the
-rules of `cuda_ops`: on a CUDA tensor a wrapper launches its kernel, counts
-the launch in `LAUNCHES` and raises if the launch fails; on a CPU tensor it
-runs the plain version. There is no other route between them.
+and the glue around them: `window_digits`, `gt_pow_fixed` and
+`gt_pow_fixed_multi` (whose window-table gather stays torch indexing, as
+the reference leaves it to XLA), `final_exp_flat` and `pair_flat`. The
+wrappers follow the rules of `cuda_ops`: on a CUDA tensor a wrapper
+launches its kernel, counts the launch in `LAUNCHES` and raises if the
+launch fails; on a CPU tensor it runs the plain version. There is no other
+route between them.
 
 The plain G2 group law here (`g2_pdouble`, `g2_padd`, `g2_inf_like`)
 follows the reference's make_g2_group step for step: its formulas, its
@@ -23,9 +29,15 @@ ladder kernel and its plain version agree on raw Jacobian limbs. Fp, Fp2
 and Fp12 results are canonical residues, so there any formula gives the
 same bytes. The exponent p - 2 is public: both inversions multiply only
 where one of its bits is set (the reference multiplies always and selects).
-What bounds each kernel is noted at the top of its source.
+The Miller value is the exception: its line scalings and Jacobian
+coordinates are the kernel's own, so `miller_plain` follows _miller_kernel's
+formulas step for step and equals the reference's Miller value only after
+the final exponentiation. What bounds each kernel is noted at the top of
+its source.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -33,11 +45,13 @@ from ..utils import cuda_build
 from . import field as F
 from . import fp2 as F2
 from . import fp12 as F12
+from . import params, refimpl
 from .field import FP
 from .params import NUM_LIMBS
 
 LAUNCHES = {"fp_inv": 0, "f2_inv": 0, "g2_scalar_mul": 0, "f12_mul": 0,
-            "f12_mulreduce8": 0}
+            "f12_mulreduce8": 0, "miller": 0, "f12_inv": 0, "f12_csqr": 0,
+            "f12_slotmul": 0, "f12_wpow": 0}
 
 WINDOW_ENTRIES = 16
 N_WINDOWS = 64
@@ -176,18 +190,209 @@ def f12_mulreduce8_plain(g):
     return acc.to(torch.int32)
 
 
+def f12_inv_plain(a):
+    """1/a per row through the tower, (N, 6, 2, 16) int32; 0 maps to 0."""
+    return F12._inv(a.to(torch.int64)).to(torch.int32)
+
+
+def f12_csqr_plain(a):
+    """Cyclotomic square per row (the square only on GPhi12), int32."""
+    return F12._csqr(a.to(torch.int64)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Slot multiplications: the Frobenius maps and conj6 (pairing.py:334-378)
+# ---------------------------------------------------------------------------
+
+SLOT_MAPS = ("frob1", "frob2", "frob3", "conj6")
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_constants(which: str, device: str) -> torch.Tensor:
+    """The six Fp2 constants c_k of `which` on `device`, (6, 2, 16) int32
+    Montgomery: the powers of XI^((p^e - 1)/6) for frob<e> (w^(p^e) =
+    w XI^((p^e - 1)/6)), +-1 for conj6."""
+    if which not in SLOT_MAPS:
+        raise ValueError(f"no slot map {which!r}; expected one of {SLOT_MAPS}")
+    if which == "conj6":
+        consts = [(1, 0) if k % 2 == 0 else (params.P - 1, 0)
+                  for k in range(6)]
+    else:
+        e = SLOT_MAPS.index(which) + 1
+        g = refimpl.fp2_pow(params.XI, (params.P ** e - 1) // 6)
+        consts, cur = [], (1, 0)
+        for _k in range(6):
+            consts.append(cur)
+            cur = refimpl.fp2_mul(cur, g)
+    return torch.stack([F2.from_ref(c) for c in consts]).to(device)
+
+
+def _conjugates(which: str) -> bool:
+    """Odd Frobenius powers also conjugate each Fp2 coefficient
+    (p = 3 mod 4, so i^p = -i)."""
+    return which in ("frob1", "frob3")
+
+
+def f12_slotmul_plain(a, which: str):
+    """out[k] = (conj(a[k]) if frob1/frob3 else a[k]) * c_k per row, int32."""
+    x = a.to(torch.int64)
+    if _conjugates(which):
+        x = F2._conj(x)
+    c = _slot_constants(which, str(a.device)).to(torch.int64)
+    return F2._mul(x, c).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Windowed powers (pallas_pairing._f12_wpow_kernel)
+# ---------------------------------------------------------------------------
+
+WPOW_WBITS = 3
+WPOW_ENTRIES = 1 << WPOW_WBITS
+
+
+def window3_digits(k: torch.Tensor, n_win: int) -> torch.Tensor:
+    """(N, 16) plain limbs -> (N, n_win) int64 3-bit windows, least
+    significant first: window w is bits 3w..3w+2 (it may straddle two
+    limbs; bits past the top limb read as 0)."""
+    kk = k.to(torch.int64)
+    w = torch.arange(n_win, device=k.device)
+    limb, s = (3 * w) // 16, (3 * w) % 16
+    nxt = torch.where(limb + 1 < NUM_LIMBS,
+                      kk[:, (limb + 1).clamp(max=NUM_LIMBS - 1)], 0)
+    hi = torch.where(s > 13, nxt << (16 - s).clamp(min=0), 0)
+    return ((kk[:, limb] >> s) | hi) & (WPOW_ENTRIES - 1)
+
+
+def f12_wpow_plain(f, k, n_bits: int, cyc: bool = False):
+    """f^k per row by 3-bit windows MSB-first over the table [1, f, ...,
+    f^7]; `cyc` takes cyclotomic squares (f in GPhi12). f (N, 6, 2, 16),
+    k (N, 16) plain limbs, int32 in and out."""
+    sqr = F12._csqr if cyc else F12._sqr
+    x = f.to(torch.int64)
+    n = x.shape[0]
+    tab = [F12._one_like((n,), x.device), x]
+    for d in range(2, WPOW_ENTRIES):
+        tab.append(sqr(tab[d // 2]) if d % 2 == 0 else F12._mul(tab[d - 1], x))
+    tab = torch.stack(tab, dim=1)                      # (N, 8, 6, 2, 16)
+    n_win = (n_bits + WPOW_WBITS - 1) // WPOW_WBITS
+    digits = window3_digits(k, n_win)
+    rows = torch.arange(n, device=x.device)
+    acc = tab[rows, digits[:, n_win - 1]]
+    for w in range(n_win - 2, -1, -1):
+        for _ in range(WPOW_WBITS):
+            acc = sqr(acc)
+        acc = F12._mul(acc, tab[rows, digits[:, w]])
+    return acc.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The Miller loop (pallas_pairing._miller_kernel, formulas at :343-432)
+# ---------------------------------------------------------------------------
+
+# 6u + 2 below its leading one, most significant bit first (65 bits)
+ATE_BITS = [int(b) for b in bin(6 * params.U + 2)[3:]]
+
+
+@functools.lru_cache(maxsize=None)
+def _twist_frob_constants(device: str) -> torch.Tensor:
+    """(3, 2, 16) int64: XI^((p-1)/3), XI^((p-1)/2), XI^((p^2-1)/3)."""
+    return torch.stack([F2.from_ref(c) for c in
+                        (refimpl._G12, refimpl._G13, refimpl._G22)]
+                       ).to(device, torch.int64)
+
+
+def _frobenius_images(qx, qy):
+    """pi(Q) = (conj(x) g12, conj(y) g13) and the x of -pi^2(Q) = (x g22, y)
+    for int64 twist coordinates, as one stacked product."""
+    g12, g13, g22 = _twist_frob_constants(str(qx.device))
+    q1x, q1y, nq2x = F2._mul(
+        torch.stack([F2._conj(qx), F2._conj(qy), qx]),
+        torch.stack([g12.expand_as(qx), g13.expand_as(qx), g22.expand_as(qx)]))
+    return q1x, q1y, nq2x
+
+
+def _line(l0, l1, l3):
+    """The sparse Fp12 l0 + l1 w + l3 w^3."""
+    z = torch.zeros_like(l0)
+    return torch.stack([l0, l1, z, l3, z, z], dim=-3)
+
+
+def _miller_dbl(T, f, xp, yp):
+    """T <- 2T and f <- f^2 l_{T,T}(P), the tangent scaled by 2YZ^3."""
+    X, Y, Z = T.unbind(-3)
+    A, Bv, zz = F2._sqr(torch.stack([X, Y, Z])).unbind(0)
+    E = F2._add(F2._add(A, A), A)
+    AX, Ezz, YZ = F2._mul(torch.stack([A, E, Y]),
+                          torch.stack([X, zz, Z])).unbind(0)
+    l3 = F2._sub(F2._add(F2._add(AX, AX), AX), F2._add(Bv, Bv))
+    YZ3 = F2._mul(YZ, zz)
+    l1, l0 = F2._mul_fp(torch.stack([F2._neg(Ezz), F2._add(YZ3, YZ3)]),
+                        torch.stack([xp, yp])).unbind(0)
+    return g2_pdouble(T), F12._mul(F12._sqr(f), _line(l0, l1, l3))
+
+
+def _miller_add(T, f, qx, qy, xp, yp):
+    """T <- T + Q (madd-2007-bl) and f <- f l_{T,Q}(P) with the line
+    HZ yp - r xp w + (r qx - HZ qy) w^3; where the line is vertical (H = 0)
+    both stay as they were."""
+    X1, Y1, Z1 = T.unbind(-3)
+    zz = F2._sqr(Z1)
+    U2, Zzz = F2._mul(torch.stack([qx, Z1]), torch.stack([zz, zz])).unbind(0)
+    S2 = F2._mul(qy, Zzz)
+    Hm, r1 = F2._sub(U2, X1), F2._sub(S2, Y1)
+    HmZ = F2._mul(Hm, Z1)
+    l0, l1 = F2._mul_fp(torch.stack([HmZ, F2._neg(r1)]),
+                        torch.stack([yp, xp])).unbind(0)
+    rq, hq = F2._mul(torch.stack([r1, HmZ]), torch.stack([qx, qy])).unbind(0)
+    f2 = F12._mul(f, _line(l0, l1, F2._sub(rq, hq)))
+    HH = F2._sqr(Hm)
+    I4 = F2._add(F2._add(HH, HH), F2._add(HH, HH))
+    J, V = F2._mul(torch.stack([Hm, X1]), torch.stack([I4, I4])).unbind(0)
+    rm = F2._add(r1, r1)
+    X3 = F2._sub(F2._sub(F2._sqr(rm), J), F2._add(V, V))
+    YJ = F2._mul(Y1, J)
+    Y3 = F2._sub(F2._mul(rm, F2._sub(V, X3)), F2._add(YJ, YJ))
+    Z3 = F2._sub(F2._sub(F2._sqr(F2._add(Z1, Hm)), zz), HH)
+    keep = ~F2.is_zero(Hm)
+    T = torch.where(keep[..., None, None, None],
+                    torch.stack([X3, Y3, Z3], dim=-3), T)
+    return T, torch.where(keep[..., None, None, None], f2, f)
+
+
+def miller_plain(px, py, qx, qy):
+    """The optimal-ate Miller value per row, (N, 6, 2, 16) int32, for
+    affine G1 (px, py) (N, 16) and affine twist points (qx, qy) (N, 2, 16),
+    all Montgomery. The kernel computes every add step and keeps it where
+    the bit of 6u + 2 is set; the bits are public, so this version skips
+    the adds it would not keep, with the same result."""
+    xp, yp = px.to(torch.int64), py.to(torch.int64)
+    qx, qy = qx.to(torch.int64), qy.to(torch.int64)
+    n = xp.shape[0]
+    one2 = F2.one(xp.device).to(torch.int64).expand(n, 2, NUM_LIMBS)
+    T = torch.stack([qx, qy, one2], dim=-3)
+    f = F12._one_like((n,), xp.device)
+    for bit in ATE_BITS:
+        T, f = _miller_dbl(T, f, xp, yp)
+        if bit:
+            T, f = _miller_add(T, f, qx, qy, xp, yp)
+    q1x, q1y, nq2x = _frobenius_images(qx, qy)
+    T, f = _miller_add(T, f, q1x, q1y, xp, yp)
+    _, f = _miller_add(T, f, nq2x, qy, xp, yp)
+    return f.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
-def _launch(lib, kernel, shape, inputs):
+def _launch(lib, kernel, shape, inputs, ints=()):
     """Launch `kernel` of csrc/<lib>.cu into a new int32 tensor of `shape`,
-    one element per row, and count it."""
+    one element per row (then the kernel's int arguments), and count it."""
     out = torch.empty(shape, dtype=torch.int32, device=inputs[0].device)
     n = out.shape[0]
     if n == 0:
         return out
-    cuda_build.launch(lib, kernel, out, inputs, (n,))
+    cuda_build.launch(lib, kernel, out, inputs, (n, *ints))
     LAUNCHES[kernel] += 1
     return out
 
@@ -241,6 +446,123 @@ def f12_mulreduce8_flat(g):
                    (g,))
 
 
+def _f12_operand(name, a):
+    device = cuda_build.check_operands((name, a))
+    cuda_build.check_shape(name, a, (len(a), 6, 2, NUM_LIMBS))
+    return device
+
+
+def f12_inv_flat(a):
+    """(N, 6, 2, 16) -> (N, 6, 2, 16): the Fp12 inverse (0 maps to 0)."""
+    if _f12_operand("a", a).type == "cpu":
+        return f12_inv_plain(a)
+    return _launch("gt_ops", "f12_inv", a.shape, (a,))
+
+
+def f12_csqr_flat(a):
+    """(N, 6, 2, 16) -> (N, 6, 2, 16): the cyclotomic square. The input
+    must lie in GPhi12 (pairing outputs after the final exponentiation do)
+    for the result to be its square."""
+    if _f12_operand("a", a).type == "cpu":
+        return f12_csqr_plain(a)
+    return _launch("gt_ops", "f12_csqr", a.shape, (a,))
+
+
+def f12_slotmul_flat(a, which: str):
+    """Frobenius^e or conj6 on (N, 6, 2, 16): which in SLOT_MAPS."""
+    device = _f12_operand("a", a)
+    consts = _slot_constants(which, str(device))
+    if device.type == "cpu":
+        return f12_slotmul_plain(a, which)
+    return _launch("gt_ops", "f12_slotmul", a.shape, (a, consts),
+                   (int(_conjugates(which)),))
+
+
+def f12_wpow_flat(f, k, n_bits: int, cyc: bool = False):
+    """f^k by 3-bit windows: f (N, 6, 2, 16), k (N, 16) plain limbs, of
+    which the windows read bits 0..3*ceil(n_bits/3)-1. cyc=True takes
+    cyclotomic squares and needs f in GPhi12."""
+    if not 1 <= n_bits <= 16 * NUM_LIMBS:
+        raise ValueError(f"n_bits must be in [1, 256], got {n_bits}")
+    device = cuda_build.check_operands(("f", f), ("k", k))
+    cuda_build.check_shape("f", f, (len(f), 6, 2, NUM_LIMBS))
+    cuda_build.check_shape("k", k, (len(f), NUM_LIMBS))
+    if device.type == "cpu":
+        return f12_wpow_plain(f, k, n_bits, cyc)
+    return _launch("gt_ops", "f12_wpow", f.shape, (f, k),
+                   (n_bits, int(cyc)))
+
+
+def miller_flat(px, py, qx, qy):
+    """The Miller value per row, before the final exponentiation: px, py
+    (N, 16) and qx, qy (N, 2, 16) affine Montgomery -> (N, 6, 2, 16). The
+    Frobenius images of Q are computed here, outside the kernel."""
+    device = cuda_build.check_operands(("px", px), ("py", py), ("qx", qx),
+                                       ("qy", qy))
+    n = len(px)
+    for name, t, shape in (("px", px, (n, NUM_LIMBS)), ("py", py,
+                           (n, NUM_LIMBS)), ("qx", qx, (n, 2, NUM_LIMBS)),
+                           ("qy", qy, (n, 2, NUM_LIMBS))):
+        cuda_build.check_shape(name, t, shape)
+    if device.type == "cpu":
+        return miller_plain(px, py, qx, qy)
+    x, y = qx.to(torch.int64), qy.to(torch.int64)
+    q = torch.stack([x, y, *_frobenius_images(x, y)], dim=1).to(torch.int32)
+    return _launch("miller", "miller", (n, 6, 2, NUM_LIMBS),
+                   (torch.stack([px, py], dim=1), q))
+
+
+# ---------------------------------------------------------------------------
+# The final exponentiation and the pairing (pallas_pairing.py:1209-1260)
+# ---------------------------------------------------------------------------
+
+def final_exp_flat(f):
+    """f^((p^12 - 1)/n) per row, (N, 6, 2, 16): the easy part
+    (p^6 - 1)(p^2 + 1), then the Devegili-Scott-Dominguez hard part with
+    three cyclotomic powers by u and the Olivos chain. After the easy part
+    every value lies in GPhi12, so every square there is cyclotomic."""
+    u = F.from_int(params.U).to(f.device).expand(len(f), NUM_LIMBS)
+    u_bits = params.U.bit_length()
+    mul, sqr = f12_mul_flat, f12_csqr_flat
+
+    def frob(g, e: int):
+        return f12_slotmul_flat(g, f"frob{e}")
+
+    def conj(g):
+        return f12_slotmul_flat(g, "conj6")
+
+    f1 = mul(conj(f), f12_inv_flat(f))
+    f2 = mul(frob(f1, 2), f1)
+
+    fx = f12_wpow_flat(f2, u, n_bits=u_bits, cyc=True)
+    fx2 = f12_wpow_flat(fx, u, n_bits=u_bits, cyc=True)
+    fx3 = f12_wpow_flat(fx2, u, n_bits=u_bits, cyc=True)
+
+    y0 = mul(mul(frob(f2, 1), frob(f2, 2)), frob(f2, 3))
+    y1 = conj(f2)
+    y2 = frob(fx2, 2)
+    y3 = conj(frob(fx, 1))
+    y4 = conj(mul(fx, frob(fx2, 1)))
+    y5 = conj(fx2)
+    y6 = conj(mul(fx3, frob(fx3, 1)))
+
+    t0 = mul(mul(sqr(y6), y4), y5)
+    t1 = mul(mul(y3, y5), t0)
+    t0 = mul(t0, y2)
+    t1 = mul(sqr(t1), t0)
+    t1 = sqr(t1)
+    t0b = mul(t1, y1)
+    t1 = mul(t1, y0)
+    t0b = sqr(t0b)
+    return mul(t0b, t1)
+
+
+def pair_flat(px, py, qx, qy):
+    """The reduced optimal-ate pairing per row: px, py (N, 16), qx, qy
+    (N, 2, 16) affine Montgomery -> (N, 6, 2, 16)."""
+    return final_exp_flat(miller_flat(px, py, qx, qy))
+
+
 # ---------------------------------------------------------------------------
 # Fixed-base GT powers through window tables (pallas_pairing.py:898-940)
 # ---------------------------------------------------------------------------
@@ -276,5 +598,10 @@ def gt_pow_fixed_multi(tables, base_idx, k):
 __all__ = ["LAUNCHES", "fp_inv_flat", "fp_inv_plain", "f2_inv_flat",
            "f2_inv_plain", "g2_scalar_mul_flat", "g2_scalar_mul_plain",
            "f12_mul_flat", "f12_mul_plain", "f12_mulreduce8_flat",
-           "f12_mulreduce8_plain", "g2_pdouble", "g2_padd", "g2_inf_like",
-           "window_digits", "gt_pow_fixed", "gt_pow_fixed_multi"]
+           "f12_mulreduce8_plain", "f12_inv_flat", "f12_inv_plain",
+           "f12_csqr_flat", "f12_csqr_plain", "f12_slotmul_flat",
+           "f12_slotmul_plain", "f12_wpow_flat", "f12_wpow_plain",
+           "miller_flat", "miller_plain", "final_exp_flat", "pair_flat",
+           "SLOT_MAPS", "window3_digits", "ATE_BITS",
+           "g2_pdouble", "g2_padd", "g2_inf_like", "window_digits",
+           "gt_pow_fixed", "gt_pow_fixed_multi"]

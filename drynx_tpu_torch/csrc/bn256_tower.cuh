@@ -11,7 +11,10 @@
 // Every result is the canonical residue, so any correct formula gives the
 // reference's bytes; the formulas are the reference's all the same: Karatsuba
 // Fp2 products (3 Fp products), 3-way Karatsuba Fp6 products (6 Fp2) and
-// Karatsuba over Fp6 for Fp12 (18 Fp2 products).
+// Karatsuba over Fp6 for Fp12 (18 Fp2 products), the complex-method Fp12
+// square (12), the Granger-Scott cyclotomic square (9 Fp2 squares), the
+// sparse line product (18) and the tower inverse. The big tower functions
+// are not inlined: one body each, their temporaries in their own frame.
 #pragma once
 
 #include <stdint.h>
@@ -95,6 +98,27 @@ __device__ __forceinline__ Fp fp_zero() {
   return r;
 }
 
+// R mod p, the Montgomery form of 1 (R = 2^256)
+__device__ __forceinline__ uint32_t one_word(int i) {
+  switch (i) {
+    case 0: return 0xa1f76999u;
+    case 1: return 0xe7a35393u;
+    case 2: return 0xdf4a4a61u;
+    case 3: return 0x11a4772eu;
+    case 4: return 0x9e7b23deu;
+    case 5: return 0x55901347u;
+    case 6: return 0xb55c7806u;
+    default: return 0x704afe1cu;
+  }
+}
+
+__device__ __forceinline__ Fp fp_one() {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r.w[i] = one_word(i);
+  return r;
+}
+
 __device__ __forceinline__ Fp2 f2add(const Fp2& a, const Fp2& b) {
   return Fp2{fadd(a.c0, b.c0), fadd(a.c1, b.c1)};
 }
@@ -121,6 +145,14 @@ __device__ __forceinline__ Fp2 f2sqr(const Fp2& a) {
   const Fp re = mont_mul(fadd(a.c0, a.c1), fsub(a.c0, a.c1));
   const Fp im = mont_mul(a.c0, a.c1);
   return Fp2{re, fadd(im, im)};
+}
+
+__device__ __forceinline__ Fp2 f2conj(const Fp2& a) {
+  return Fp2{a.c0, fsub(fp_zero(), a.c1)};
+}
+
+__device__ __forceinline__ Fp2 f2mul_fp(const Fp2& a, const Fp& s) {
+  return Fp2{mont_mul(a.c0, s), mont_mul(a.c1, s)};
 }
 
 __device__ __forceinline__ Fp mul3(const Fp& x) { return fadd(fadd(x, x), x); }
@@ -151,6 +183,12 @@ __device__ __forceinline__ Fp fp_inv_fermat(const Fp& x) {
     if ((word >> (b & 31)) & 1u) acc = mont_mul(acc, x);
   }
   return acc;
+}
+
+// 1/(a0 + a1 i) = (a0, -a1) / (a0^2 + a1^2); 0 maps to 0, as x^(p-2) does
+__device__ __forceinline__ Fp2 f2inv(const Fp2& a) {
+  const Fp ni = fp_inv_fermat(fadd(mont_mul(a.c0, a.c0), mont_mul(a.c1, a.c1)));
+  return Fp2{mont_mul(a.c0, ni), mont_mul(fsub(fp_zero(), a.c1), ni)};
 }
 
 // ---------------------------------------------------------------------------
@@ -208,6 +246,128 @@ __device__ __forceinline__ Fp12 f12mul(const Fp12& a, const Fp12& b) {
   for (int k = 0; k < 3; ++k) {
     r.c[2 * k] = c.c[k];
     r.c[2 * k + 1] = d.c[k];
+  }
+  return r;
+}
+
+__device__ __forceinline__ Fp12 f12_one() {
+  Fp12 r;
+  r.c[0] = Fp2{fp_one(), fp_zero()};
+#pragma unroll
+  for (int k = 1; k < 6; ++k) r.c[k] = Fp2{fp_zero(), fp_zero()};
+  return r;
+}
+
+// mask is 0 or 0xFFFFFFFF: r = mask ? a : b
+__device__ __forceinline__ Fp12 f12select(uint32_t mask, const Fp12& a,
+                                          const Fp12& b) {
+  Fp12 r;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) r.c[k] = f2select(mask, a.c[k], b.c[k]);
+  return r;
+}
+
+// a^(p^6): negate the odd-w coefficients
+__device__ __forceinline__ Fp12 f12conj6(const Fp12& a) {
+  Fp12 r;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) r.c[k] = (k % 2) ? f2neg(a.c[k]) : a.c[k];
+  return r;
+}
+
+// complex-method square over Fp6: 2 Fp6 products = 12 Fp2 products
+static __device__ __noinline__ Fp12 f12sqr(const Fp12& a) {
+  const Fp6 A{{a.c[0], a.c[2], a.c[4]}}, B{{a.c[1], a.c[3], a.c[5]}};
+  const Fp6 ab = fp6_mul(A, B);
+  const Fp6 t = fp6_mul(fp6_add(A, B), fp6_add(A, fp6_mul_v(B)));
+  const Fp6 c = fp6_sub(fp6_sub(t, ab), fp6_mul_v(ab));
+  const Fp6 d = fp6_add(ab, ab);
+  Fp12 r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.c[2 * k] = c.c[k];
+    r.c[2 * k + 1] = d.c[k];
+  }
+  return r;
+}
+
+// Granger-Scott cyclotomic square (eprint 2009/565, section 3.2): 9 Fp2
+// squares. It is the square only for f in the cyclotomic subgroup GPhi12(p);
+// elsewhere it computes an unrelated function of f.
+static __device__ __noinline__ Fp12 f12csqr(const Fp12& f) {
+  const Fp2 s0 = f2sqr(f.c[3]);
+  const Fp2 s1 = f2sqr(f.c[0]);
+  const Fp2 t6 = f2sub(f2sub(f2sqr(f2add(f.c[3], f.c[0])), s0), s1);
+  const Fp2 s2 = f2sqr(f.c[4]);
+  const Fp2 s3 = f2sqr(f.c[1]);
+  const Fp2 t7 = f2sub(f2sub(f2sqr(f2add(f.c[4], f.c[1])), s2), s3);
+  const Fp2 s4 = f2sqr(f.c[5]);
+  const Fp2 s5 = f2sqr(f.c[2]);
+  const Fp2 t8 =
+      f2mul_xi(f2sub(f2sub(f2sqr(f2add(f.c[5], f.c[2])), s4), s5));
+  const Fp2 t0 = f2add(f2mul_xi(s0), s1);
+  const Fp2 t2 = f2add(f2mul_xi(s2), s3);
+  const Fp2 t4 = f2add(f2mul_xi(s4), s5);
+  auto out_sub = [](const Fp2& t, const Fp2& x) {   // 3t - 2x
+    const Fp2 d = f2sub(t, x);
+    return f2add(f2add(d, d), t);
+  };
+  auto out_add = [](const Fp2& t, const Fp2& x) {   // 3t + 2x
+    const Fp2 s = f2add(t, x);
+    return f2add(f2add(s, s), t);
+  };
+  Fp12 r;
+  r.c[0] = out_sub(t0, f.c[0]);
+  r.c[1] = out_add(t8, f.c[1]);
+  r.c[2] = out_sub(t2, f.c[2]);
+  r.c[3] = out_add(t6, f.c[3]);
+  r.c[4] = out_sub(t4, f.c[4]);
+  r.c[5] = out_add(t7, f.c[5]);
+  return r;
+}
+
+// f * (l0 + l1 w + l3 w^3), the product with a line value: 18 Fp2 products
+static __device__ __noinline__ Fp12 sparse013(const Fp12& f, const Fp2& l0,
+                                              const Fp2& l1, const Fp2& l3) {
+  Fp2 acc[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) acc[k] = Fp2{fp_zero(), fp_zero()};
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    acc[k] = f2add(acc[k], f2mul(f.c[k], l0));
+    acc[k + 1] = f2add(acc[k + 1], f2mul(f.c[k], l1));
+    acc[k + 3] = f2add(acc[k + 3], f2mul(f.c[k], l3));
+  }
+  Fp12 r;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) r.c[k] = acc[k];
+#pragma unroll
+  for (int k = 6; k < 9; ++k) r.c[k - 6] = f2add(r.c[k - 6], f2mul_xi(acc[k]));
+  return r;
+}
+
+static __device__ __noinline__ Fp6 fp6_inv(const Fp6& a) {
+  const Fp2 c0 = f2sub(f2sqr(a.c[0]), f2mul_xi(f2mul(a.c[1], a.c[2])));
+  const Fp2 c1 = f2sub(f2mul_xi(f2sqr(a.c[2])), f2mul(a.c[0], a.c[1]));
+  const Fp2 c2 = f2sub(f2sqr(a.c[1]), f2mul(a.c[0], a.c[2]));
+  const Fp2 t = f2add(f2mul(a.c[0], c0),
+                      f2mul_xi(f2add(f2mul(a.c[1], c2), f2mul(a.c[2], c1))));
+  const Fp2 ti = f2inv(t);
+  return Fp6{{f2mul(c0, ti), f2mul(c1, ti), f2mul(c2, ti)}};
+}
+
+// tower inverse: f = a(v) + w b(v) -> (a - w b) / (a^2 - v b^2), the norm
+// inverted in Fp6, then Fp2, then by one Fermat inverse in Fp (0 maps to 0)
+static __device__ __noinline__ Fp12 f12inv(const Fp12& f) {
+  const Fp6 a{{f.c[0], f.c[2], f.c[4]}}, b{{f.c[1], f.c[3], f.c[5]}};
+  const Fp6 ninv = fp6_inv(fp6_sub(fp6_mul(a, a), fp6_mul_v(fp6_mul(b, b))));
+  const Fp6 ra = fp6_mul(a, ninv);
+  const Fp6 rb = fp6_mul(b, ninv);
+  Fp12 r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.c[2 * k] = ra.c[k];
+    r.c[2 * k + 1] = f2neg(rb.c[k]);
   }
   return r;
 }

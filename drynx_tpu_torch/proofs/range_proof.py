@@ -1,18 +1,18 @@
-"""Range-proof creation: batched CCS-style ZK range proofs with Boneh-Boyen
-digit signatures.
+"""Batched CCS-style ZK range proofs with Boneh-Boyen digit signatures:
+creation and verification.
 
-The port's counterpart of the creation half of
-drynx_tpu/proofs/range_proof.py, with the same transcripts and wire bytes.
-A data provider proves each plaintext s in [0, u^l) by its base-u digits.
-Each computing node publishes signatures A[k] = (x + k)^-1 B2 for k < u;
-the proof blinds the digit signatures (V = v A[digit]), commits
-D = (sum_j u^j s_j) B + (sum_j m_j) P and a_ij = e(-s_j B, V_ij) gtB^t_j,
-hashes every commitment into the Fiat-Shamir challenge
+The port's counterpart of drynx_tpu/proofs/range_proof.py, with the same
+transcripts and wire bytes. A data provider proves each plaintext s in
+[0, u^l) by its base-u digits. Each computing node publishes signatures
+A[k] = (x + k)^-1 B2 for k < u; the proof blinds the digit signatures
+(V = v A[digit]), commits D = (sum_j u^j s_j) B + (sum_j m_j) P and
+a_ij = e(-s_j B, V_ij) gtB^t_j, hashes every commitment into the
+Fiat-Shamir challenge
 
     c = sha3-512(B || C2 || sum Y || u || l || D || V_pts || a)
 
 and answers with Zphi_j = s_j - c digit_j, Zr = sum m - c r and
-Zv_ij = t_j - c v_ij. The verifier (the reference's, for now) checks
+Zv_ij = t_j - c v_ij. The verifier checks
 
     D == c C2 + Zr P + (sum_j u^j Zphi_j) B
     a == e(c y_i - Zphi_j B, V_ij) gtB^Zv_ij
@@ -21,16 +21,29 @@ Creation takes the reference's TPU route on every device: by bilinearity
 e(-s B, v A[k]) = e(B, A[k])^(-s v), and the powers of the ns*u fixed bases
 e(B, A_i[k]) go through per-base window tables, a gather and two passes of
 the 8-way Fp12 product kernel (`cuda_pairing.gt_pow_fixed_multi`); gtB^t
-likewise. The one pairing per base is computed on the host by the port's
-pure-Python oracle, once per signature set, and kept on the RangeSig.
-GT values are canonical residues, so the bytes equal those of the
-reference's CPU route. Randomness is explicit: a torch.Generator, or the
-draws themselves.
+likewise. The one pairing per base is computed once per signature set and
+kept on the RangeSig: by the pairing kernels on the card, by the port's
+pure-Python oracle on the CPU. GT values are canonical residues, so the
+bytes equal those of the reference's CPU route. Randomness is explicit: a
+torch.Generator, or the draws themselves.
+
+Verification has the reference's two routes: the per-value check
+(`verify_range_proofs`, one pairing per digit proof) and the verifying
+nodes' joint check (`verify_range_proof_payloads_joint`), which decodes
+every DP's payload, concatenates the batches of one (u, l) spec and checks
+them at once by a random linear combination in the exponent
+(`verify_range_proofs_batch`): one Miller loop per digit proof, one shared
+final exponentiation. A payload that fails to decode, or whose batch makes
+the verifier raise, fails for itself alone; a kernel that fails to build
+or launch (`cuda_build.KernelError`), memory that runs out or a CUDA
+error is a fault of the program or the card and propagates.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
+import secrets as _secrets
 from typing import Optional
 
 import numpy as np
@@ -42,12 +55,15 @@ from ..crypto import elgamal as eg
 from ..crypto import field as F
 from ..crypto import fp12 as F12
 from ..crypto import g2 as G2
+from ..crypto import gt as GT
 from ..crypto import params, refimpl
-from ..crypto.field import FN
+from ..crypto.field import FN, FP
+from ..crypto.gt import GT_SHAPE, gt_mul
 from ..crypto.params import NUM_LIMBS
+from ..utils.cuda_build import KernelError
 from . import encoding as enc
 
-GT_SHAPE = (6, 2, NUM_LIMBS)
+log = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -106,24 +122,43 @@ def _window_table(base) -> torch.Tensor:
         (CP.N_WINDOWS, CP.WINDOW_ENTRIES) + GT_SHAPE)
 
 
-def sig_gt_table(sigs: list[RangeSig]) -> torch.Tensor:
-    """(ns, u, 6, 2, 16): gtA[i][k] = e(B, A_i[k]), paired on the host once
-    per signature set and kept on each RangeSig."""
-    for sg in sigs:
-        if sg.gt is None:
+def sig_gt_table(sigs: list[RangeSig], device="cpu") -> torch.Tensor:
+    """(ns, u, 6, 2, 16) on `device`: gtA[i][k] = e(B, A_i[k]), computed
+    once per signature set and kept on each RangeSig. On a CUDA device the
+    missing sets are paired in one batch by the pairing kernels (the
+    reference's route, range_proof.py:115-121); on the CPU by the host
+    oracle."""
+    dev = torch.device(device)
+    missing = [sg for sg in sigs if sg.gt is None]
+    if missing and dev.type == "cuda":
+        for sg, g in zip(missing, _pair_generator_with(
+                torch.stack([sg.A for sg in missing]).to(dev))):
+            sg.gt = g
+    else:
+        for sg in missing:
             sg.gt = F12.pair_host(refimpl.G1, G2.to_ref(sg.A))
-    return torch.stack([sg.gt for sg in sigs])
+    return torch.stack([sg.gt.to(dev) for sg in sigs])
+
+
+def _pair_generator_with(A: torch.Tensor) -> torch.Tensor:
+    """e(B, A) for twist points A (..., 3, 2, 16), none at infinity, by the
+    pairing kernels on A's device: (..., 6, 2, 16)."""
+    qx, qy, _ = G2.normalize(A)
+    b = C.from_ref(refimpl.G1).to(A.device)          # affine: Z = 1
+    shape = qx.shape[:-2] + (NUM_LIMBS,)
+    return GT.pair(b[0].expand(shape), b[1].expand(shape), qx, qy)
 
 
 def sig_gt_pow_tables(sigs: list[RangeSig], device="cpu") -> torch.Tensor:
     """(ns*u, 64, 16, 6, 2, 16) on `device`: the 4-bit window tables of
-    every base gtA[i][k], base-major (i*u + k). Built on the host once per
-    signature set; each RangeSig keeps its tables on the device last asked
-    for."""
-    for sg in sigs:
+    every base gtA[i][k], base-major (i*u + k). Built on the host from
+    sig_gt_table once per signature set; each RangeSig keeps its tables on
+    the device last asked for."""
+    gts = sig_gt_table(sigs, device)
+    for sg, gt in zip(sigs, gts):
         if sg.gt_pow is None:
             sg.gt_pow = torch.stack([_window_table(F12.to_ref(g))
-                                     for g in sig_gt_table([sg])[0]])
+                                     for g in gt])
         sg.gt_pow = sg.gt_pow.to(device)
     return torch.cat([sg.gt_pow for sg in sigs])
 
@@ -145,14 +180,6 @@ def gt_pow_gtb(k: torch.Tensor) -> torch.Tensor:
     out = CP.gt_pow_fixed(gt_base_table().to(k.device),
                           k.reshape(-1, NUM_LIMBS))
     return out.reshape(k.shape[:-1] + GT_SHAPE)
-
-
-def gt_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise GT product over broadcast leading dims (one kernel)."""
-    batch = torch.broadcast_shapes(a.shape[:-3], b.shape[:-3])
-    out = CP.f12_mul_flat(a.expand(batch + GT_SHAPE).reshape((-1,) + GT_SHAPE),
-                          b.expand(batch + GT_SHAPE).reshape((-1,) + GT_SHAPE))
-    return out.reshape(batch + GT_SHAPE)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +232,81 @@ class RangeProofBatch:
                  w["v"], w["a"]]
         return head + b"".join(np.ascontiguousarray(p).tobytes()
                                for p in parts)
+
+    @classmethod
+    def from_bytes(cls, buf: bytes, device="cpu") -> "RangeProofBatch":
+        """Decode the canonical bytes onto `device`, keeping the received
+        commitment bytes as the wire cache (the challenge hashes them as
+        transmitted). Raises on a truncated or inconsistent buffer."""
+        u, l, V, ns = (int(x) for x in np.frombuffer(buf[:32], dtype="<i8"))
+        off = 32
+
+        def take(shape, nbytes):
+            nonlocal off
+            flat = np.frombuffer(buf[off:off + nbytes], dtype=np.uint8)
+            off += nbytes
+            return flat.reshape(shape)
+
+        scalars = lambda b: enc.bytes_to_limbs(b).to(device)
+        commit_b = take((V, 2, 64), V * 128)
+        commit = _g1_from_bytes(commit_b, device)
+        challenge = scalars(take((V, 32), V * 32))
+        zr = scalars(take((V, 32), V * 32))
+        d_b = take((V, 64), V * 64)
+        d = _g1_from_bytes(d_b, device)
+        zphi = scalars(take((V, l, 32), V * l * 32))
+        zv = scalars(take((ns, V, l, 32), ns * V * l * 32))
+        v_b = take((ns, V, l, 128), ns * V * l * 128)
+        v_pts = _g2_from_bytes(v_b, device)
+        a_b = take((ns, V, l, 384), ns * V * l * 384)
+        a = _gt_from_bytes(a_b, device)
+        wire = {"commit": commit_b.reshape(V, 128).copy(), "d": d_b.copy(),
+                "v": v_b.copy(), "a": a_b.copy()}
+        return cls(commit, challenge, zr, d, zphi, zv, v_pts, a, u, l,
+                   wire=wire)
+
+
+def _to_mont_bytes(b, device) -> torch.Tensor:
+    """(..., 32) big-endian Fp bytes -> (..., 16) Montgomery limbs on
+    `device` (a value at or above p is reduced, as the reference's to_mont
+    does)."""
+    return F.to_mont(enc.bytes_to_limbs(b).to(device), FP)
+
+
+def _one_mont(shape, device) -> torch.Tensor:
+    return FP.one_mont(device).to(torch.int32).expand(
+        tuple(shape) + (NUM_LIMBS,)).clone()
+
+
+def _g1_from_bytes(b: np.ndarray, device) -> torch.Tensor:
+    """(..., 64) canonical bytes -> (..., 3, 16) Jacobian Montgomery; the
+    all-zero encoding is infinity (X = Y = Montgomery one, Z = 0)."""
+    inf = torch.from_numpy(np.all(b == 0, axis=-1)).to(device)
+    xm, ym = _to_mont_bytes(b[..., :32], device), _to_mont_bytes(b[..., 32:],
+                                                                  device)
+    one = _one_mont(inf.shape, device)
+    z = torch.where(inf[..., None], 0, one)
+    return torch.stack([torch.where(inf[..., None], one, xm),
+                        torch.where(inf[..., None], one, ym), z], dim=-2)
+
+
+def _g2_from_bytes(b: np.ndarray, device) -> torch.Tensor:
+    """(..., 128) -> (..., 3, 2, 16) Jacobian Montgomery; infinity is
+    X = Y = (Montgomery one, 0), Z = 0 (g2.from_ref's convention)."""
+    inf = torch.from_numpy(np.all(b == 0, axis=-1)).to(device)
+    xy = _to_mont_bytes(b.reshape(b.shape[:-1] + (2, 2, 32)), device)
+    one2 = torch.zeros(inf.shape + (2, NUM_LIMBS), dtype=torch.int32,
+                       device=device)
+    one2[..., 0, :] = _one_mont(inf.shape, device)
+    sel = inf[..., None, None]
+    return torch.stack([torch.where(sel, one2, xy[..., 0, :, :]),
+                        torch.where(sel, one2, xy[..., 1, :, :]),
+                        torch.where(sel, 0, one2)], dim=-3)
+
+
+def _gt_from_bytes(b: np.ndarray, device) -> torch.Tensor:
+    """(..., 384) -> (..., 6, 2, 16) Montgomery."""
+    return _to_mont_bytes(b.reshape(b.shape[:-1] + (6, 2, 32)), device)
 
 
 def _range_wire_dict(commit, d, v_pts, a) -> dict:
@@ -367,6 +469,22 @@ class RangeProofList:
             parts.append(blob)
         return b"".join(parts)
 
+    @classmethod
+    def from_bytes(cls, buf: bytes, device="cpu") -> "RangeProofList":
+        n_values, n_batches = np.frombuffer(buf[:16], dtype="<i8")
+        off = 16
+        batches = []
+        for _ in range(int(n_batches)):
+            n_idx, n_blob = (int(x) for x in
+                             np.frombuffer(buf[off:off + 16], dtype="<i8"))
+            off += 16
+            idx = np.frombuffer(buf[off:off + 8 * n_idx], dtype="<i8")
+            off += 8 * n_idx
+            pb = RangeProofBatch.from_bytes(buf[off:off + n_blob], device)
+            off += n_blob
+            batches.append((idx.copy(), pb))
+        return cls(n_values=int(n_values), batches=batches)
+
 
 def group_ranges(ranges) -> dict:
     """{(u, l): [output indices]} for nonzero specs, insertion-ordered."""
@@ -435,9 +553,300 @@ def create_range_proof_lists_batched(secrets_2d, rs_2d, cts_2d, ranges,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Verification
+# ---------------------------------------------------------------------------
+
+def _publics(sigs_pub, device) -> torch.Tensor:
+    return torch.stack([C.from_ref(p) for p in sigs_pub]).to(device)
+
+
+def _d_equation_ok(proof: RangeProofBatch, ca_pub_table) -> torch.Tensor:
+    """D == c C2 + Zr P + (sum_j u^j Zphi_j) B per value, (V,) bool."""
+    dev = proof.commit.device
+    wz = _weighted_sum_mod_n(proof.zphi, _upow_mont(proof.u, proof.l, dev))
+    Dp = C.add(C.scalar_mul(proof.commit[..., 1, :, :], proof.challenge),
+               C.add(eg.fixed_base_mul(ca_pub_table, proof.zr),
+                     eg.fixed_base_mul(eg.BASE_TABLE.table.to(dev), wz)))
+    return C.eq(Dp, proof.d)
+
+
+def _g1_args(proof: RangeProofBatch, sigs_pub):
+    """c y_i - Zphi_j B for every digit proof, (ns, V, l, 3, 16)."""
+    dev = proof.commit.device
+    cy = C.scalar_mul(_publics(sigs_pub, dev)[:, None], proof.challenge[None])
+    nzphiB = eg.fixed_base_mul(eg.BASE_TABLE.table.to(dev),
+                               F.neg(proof.zphi, FN))
+    return C.add(cy[:, :, None], nzphiB[None])
+
+
+def _verify_kernel(proof: RangeProofBatch, sigs_pub, ca_pub_table):
+    """The per-value check of every digit proof, (V,) bool:
+    D == c C2 + Zr P + (sum u^j Zphi_j) B, and
+    a_ij == e(c y_i - Zphi_j B, V_ij) gtB^Zv_ij for every server i and
+    digit j, one full pairing per digit proof."""
+    d_ok = _d_equation_ok(proof, ca_pub_table)
+    px, py, _ = C.normalize(_g1_args(proof, sigs_pub))
+    qx, qy, _ = G2.normalize(proof.v_pts)
+    ap = gt_mul(GT.pair(px, py, qx, qy), gt_pow_gtb(proof.zv))
+    a_ok = F12.eq(ap, proof.a).all(-1).all(0)
+    return d_ok & a_ok
+
+
+def _challenge_ok(proof: RangeProofBatch, sigs_pub) -> np.ndarray:
+    """The challenge recomputed from the transmitted commitment bytes equals
+    the transmitted one, per value: a forger who derives D or a after
+    fixing c changes c."""
+    acc = None
+    for p in sigs_pub:
+        acc = refimpl.g1_add(acc, p)
+    want = challenge_from_wire(proof.wire_bytes(), _g1_bytes_host(acc),
+                               proof.u, proof.l)
+    return np.all(proof.challenge.cpu().numpy() == want.numpy(), axis=-1)
+
+
+def verify_range_proofs(proof: RangeProofBatch, sigs_pub,
+                        ca_pub_table) -> np.ndarray:
+    """The per-value verdicts of a proof batch against the servers'
+    publics (host affine int pairs), on the proof's device: (V,) bool."""
+    return (_verify_kernel(proof, sigs_pub, ca_pub_table).cpu().numpy()
+            & _challenge_ok(proof, sigs_pub))
+
+
+def _sum_mod_n(x: torch.Tensor) -> torch.Tensor:
+    """sum of (K, 16) scalars mod n by a pairwise tree."""
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:1])])
+        x = F.add(x[0::2], x[1::2], FN)
+    return x[0]
+
+
+def rlc_prelude(proof: RangeProofBatch, sigs_pub, ca_pub_table,
+                rng: Optional[np.random.Generator] = None):
+    """The RLC check's acceptance preamble: the D equation of every value,
+    the challenge recomputed from the bytes, GPhi12 membership and order n
+    of every wire-provided a (in that order, each only if the ones before
+    held), the verifier-secret 62-bit weights r (ns, V, l) drawn by
+    `rng.integers(1, 2^62)` (seeded from 16 fresh random bytes without an
+    rng), and gtB^(sum r Zv). Returns (pre_ok, r_int, gtb_pow_s)."""
+    ns, V, l = len(sigs_pub), proof.n_values, proof.l
+    ok = (bool(_d_equation_ok(proof, ca_pub_table).all())
+          and bool(np.all(_challenge_ok(proof, sigs_pub)))
+          and GT.gt_membership_ok(proof.a) and GT.gt_order_ok(proof.a))
+
+    if rng is None:
+        rng = np.random.default_rng(
+            np.frombuffer(_secrets.token_bytes(16), dtype=np.uint64))
+    r_int = rng.integers(1, 1 << 62, size=(ns, V, l), dtype=np.int64)
+
+    r = eg.int_to_scalar(torch.from_numpy(r_int).to(proof.zv.device))
+    S = _sum_mod_n(_mul_plain(r, proof.zv).reshape(-1, NUM_LIMBS))
+    return ok, r_int, gt_pow_gtb(S[None])[0]
+
+
+def rlc_total_single(proof: RangeProofBatch, sigs_pub, r_int, gtb_pow_s):
+    """The RLC check's GT total on one device, (6, 2, 16): it is one iff
+    the batch verifies under the weights r_int,
+      prod_ij [e(r_ij (c y_i - Zphi_j B), V_ij) conj6(a_ij)^r_ij]
+      * gtB^(sum_ij r_ij Zv_ij),
+    with one final exponentiation for the product of all Miller values
+    (the a^r factors are already in GT and are not exponentiated again)."""
+    r = eg.int_to_scalar(torch.from_numpy(r_int).to(proof.zv.device))
+    # the weights are 62-bit, so their ladder runs 16 windows, not 64
+    px, py, _ = C.normalize(C.scalar_mul_short(_g1_args(proof, sigs_pub), r,
+                                               64))
+    qx, qy, _ = G2.normalize(proof.v_pts)
+    m = GT.miller(px, py, qx, qy)
+    ar = GT.gt_pow64(F12.conj6(proof.a), r)
+    fe = CP.final_exp_flat(
+        GT.gt_reduce_prod(m.reshape((-1,) + GT_SHAPE))[None])
+    Pa = GT.gt_reduce_prod(ar.reshape((-1,) + GT_SHAPE))
+    return gt_mul(gt_mul(fe, Pa[None]), gtb_pow_s[None])[0]
+
+
+def verify_range_proofs_batch(proof: RangeProofBatch, sigs_pub, ca_pub_table,
+                              rng: Optional[np.random.Generator] = None
+                              ) -> bool:
+    """One verdict for a whole batch by a random linear combination in the
+    exponent (the reference's verify_range_proofs_batch, whose docstring
+    gives the soundness argument): the preamble, then the GT total against
+    one."""
+    pre_ok, r_int, gtb_pow_s = rlc_prelude(proof, sigs_pub, ca_pub_table,
+                                           rng=rng)
+    if not pre_ok:
+        return False
+    total = rlc_total_single(proof, sigs_pub, r_int, gtb_pow_s)
+    return bool(F12.eq(total, F12.one((), total.device)))
+
+
+# ---------------------------------------------------------------------------
+# Joint verification of many payloads
+# ---------------------------------------------------------------------------
+
+def _batch_shapes_ok(pb: RangeProofBatch, ns_expected: int) -> bool:
+    """The decoded batch's tensors agree with each other and with the
+    published roster (from_bytes trusts the payload's own header)."""
+    try:
+        ns, l, V = pb.n_servers, int(pb.l), pb.n_values
+        return (ns == ns_expected and l >= 1 and V >= 1
+                and tuple(pb.commit.shape) == (V, 2, 3, NUM_LIMBS)
+                and tuple(pb.challenge.shape) == (V, NUM_LIMBS)
+                and tuple(pb.zr.shape) == (V, NUM_LIMBS)
+                and tuple(pb.d.shape) == (V, 3, NUM_LIMBS)
+                and tuple(pb.zphi.shape) == (V, l, NUM_LIMBS)
+                and tuple(pb.zv.shape) == (ns, V, l, NUM_LIMBS)
+                and tuple(pb.v_pts.shape) == (ns, V, l, 3, 2, NUM_LIMBS)
+                and tuple(pb.a.shape) == (ns, V, l) + GT_SHAPE)
+    except Exception:
+        return False
+
+
+def _list_structure_ok(lst: RangeProofList, ranges,
+                       sigs_pub_by_u: dict) -> bool:
+    """Every value with a nonzero (u, l) spec is covered by exactly one
+    batch of exactly that spec, every batch's base has published
+    signatures, and every batch's shapes are consistent."""
+    want = group_ranges(ranges)
+    covered = {}
+    for ia, pb in lst.batches:
+        sigs = sigs_pub_by_u.get(pb.u)
+        if sigs is None or not _batch_shapes_ok(pb, len(sigs)):
+            return False
+        if len(np.asarray(ia)) != pb.n_values:
+            return False
+        for i in ia:
+            if int(i) in covered:
+                return False
+            covered[int(i)] = (pb.u, pb.l)
+    for (u, l), idx in want.items():
+        for i in idx:
+            if covered.get(i) != (u, l):
+                return False
+    return set(covered) == {i for idx in want.values() for i in idx}
+
+
+_FAULTS = (KernelError, MemoryError, torch.cuda.OutOfMemoryError,
+           getattr(torch, "AcceleratorError", KernelError))
+
+
+def _is_fault(exc: Exception, device: torch.device) -> bool:
+    """Whether an exception raised while decoding or verifying a payload is
+    a fault of the program or the card, not of the payload: a kernel that
+    failed to build or launch, memory that ran out, or a CUDA error. A
+    kernel that faults while it runs surfaces at a later torch call, under
+    any name, and leaves its error in the CUDA context, where a
+    synchronize raises it again."""
+    if isinstance(exc, _FAULTS) or "CUDA" in str(exc):
+        return True
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return False
+
+
+def _safe_batch_verify(pb: RangeProofBatch, sigs_pub, ca_pub_table) -> bool:
+    """One batch's RLC verdict, with containment: a payload that makes the
+    verifier raise fails for itself (False), never for its neighbours. A
+    fault of the program or the card (`_is_fault`) is not a verdict on the
+    payload and propagates. (The reference's routing to a sharded verifier
+    on a multi-device plane is not ported.)"""
+    try:
+        return verify_range_proofs_batch(pb, sigs_pub, ca_pub_table)
+    except Exception as e:
+        if _is_fault(e, ca_pub_table.device):
+            raise
+        log.warning("range batch verify raised (payload rejected)",
+                    exc_info=True)
+        return False
+
+
+def verify_range_proof_list(lst: RangeProofList, ranges,
+                            sigs_pub_by_u: dict, ca_pub_table) -> bool:
+    """One payload against the query's specs: structure, then every
+    batch's RLC check."""
+    if not _list_structure_ok(lst, ranges, sigs_pub_by_u):
+        return False
+    return all(_safe_batch_verify(pb, sigs_pub_by_u[pb.u], ca_pub_table)
+               for _ia, pb in lst.batches)
+
+
+def _concat_batches(pbs: list) -> RangeProofBatch:
+    """Same-spec batches concatenated along the value axis."""
+    u, l = pbs[0].u, pbs[0].l
+    assert all(pb.u == u and pb.l == l for pb in pbs)
+    cat = lambda name, ax: torch.cat([getattr(pb, name) for pb in pbs], ax)
+    wire = None
+    if all(pb.wire is not None for pb in pbs):
+        wire = {"commit": np.concatenate([pb.wire["commit"].reshape(
+                    pb.n_values, 128) for pb in pbs]),
+                "d": np.concatenate([pb.wire["d"] for pb in pbs]),
+                "v": np.concatenate([pb.wire["v"] for pb in pbs], 1),
+                "a": np.concatenate([pb.wire["a"] for pb in pbs], 1)}
+    return RangeProofBatch(
+        commit=cat("commit", 0), challenge=cat("challenge", 0),
+        zr=cat("zr", 0), d=cat("d", 0), zphi=cat("zphi", 0),
+        zv=cat("zv", 1), v_pts=cat("v_pts", 1), a=cat("a", 1), u=u, l=l,
+        wire=wire)
+
+
+def verify_range_proof_lists_joint(lists: list, ranges, sigs_pub_by_u: dict,
+                                   ca_pub_table) -> list[bool]:
+    """Many DPs' payloads at once: the structure of each, then one RLC check
+    per (u, l) spec over the concatenation of every well-formed payload's
+    values (one shared final exponentiation; the weights are drawn across
+    the whole concatenation). If a joint check fails, each payload is
+    checked on its own, so a neighbour's forgery costs an honest payload
+    nothing. One bool per payload."""
+    ok_struct = [_list_structure_ok(lst, ranges, sigs_pub_by_u)
+                 for lst in lists]
+    by_spec: dict = {}
+    for lst, ok in zip(lists, ok_struct):
+        if ok:
+            for _ia, pb in lst.batches:
+                by_spec.setdefault((pb.u, pb.l), []).append(pb)
+    if not by_spec:
+        return ok_struct
+    joint_ok = all(
+        _safe_batch_verify(_concat_batches(pbs), sigs_pub_by_u[u],
+                           ca_pub_table)
+        for (u, _l), pbs in by_spec.items())
+    if joint_ok:
+        return ok_struct
+    return [ok and verify_range_proof_list(lst, ranges, sigs_pub_by_u,
+                                           ca_pub_table)
+            for lst, ok in zip(lists, ok_struct)]
+
+
+def verify_range_proof_payloads_joint(datas: list, ranges,
+                                      sigs_pub_by_u: dict,
+                                      ca_pub_table) -> list[bool]:
+    """Joint verification from the DPs' raw payload bytes, on the device
+    of `ca_pub_table`: each payload decodes in its own guard, so a
+    malformed one fails only itself."""
+    device = ca_pub_table.device
+    lists, idx = [], []
+    out = [False] * len(datas)
+    for i, d in enumerate(datas):
+        try:
+            lists.append(RangeProofList.from_bytes(d, device))
+            idx.append(i)
+        except Exception as e:
+            if _is_fault(e, device):
+                raise
+            log.warning("range payload %d: malformed bytes, rejected", i)
+    if lists:
+        for i, ok in zip(idx, verify_range_proof_lists_joint(
+                lists, ranges, sigs_pub_by_u, ca_pub_table)):
+            out[i] = ok
+    return out
+
+
 __all__ = ["RangeSig", "init_range_sig", "to_base", "sig_gt_table",
            "sig_gt_pow_tables", "gt_base",
-           "gt_base_table", "gt_pow_gtb", "gt_mul", "RangeProofBatch",
+           "gt_base_table", "gt_pow_gtb", "RangeProofBatch",
            "sum_publics_bytes", "challenge_from_wire", "create_range_proofs",
            "RangeProofList", "group_ranges", "create_range_proof_list",
-           "create_range_proof_lists_batched"]
+           "create_range_proof_lists_batched", "verify_range_proofs",
+           "rlc_prelude", "rlc_total_single", "verify_range_proofs_batch",
+           "verify_range_proof_list", "verify_range_proof_lists_joint",
+           "verify_range_proof_payloads_joint"]

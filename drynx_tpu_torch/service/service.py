@@ -1,12 +1,14 @@
-"""The data-collection phase of a survey with proofs on, on one device.
+"""The range-proof phases of a survey with proofs on, on one device.
 
-The port's counterpart of drynx_tpu/service/service.py:727-810 (the DP
-side of `LocalCluster.execute_survey` for `log_reg` with range proofs):
-every DP shifts its stats by u^l/2 so that signed log-reg coefficients
-become a provable [0, u^l) statement, encrypts them under the collective
-key, and proves each ciphertext's range against the computing nodes'
-digit signatures, all DPs in one batched creation. The cluster around it
-(query, aggregation, key switch, verifying nodes) is not ported yet.
+The port's counterpart of two steps of drynx_tpu/service/service.py. The
+data collection (:727-810, the DP side of `LocalCluster.execute_survey` for
+`log_reg` with range proofs): every DP shifts its stats by u^l/2 so that
+signed log-reg coefficients become a provable [0, u^l) statement, encrypts
+them under the collective key, and proves each ciphertext's range against
+the computing nodes' digit signatures, all DPs in one batched creation.
+The verifying nodes' check (`vrange_joint`, :254-263): every DP's payload
+bytes decoded and checked jointly, one verdict per DP. The cluster around
+them (query, aggregation, key switch, transport) is not ported yet.
 """
 from __future__ import annotations
 
@@ -61,4 +63,17 @@ def collect_with_range_proofs(dp_stats, enc_rs, ranges, sigs_by_u: dict,
     return cts, lists
 
 
-__all__ = ["make_range_sigs", "collect_with_range_proofs"]
+def verify_collected_range_proofs(payloads, ranges, sigs_by_u: dict,
+                                  coll_pub_table) -> list[bool]:
+    """The verifying node's joint check of the DPs' range-proof payloads
+    (their raw bytes, as `collect_with_range_proofs` serializes them) on
+    the device of `coll_pub_table`: one bool per payload. The RLC weights
+    are drawn fresh for every call."""
+    sigs_pub_by_u = {u: [s.public for s in sigs]
+                     for u, sigs in sigs_by_u.items()}
+    return rp.verify_range_proof_payloads_joint(payloads, ranges,
+                                                sigs_pub_by_u, coll_pub_table)
+
+
+__all__ = ["make_range_sigs", "collect_with_range_proofs",
+           "verify_collected_range_proofs"]

@@ -11,6 +11,10 @@ library and returned by `ptxas_report`.
 Nothing is built at import: the first wrapper that launches a kernel calls
 `load`, and `build_all` compiles every source at once, one nvcc process per
 source, for scripts that want the build out of the way up front.
+
+A kernel that cannot be built, loaded or launched raises `KernelError`. It
+is a fault of the program, never a verdict on the data, so the verifiers'
+exception containment lets it through.
 """
 from __future__ import annotations
 
@@ -50,8 +54,20 @@ ENTRY_POINTS = {
     "gt_ops": {
         "f12_mul": (3, 1),
         "f12_mulreduce8": (2, 1),
+        "f12_inv": (2, 1),
+        "f12_csqr": (2, 1),
+        "f12_slotmul": (3, 2),
+        "f12_wpow": (3, 3),
+    },
+    "miller": {
+        "miller": (3, 1),
     },
 }
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel of the port failed to build, load or launch."""
+
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -65,8 +81,8 @@ def nvcc_path() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels of drynx_tpu_torch "
-                       "build only where the CUDA toolkit is installed")
+    raise KernelError("nvcc not found: the CUDA kernels of drynx_tpu_torch "
+                      "build only where the CUDA toolkit is installed")
 
 
 def _digest(name: str) -> str:
@@ -105,8 +121,8 @@ def _finish_build(name: str, started) -> None:
     proc, out, tmp = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
+        raise KernelError(f"nvcc failed for csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
     _report_path(name).write_text(log)
     os.replace(tmp, out)
 
@@ -136,7 +152,11 @@ def load(name: str) -> ctypes.CDLL:
         started = _start_build(name)
         if started is not None:
             _finish_build(name, started)
-        lib = ctypes.CDLL(str(library_path(name)))
+        try:
+            lib = ctypes.CDLL(str(library_path(name)))
+        except OSError as e:
+            raise KernelError(f"cannot load csrc/{name}.cu's library: {e}") \
+                from e
         for fn_name, (n_ptrs, n_ints) in ENTRY_POINTS[name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
@@ -149,7 +169,7 @@ def load(name: str) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
+        raise KernelError(f"CUDA launch of {what} failed: cudaError {rc}")
 
 
 def check_operands(*named):
@@ -189,6 +209,6 @@ def launch(name: str, entry: str, out, inputs, ints) -> None:
     check(rc, entry)
 
 
-__all__ = ["build_all", "load", "check", "check_operands", "check_shape",
-           "launch", "ptxas_report", "library_path", "nvcc_path",
-           "BUILD_DIR"]
+__all__ = ["KernelError", "build_all", "load", "check", "check_operands",
+           "check_shape", "launch", "ptxas_report", "library_path",
+           "nvcc_path", "BUILD_DIR"]

@@ -89,7 +89,8 @@ def _gt(k):
 
 
 @pytest.mark.parametrize("kernel", ["point_add", "f2_inv", "g2_scalar_mul",
-                                    "f12_mul", "f12_mulreduce8"])
+                                    "f12_mul", "f12_mulreduce8", "f12_inv",
+                                    "f12_wpow"])
 def test_cpu_tensors_take_the_plain_versions_without_counting(kernel):
     before = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
     if kernel == "point_add":
@@ -107,6 +108,13 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(kernel):
     elif kernel == "f12_mul":
         out = cuda_pairing.f12_mul_flat(_gt(2)[None], _gt(3)[None])
         assert torch.equal(out[0], _gt(5))
+    elif kernel == "f12_inv":
+        out = cuda_pairing.f12_inv_flat(_gt(2)[None])
+        assert torch.equal(out[0], _gt(params.N - 2))
+    elif kernel == "f12_wpow":
+        out = cuda_pairing.f12_wpow_flat(_gt(3)[None], F.from_int([100]),
+                                         n_bits=63, cyc=True)
+        assert torch.equal(out[0], _gt(300))
     else:
         g = torch.stack([_gt(k) for k in range(1, 9)])[None]
         assert torch.equal(cuda_pairing.f12_mulreduce8_flat(g)[0], _gt(36))
@@ -121,11 +129,29 @@ def test_kernel_build_targets_hopper_and_names_every_source():
         assert cuda_build.library_path(name).parent == cuda_build.BUILD_DIR
     sources = {p.stem for p in cuda_build.CSRC.glob("*.cu")}
     assert sources == set(cuda_build.ENTRY_POINTS)
-    assert {"g2_ops", "gt_ops"} <= sources
+    assert {"g2_ops", "gt_ops", "miller"} <= sources
     assert set(cuda_build.ENTRY_POINTS["g2_ops"]) == {"g2_scalar_mul",
                                                       "f2_inv"}
-    assert set(cuda_build.ENTRY_POINTS["gt_ops"]) == {"f12_mul",
-                                                      "f12_mulreduce8"}
+    assert set(cuda_build.ENTRY_POINTS["gt_ops"]) == {
+        "f12_mul", "f12_mulreduce8", "f12_inv", "f12_csqr", "f12_slotmul",
+        "f12_wpow"}
+    assert set(cuda_build.ENTRY_POINTS["miller"]) == {"miller"}
+
+
+def test_device_header_constants_match_params():
+    """R mod p (one_word) in the tower header and 6u + 2 in csrc/miller.cu
+    are the package's constants."""
+    tower = (cuda_build.CSRC / "bn256_tower.cuh").read_text()
+    body = tower[tower.index("one_word(int i)"):tower.index("fp_one()")]
+    words = [int(w, 16) for w in re.findall(r"return (0x[0-9a-f]+)u;", body)]
+    assert sum(w << (32 * i) for i, w in enumerate(words)) == \
+        params.R % params.P
+    miller = (cuda_build.CSRC / "miller.cu").read_text()
+    lo = int(re.search(r"kAteLo = (0x[0-9a-f]+)ull;", miller).group(1), 16)
+    hi = int(re.search(r"kAteHi = (\d+)u;", miller).group(1))
+    top = int(re.search(r"kAteTop = (\d+);", miller).group(1))
+    ate = 6 * params.U + 2
+    assert (hi << 64) + lo == ate and top + 2 == ate.bit_length()
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +242,54 @@ def test_kernel_equals_plain_version_on_the_card(cuda, kernel):
     assert {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}[kernel] == \
         counts[kernel] + 1
     assert torch.equal(got, plain())
+
+
+def _verify_operands(device):
+    """GT values (GPhi12 members and two that are not), 256-bit exponents,
+    and 40 (P, Q) pairs in affine Montgomery limbs."""
+    rng = np.random.default_rng(26)
+    odd = [tuple(tuple(int.from_bytes(rng.bytes(40), "little") % params.P
+                       for _ in range(2)) for _ in range(6)) for _ in range(2)]
+    a = torch.cat([_gt_operands(128, device),
+                   F12.from_ref_batch(odd).to(device)])
+    k = F.from_int([int.from_bytes(rng.bytes(32), "little")
+                    for _ in range(len(a))]).to(device)
+    g1 = [refimpl.g1_mul(refimpl.G1, 5 + i) for i in range(40)]
+    g2 = [refimpl.g2_mul(refimpl.G2, 9 + i) for i in range(40)]
+    mont = lambda v: F.to_mont(F.from_int(v))
+    pq = (torch.stack([mont(p[0]) for p in g1]),
+          torch.stack([mont(p[1]) for p in g1]),
+          torch.stack([F2.from_ref(q[0]) for q in g2]),
+          torch.stack([F2.from_ref(q[1]) for q in g2]))
+    return a, k, tuple(t.to(device) for t in pq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["miller", "f12_inv", "f12_csqr",
+                                    "f12_slotmul", "f12_wpow"])
+def test_verify_kernel_equals_plain_version_on_the_card(cuda, kernel):
+    a, k, pq = _verify_operands(cuda)
+    cp = cuda_pairing
+    calls = {
+        "miller": [(lambda: cp.miller_flat(*pq),
+                    lambda: cp.miller_plain(*pq))],
+        "f12_inv": [(lambda: cp.f12_inv_flat(a), lambda: cp.f12_inv_plain(a))],
+        "f12_csqr": [(lambda: cp.f12_csqr_flat(a),
+                      lambda: cp.f12_csqr_plain(a))],
+        "f12_slotmul": [(lambda w=w: cp.f12_slotmul_flat(a, w),
+                         lambda w=w: cp.f12_slotmul_plain(a, w))
+                        for w in cp.SLOT_MAPS],
+        "f12_wpow": [(lambda n=n, c=c: cp.f12_wpow_flat(a, k, n, cyc=c),
+                      lambda n=n, c=c: cp.f12_wpow_plain(a, k, n, c))
+                     for n, c in ((63, True), (128, True), (256, True),
+                                  (63, False), (256, False))],
+    }
+    for kern, plain in calls[kernel]:
+        before = cp.LAUNCHES[kernel]
+        got = kern()
+        torch.cuda.synchronize()
+        assert cp.LAUNCHES[kernel] == before + 1
+        assert torch.equal(got, plain())
 
 
 @pytest.mark.gpu
