@@ -34,6 +34,16 @@ Phases (any failed check exits non-zero; nothing is caught):
      and on the tampered bytes only the tampered value rejected. Print the
      joint check's wall time (median of warm runs), its split by stage and
      the peak device memory.
+  7. Run the proofs-on survey of bench.py:_proofs_on_cluster through
+     `LocalCluster.run_survey` (3 CNs, 10 DPs, 3 VNs, seed 4, log_reg at
+     the Pima width, ranges (16, 5), thresholds 1.0), counted as above: an
+     audit block of 3 VNs x 16 proofs, every entry BM_TRUE; all 90
+     decrypted values exact and found; the weights within 1e-3 of GD on
+     the CPU; the same transcript digest from a second run with the same
+     seed (verification caches cleared); a key-switch payload from a VN's
+     store accepted, and rejected with one zx limb changed. Print the wall
+     time (median of 3 warm runs after a warm-up), the phase timers and the
+     time in Schnorr signing and checking.
   Last, the kernels' times, launch counts and bounds as one JSON line, the
   card's name and power limit, and the contract line
   {"ok": true, "device": {...}}.
@@ -44,6 +54,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -56,7 +67,8 @@ KERNEL_REPS = 10
 # launches of one survey: encrypt rB, |m|B, rP and key switch rB, rQ;
 # key switch xK and decrypt; aggregate and the two key-switch sums;
 # encrypt, key switch and its finish, decrypt; one normalize
-VERIFY_KERNELS = ("miller", "f12_inv", "f12_csqr", "f12_slotmul", "f12_wpow")
+VERIFY_KERNELS = ("miller", "f12_inv", "f12_csqr", "f12_slotmul", "f12_wpow",
+                  "f12_pow")   # f12_pow: no path of the port runs it
 EXPECTED_LAUNCHES = {"fixed_base_mul": 5, "scalar_mul": 2, "point_reduce": 3,
                      "point_add": 4, "fp_inv": 1, "f2_inv": 0,
                      "g2_scalar_mul": 0, "f12_mul": 0, "f12_mulreduce8": 0,
@@ -89,7 +101,8 @@ EXPECTED_LAUNCHES_VERIFY = {"fixed_base_mul": 3, "scalar_mul": 3,
                             "point_reduce": 0, "point_add": 3, "fp_inv": 1,
                             "f2_inv": 1, "g2_scalar_mul": 0, "f12_mul": 18,
                             "f12_mulreduce8": 12, "miller": 1, "f12_inv": 1,
-                            "f12_csqr": 4, "f12_slotmul": 17, "f12_wpow": 5}
+                            "f12_csqr": 4, "f12_slotmul": 17, "f12_wpow": 5,
+                            "f12_pow": 0}
 # the per-value check's launches: the D equation as above; c y, -Zphi B and
 # their sum; both normalizations; one pairing of every digit proof (the
 # Miller loop and the final exponentiation above) times gtB^Zv (two passes)
@@ -97,8 +110,30 @@ EXPECTED_LAUNCHES_PER_VALUE = {"fixed_base_mul": 3, "scalar_mul": 2,
                                "point_reduce": 0, "point_add": 3, "fp_inv": 1,
                                "f2_inv": 1, "g2_scalar_mul": 0, "f12_mul": 16,
                                "f12_mulreduce8": 2, "miller": 1, "f12_inv": 1,
-                               "f12_csqr": 4, "f12_slotmul": 14, "f12_wpow": 3}
+                               "f12_csqr": 4, "f12_slotmul": 14, "f12_wpow": 3,
+                               "f12_pow": 0}
 TAMPER_DP = 3
+# the proofs-on LocalCluster survey (bench.py:_proofs_on_cluster): phase 5's
+# creation launches (encryption: three fixed-base products and an add; the
+# range proofs: D's two fixed-base products and add, two normalizations, the
+# G2 ladder, its normalization, four 8-way products and a product), the
+# canonical aggregate (a reduce and a normalization), the key switch (two
+# fixed-base products, a ladder, an add, two reduces, the finish's add, and
+# the signed-offset correction's fixed-base product and add), the key-switch
+# proof (two fixed-base products, a ladder, an add, one normalization of its
+# transcript), decryption (a ladder, an add, a normalization); then the VNs'
+# checks, each payload once (the VNs share one verification cache): the
+# joint range check as EXPECTED_LAUNCHES_VERIFY, the aggregation proof (a
+# reduce), the key-switch proofs (two fixed-base products, one ladder over
+# c U, zx K, c W and c Y, two adds, one normalization)
+N_VNS, CLUSTER_SEED, SURVEY_SEED, CLUSTER_RUNS = 3, 4, 0, 3
+SIGNED_OFFSET_LAUNCHES = {"fixed_base_mul": 1, "point_add": 1}
+EXPECTED_LAUNCHES_CLUSTER = {"fixed_base_mul": 15, "scalar_mul": 7,
+                             "point_reduce": 4, "point_add": 12, "fp_inv": 7,
+                             "f2_inv": 2, "g2_scalar_mul": 1, "f12_mul": 19,
+                             "f12_mulreduce8": 16, "miller": 1, "f12_inv": 1,
+                             "f12_csqr": 4, "f12_slotmul": 17, "f12_wpow": 5,
+                             "f12_pow": 0}
 
 # H100 SXM: 132 SMs, 64 32-bit integer multiply-adds per SM per clock,
 # 3.35 TB/s device memory (NVIDIA data sheet and Hopper white paper)
@@ -141,6 +176,23 @@ def mm_wpow(n_bits, cyc):
     sq = MM_F12_CSQR if cyc else MM_F12_SQR
     return 3 * (sq + MM_F12_MUL) + ((n_bits + 2) // 3 - 1) * (3 * sq
                                                               + MM_F12_MUL)
+
+
+def mm_pow(k, n_bits):
+    """Montgomery products, summed over the rows, that f^k needs for the
+    low n_bits of each row's k (plain 16-bit limbs, LSB first): a square
+    for each bit below the highest set one and a product for each set bit
+    after the first (which only copies f into the accumulator). The kernel
+    squares at every bit and computes the product at every bit, keeping it
+    by mask; the bound counts only what this run's exponents need."""
+    bits = (k.long()[:, :, None] >> torch.arange(16, device=k.device)) & 1
+    bits = bits.reshape(k.shape[0], -1)[:, :n_bits]
+    ones = bits.sum(1)
+    top = torch.where(bits.bool(), torch.arange(n_bits, device=k.device),
+                      -1).amax(1)
+    set_rows = ones > 0
+    return int((top[set_rows] * MM_F12_SQR
+                + (ones[set_rows] - 1) * MM_F12_MUL).sum())
 
 
 def smi(query):
@@ -224,6 +276,153 @@ def tamper_zv(buf):
     b = bytearray(buf)
     b[at] ^= 1
     return bytes(b)
+
+
+class HostTimer:
+    """Calls of a host function, with the wall time of each call and the
+    CPU time of its thread in it, summed over every thread that calls it.
+    Threads that wait for the interpreter lock add wall time, not CPU
+    time."""
+
+    def __init__(self, module, name):
+        self.fn = getattr(module, name)
+        self.lock = threading.Lock()
+        self.reset()
+
+        def timed(*a, **k):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return self.fn(*a, **k)
+            finally:
+                with self.lock:
+                    self.seconds += time.perf_counter() - t0
+                    self.cpu += time.thread_time() - c0
+                    self.calls += 1
+        setattr(module, name, timed)
+
+    def reset(self):
+        with self.lock:
+            self.seconds, self.cpu, self.calls = 0.0, 0.0, 0
+
+
+def phase7(stats, X, y, params, zero_launches, launch_counts):
+    """The proofs-on survey of bench.py:_proofs_on_cluster through the
+    port's LocalCluster on the card. Returns (launches, warm wall times)."""
+    import pickle
+
+    from drynx_tpu_torch.models import logreg as lr
+    from drynx_tpu_torch.proofs import requests as rq
+    from drynx_tpu_torch.proofs import schnorr
+    from drynx_tpu_torch.proofs.safe_pickle import safe_loads
+    from drynx_tpu_torch.server.transcript import transcript_digest
+    from drynx_tpu_torch.service.service import LocalCluster
+
+    t0 = time.perf_counter()
+    cluster = LocalCluster(n_cns=N_SERVERS, n_dps=NUM_DPS, n_vns=N_VNS,
+                           seed=CLUSTER_SEED, dlog_limit=DLOG_LIMIT)
+    for i, dp in enumerate(cluster.dps.values()):
+        dp.data = lr.shard_for_dp(X, y, i, NUM_DPS)
+    V = stats.shape[1]
+    sq = cluster.generate_survey_query("log_reg", proofs=1, lr_params=params,
+                                       ranges=[(U, L)] * V, thresholds=1.0)
+    cluster.ensure_range_sigs(U)
+    torch.cuda.synchronize()
+    print(f"phase 7 setup: cluster keys, tables and {N_SERVERS} signature "
+          f"sets of u={U} {time.perf_counter() - t0:.1f} s", flush=True)
+    sign = HostTimer(schnorr, "sign")
+    check = HostTimer(schnorr, "verify")
+    sid = sq.survey_id
+    clear = stats.sum(0).cpu()
+
+    def run():
+        for vn in cluster.vns.vns:
+            vn.verify_cache.clear()
+        sign.reset()
+        check.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cluster.run_survey(sq, seed=SURVEY_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if res.block is None:
+            raise SystemExit("no audit block committed")
+        bitmap = res.block.data.bitmap
+        if (len(bitmap) != N_VNS * (NUM_DPS + 2 * N_SERVERS)
+                or set(bitmap.values()) != {rq.BM_TRUE}):
+            raise SystemExit(f"audit block bitmap: {len(bitmap)} entries, "
+                             f"codes {sorted(set(bitmap.values()))}")
+        dec = torch.from_numpy(res.decrypted.values)
+        if not res.decrypted.found.all() or not torch.equal(dec, clear):
+            raise SystemExit("decrypted values differ from the clear sums")
+        return wall, res
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    first_s, res = run()
+    launches7 = launch_counts()
+    print(f"phase 7: first proofs-on cluster survey {first_s:.3f} s; "
+          f"launches {launches7}", flush=True)
+    if launches7 != EXPECTED_LAUNCHES_CLUSTER:
+        raise SystemExit(f"cluster survey launches {launches7} differ from "
+                         f"{EXPECTED_LAUNCHES_CLUSTER}")
+    w = torch.from_numpy(res.result)
+    w_cpu = lr.train(lr.unpack(torch.from_numpy(res.decrypted.values),
+                               params), params)
+    w_err = float((w - w_cpu).abs().max())
+    w_tol = 1e-3 * max(1.0, float(w_cpu.abs().max()))
+    if w.shape != (D + 1,) or not bool(torch.isfinite(w).all()) or w_err > w_tol:
+        raise SystemExit(f"cluster weights differ from CPU GD: {w_err}")
+    digest = transcript_digest(cluster.vns, sid)
+    print(f"  audit block #{res.block.index}: {len(res.block.data.bitmap)} "
+          f"entries, all BM_TRUE; all {V} values exact and found; weights "
+          f"max abs err vs CPU GD {w_err:.3g} (tolerance {w_tol:.3g}); "
+          f"transcript {digest[:16]}; Schnorr {sign.calls} signs "
+          f"{sign.cpu:.3f} s CPU, {check.calls} checks {check.cpu:.3f} s "
+          f"CPU", flush=True)
+
+    walls, splits, host = [], [], []
+    for i in range(1 + CLUSTER_RUNS):
+        wall, res = run()
+        if i == 0:
+            again = transcript_digest(cluster.vns, sid)
+            if again != digest:
+                raise SystemExit("a second run with the same seed gives "
+                                 f"transcript {again}, not {digest}")
+            continue
+        walls.append(wall)
+        splits.append(dict(res.timers.items()))
+        host.append((sign.cpu, check.cpu, sign.seconds + check.seconds))
+
+    # a key-switch payload from a VN's store, and a copy with one zx limb
+    # changed, through the VN's own verifier
+    vn = cluster.vns.vns[1]
+    data = vn.stored_proofs(sid)[f"{sid}/keyswitch/cn0/keyswitch-cn0"]
+    proof = safe_loads(data)
+    proof.zx[1, 7, 0] ^= 1
+    vks = vn.verify_fns["keyswitch"]
+    ok, bad = vks(data, sid), vks(pickle.dumps(proof), sid)
+    if ok is not True or bad is not False:
+        raise SystemExit(f"key-switch verifier: honest {ok}, tampered {bad}")
+
+    med = statistics.median(walls)
+    split = {k: statistics.median(s.get(k, 0.0) for s in splits)
+             for k in sorted({k for s in splits for k in s})}
+    sign_s, check_s, wall_s = (statistics.median(h[j] for h in host)
+                               for j in (0, 1, 2))
+    print(f"  the same transcript from a second run; key-switch payload "
+          f"accepted, with one zx limb changed rejected", flush=True)
+    print(f"phase 7: cluster survey wall time median {med:.4f} s over "
+          f"{CLUSTER_RUNS} warm runs after a warm-up (all: "
+          f"{[round(x, 4) for x in walls]}); phase timers, median: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+          + f"; Schnorr, median CPU time: {sign.calls} signs {sign_s:.4f} s "
+          f"+ {check.calls} checks {check_s:.4f} s = {sign_s + check_s:.4f} s"
+          f" ({100 * (sign_s + check_s) / med:.1f} % of the wall time; "
+          f"{wall_s:.4f} s of call wall time summed over threads); peak "
+          f"device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    cluster.close()
+    return launches7, walls
 
 
 def main():
@@ -489,6 +688,16 @@ def main():
              lambda: cuda_pairing.f12_wpow_plain(gt_ca, r_w, 63, True),
              mm_wpow(63, True), n_proofs, 2 * f12_bytes + nbytes(r_w)),
         ],
+        # square-and-multiply-always; the bound counts the squares and the
+        # set bits' products that these exponents need (mm_pow)
+        "f12_pow": [
+            (f"N={n_proofs} {n} bits", (lambda n=n: cuda_pairing.f12_pow_flat(
+                gt_a, g2_k, n)),
+             (lambda n=n: F12.pow_var(gt_a, g2_k, n)),
+             mm_pow(g2_k, n) / n_proofs, n_proofs,
+             2 * f12_bytes + nbytes(g2_k))
+            for n in (48, 256)
+        ],
     }
     meta = {
         "fixed_base_mul": ("drynx_tpu_torch/csrc/g1_ops.cu",
@@ -519,6 +728,8 @@ def main():
                         "drynx_tpu/crypto/pallas_pairing.py:645"),
         "f12_wpow": ("drynx_tpu_torch/csrc/gt_ops.cu",
                      "drynx_tpu/crypto/pallas_pairing.py:572"),
+        "f12_pow": ("drynx_tpu_torch/csrc/gt_ops.cu",
+                    "drynx_tpu/crypto/pallas_pairing.py:541"),
     }
 
     # -- phase 2: every kernel against its plain version ---------------------
@@ -844,6 +1055,10 @@ def main():
           f" peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    # -- phase 7: the proofs-on LocalCluster survey, counted -----------------
+    launches7, walls7 = phase7(stats, X, y, params, zero_launches,
+                               launch_counts)
+
     kernels = []
     for name, tot in summary.items():
         source, replaces = meta[name]
@@ -852,7 +1067,7 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (launches[name] + launches5[name] + launches6[name]
-                         + launches_pv[name]),
+                         + launches_pv[name] + launches7[name]),
             "max_abs_err": tot["err"], "ms": round(tot["ms"], 6),
             "plain_ms": round(tot["plain_ms"], 3),
             "bound_ms": round(max(ops_ms, bytes_ms), 6),
@@ -861,7 +1076,8 @@ def main():
         })
     print("(ms, plain_ms, bound_ms: summed over the kernel's main-path shapes "
           "above, one launch each; launches: the survey's, the proofs-on "
-          "collection's, the joint check's and the per-value check's)")
+          "collection's, the joint check's, the per-value check's and the "
+          "proofs-on cluster survey's)")
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -198,7 +198,7 @@ def _launch(kernel, entry, out, inputs, ints):
     if out.shape[0] == 0:
         return out
     cuda_build.launch("g1_ops", entry, out, inputs, ints)
-    LAUNCHES[kernel] += 1
+    cuda_build.count(LAUNCHES, kernel)
     return out
 
 

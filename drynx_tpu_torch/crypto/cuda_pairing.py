@@ -12,6 +12,7 @@ kernels that the survey and the range proofs run:
   f12_csqr_flat        replaces _f12_csqr_kernel        (csrc/gt_ops.cu)
   f12_slotmul_flat     replaces _f12_slotmul_kernel     (csrc/gt_ops.cu)
   f12_wpow_flat        replaces _f12_wpow_kernel        (csrc/gt_ops.cu)
+  f12_pow_flat         replaces _f12_pow_kernel         (csrc/gt_ops.cu)
   miller_flat          replaces _miller_kernel          (csrc/miller.cu)
 
 and the glue around them: `window_digits`, `gt_pow_fixed` and
@@ -51,7 +52,7 @@ from .params import NUM_LIMBS
 
 LAUNCHES = {"fp_inv": 0, "f2_inv": 0, "g2_scalar_mul": 0, "f12_mul": 0,
             "f12_mulreduce8": 0, "miller": 0, "f12_inv": 0, "f12_csqr": 0,
-            "f12_slotmul": 0, "f12_wpow": 0}
+            "f12_slotmul": 0, "f12_wpow": 0, "f12_pow": 0}
 
 WINDOW_ENTRIES = 16
 N_WINDOWS = 64
@@ -393,7 +394,7 @@ def _launch(lib, kernel, shape, inputs, ints=()):
     if n == 0:
         return out
     cuda_build.launch(lib, kernel, out, inputs, (n, *ints))
-    LAUNCHES[kernel] += 1
+    cuda_build.count(LAUNCHES, kernel)
     return out
 
 
@@ -491,6 +492,25 @@ def f12_wpow_flat(f, k, n_bits: int, cyc: bool = False):
         return f12_wpow_plain(f, k, n_bits, cyc)
     return _launch("gt_ops", "f12_wpow", f.shape, (f, k),
                    (n_bits, int(cyc)))
+
+
+def f12_pow_plain(f, k, n_bits: int):
+    """_f12_pow_kernel's square-and-multiply-always, LSB-first over n_bits
+    bits: fp12.pow_var, the same algorithm."""
+    return F12.pow_var(f, k, n_bits)
+
+
+def f12_pow_flat(f, k, n_bits: int = 256):
+    """f^k: f (N, 6, 2, 16), k (N, 16) plain limbs, of which bits
+    0..n_bits-1 are read (n_bits < 256 truncates for short exponents)."""
+    if not 1 <= n_bits <= 16 * NUM_LIMBS:
+        raise ValueError(f"n_bits must be in [1, 256], got {n_bits}")
+    device = cuda_build.check_operands(("f", f), ("k", k))
+    cuda_build.check_shape("f", f, (len(f), 6, 2, NUM_LIMBS))
+    cuda_build.check_shape("k", k, (len(f), NUM_LIMBS))
+    if device.type == "cpu":
+        return f12_pow_plain(f, k, n_bits)
+    return _launch("gt_ops", "f12_pow", f.shape, (f, k), (n_bits,))
 
 
 def miller_flat(px, py, qx, qy):

@@ -9,6 +9,7 @@
 //   f12_csqr        replaces _f12_csqr_kernel        (f12_csqr_flat)
 //   f12_slotmul     replaces _f12_slotmul_kernel     (f12_slotmul_flat)
 //   f12_wpow        replaces _f12_wpow_kernel        (f12_wpow_flat)
+//   f12_pow         replaces _f12_pow_kernel         (f12_pow_flat)
 //
 // What bounds them: an Fp12 product is 54 Montgomery products (18 Fp2
 // products of 3), 256 32-bit multiply-adds each, against 2 x 384 bytes in
@@ -33,6 +34,12 @@
 // under masks (pallas_pairing.py:611-615), never by an indexed load. At the
 // verifier's 13,500 rows a launch is one wave, so the per-thread chain's
 // latency, not the card's multiply rate, sets the time.
+//
+// f12_pow is the reference's first power, square-and-multiply-always
+// LSB-first over n_bits bits: per bit one product (kept by mask where the
+// bit is set) and one square, 90 Montgomery products per bit. No path of
+// the port runs it (the windowed power replaced it in the reference too);
+// it is kept so that every Pallas kernel has its counterpart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -155,6 +162,26 @@ __global__ void f12_wpow_kernel(const int32_t* __restrict__ f,
   store_fp12(out + (size_t)i * kF12Words, acc);
 }
 
+// f^k, LSB-first: acc *= base where bit w of k is set, base squared after
+// every bit, as _f12_pow_kernel (pallas_pairing.py:541-569). The product is
+// computed at every bit and kept by mask, so the time does not depend on k.
+__global__ void f12_pow_kernel(const int32_t* __restrict__ f,
+                               const int32_t* __restrict__ k,
+                               int32_t* __restrict__ out, int n, int n_bits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int32_t* ki = k + (size_t)i * NL16;
+  Fp12 acc = f12_one();
+  Fp12 base = load_fp12(f + (size_t)i * kF12Words);
+#pragma unroll 1
+  for (int w = 0; w < n_bits; ++w) {
+    const uint32_t bit = ((uint32_t)ki[w >> 4] >> (w & 15)) & 1u;
+    acc = f12select(mask_of(bit == 1u), f12mul(acc, base), acc);
+    base = f12sqr(base);
+  }
+  store_fp12(out + (size_t)i * kF12Words, acc);
+}
+
 }  // namespace
 
 extern "C" {
@@ -195,6 +222,13 @@ int f12_wpow(const int32_t* f, const int32_t* k, int32_t* out, int n,
              int n_bits, int cyc, void* stream) {
   f12_wpow_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       f, k, out, n, n_bits, cyc);
+  return (int)cudaGetLastError();
+}
+
+int f12_pow(const int32_t* f, const int32_t* k, int32_t* out, int n,
+            int n_bits, void* stream) {
+  f12_pow_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      f, k, out, n, n_bits);
   return (int)cudaGetLastError();
 }
 

@@ -44,6 +44,11 @@ class LRParams:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def num_coeffs(self) -> int:
+        """Length of the encoded vector: (d+1) + (d+1)^2 + ... + (d+1)^k."""
+        dp1 = self.n_features + 1
+        return sum(dp1 ** j for j in range(1, self.k + 1))
+
 
 # ---------------------------------------------------------------------------
 # Preprocessing

@@ -60,7 +60,7 @@ from ..crypto import params, refimpl
 from ..crypto.field import FN, FP
 from ..crypto.gt import GT_SHAPE, gt_mul
 from ..crypto.params import NUM_LIMBS
-from ..utils.cuda_build import KernelError
+from ..utils.cuda_build import is_fault
 from . import encoding as enc
 
 log = logging.getLogger(__name__)
@@ -726,34 +726,16 @@ def _list_structure_ok(lst: RangeProofList, ranges,
     return set(covered) == {i for idx in want.values() for i in idx}
 
 
-_FAULTS = (KernelError, MemoryError, torch.cuda.OutOfMemoryError,
-           getattr(torch, "AcceleratorError", KernelError))
-
-
-def _is_fault(exc: Exception, device: torch.device) -> bool:
-    """Whether an exception raised while decoding or verifying a payload is
-    a fault of the program or the card, not of the payload: a kernel that
-    failed to build or launch, memory that ran out, or a CUDA error. A
-    kernel that faults while it runs surfaces at a later torch call, under
-    any name, and leaves its error in the CUDA context, where a
-    synchronize raises it again."""
-    if isinstance(exc, _FAULTS) or "CUDA" in str(exc):
-        return True
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return False
-
-
 def _safe_batch_verify(pb: RangeProofBatch, sigs_pub, ca_pub_table) -> bool:
     """One batch's RLC verdict, with containment: a payload that makes the
     verifier raise fails for itself (False), never for its neighbours. A
-    fault of the program or the card (`_is_fault`) is not a verdict on the
-    payload and propagates. (The reference's routing to a sharded verifier
-    on a multi-device plane is not ported.)"""
+    fault of the program or the card (`cuda_build.is_fault`) is not a
+    verdict on the payload and propagates. (The reference's routing to a
+    sharded verifier on a multi-device plane is not ported.)"""
     try:
         return verify_range_proofs_batch(pb, sigs_pub, ca_pub_table)
     except Exception as e:
-        if _is_fault(e, ca_pub_table.device):
+        if is_fault(e, ca_pub_table.device):
             raise
         log.warning("range batch verify raised (payload rejected)",
                     exc_info=True)
@@ -831,7 +813,7 @@ def verify_range_proof_payloads_joint(datas: list, ranges,
             lists.append(RangeProofList.from_bytes(d, device))
             idx.append(i)
         except Exception as e:
-            if _is_fault(e, device):
+            if is_fault(e, device):
                 raise
             log.warning("range payload %d: malformed bytes, rejected", i)
     if lists:

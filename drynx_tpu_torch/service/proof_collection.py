@@ -1,0 +1,360 @@
+"""VN-side proof collection: receive signed proofs, verify (sampled), build
+the per-survey bitmap, persist everything, and commit an audit block.
+
+The port's counterpart of drynx_tpu/service/proof_collection.py, itself
+mirroring the reference's ProofCollectionProtocol + VN service state
+(protocols/proof_collection_protocol.go:84-406,
+services/service_skipchain.go:31-170): each VN keeps, per survey, the
+expected proof count (from query_to_proofs_nbrs), a bitmap mapping proof keys
+to codes, and a proofdb bucket of raw proof bytes; when the counter reaches
+zero the root VN aggregates every VN's bitmap into one DataBlock and appends
+it to the audit chain.
+
+In-process, delivery is a direct fan-out to each VerifyingNode (the fault
+plane of the reference's transport is not ported). A payload that makes its
+verifier raise fails for itself (BM_FALSE); a fault of the program or the
+card (`cuda_build.is_fault`) propagates out of `receive_proof`. The
+scheduler's held surveys and cross-survey flush wait for the server port
+(ROADMAP queue A, step 14), the quorum-degraded counters and a block from
+a subset of VNs for the fault plane (step 16).
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Callable, Optional
+
+import numpy as np
+
+from ..proofs import requests as rq
+from ..resilience import policy as rp
+from ..utils import log
+from ..utils.cuda_build import is_fault
+from ..utils.timers import PhaseTimers
+from .skipchain import DataBlock, SkipChain, bitmap_verifier
+from .store import ProofDB
+
+
+@dataclasses.dataclass
+class SurveyProofState:
+    expected: int                      # total proofs this VN will receive
+    bitmap: dict[str, int] = dataclasses.field(default_factory=dict)
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+    # batched range verification: payloads buffered until all expected
+    # range proofs arrived, then verified JOINTLY (one RLC / final exp for
+    # the whole survey instead of one per DP payload)
+    expected_range: int = 0
+    pending_range: dict = dataclasses.field(default_factory=dict)
+    range_flushed: bool = False
+
+
+# One payload verification at a time per process: verification throughput
+# comes from batching inside one call, not from thread overlap.
+_VERIFY_DEVICE_LOCK = rp.named_lock("verify_device_lock")
+
+
+class VerifyCache:
+    """Process-local memoization of payload-verification verdicts, keyed by
+    (proof type, survey, payload digest).
+
+    Payload verification is a PURE function of (payload bytes, survey
+    context). When several co-located VNs — one process simulating a whole
+    roster (LocalCluster) — receive the SAME bytes,
+    re-running the verification kernels is wasted wall-clock that real VNs
+    would spend in PARALLEL on separate machines (the reference's 7 VNs
+    each verify on their own box; its headline wall time counts that once).
+    The cache is strictly per-process: distributed deployments (one node
+    per process) still verify everything independently. Schnorr signature
+    checks and the per-VN sampling draws are NOT cached.
+
+    Soundness caveat: the joint-range RLC verdict is
+    PROBABILISTIC — each verify draws a secret 62-bit weight vector — so
+    sharing one cached verdict across co-located VNs collapses n_vns
+    independent draws into one: the RLC soundness parameter is per-process
+    (~2^-62 after the order-n gate, crypto/gt.gt_order_ok), not
+    per-VN (~2^-62·n_vns). Distributed deployments keep independent draws.
+    An undeduped control (``VerifyCache(maxsize=0)``) measures the
+    per-VN-independent cost.
+    """
+
+    def __init__(self, maxsize: int = 256):
+        self._d: dict = {}
+        self._lock = rp.named_lock("verify_cache_lock")
+        self.maxsize = maxsize
+        self.hits = 0
+        self.misses = 0
+
+    def clear(self) -> None:
+        """Drop all memoized verdicts (hit/miss counters keep running).
+
+        A benchmark calls this between timed runs: successive
+        LocalCluster surveys over the same seed re-send byte-identical
+        payloads, so without the clear every verify in run N>1 is a cache
+        HIT from the warmup run and the timed number silently excludes
+        verification compute entirely."""
+        with self._lock:
+            self._d.clear()
+
+    def get_or_compute(self, key, compute):
+        if self.maxsize == 0:      # caching disabled (undeduped control)
+            return compute()
+        with self._lock:
+            if key in self._d:
+                self.hits += 1
+                v = self._d.pop(key)
+                self._d[key] = v      # LRU refresh
+                return v
+        v = compute()
+        with self._lock:
+            self.misses += 1
+            self._d[key] = v
+            while len(self._d) > self.maxsize:
+                self._d.pop(next(iter(self._d)))
+        return v
+
+
+class _LockedRng:
+    """Thread-safe sampling draws: remote deliveries arrive on concurrent
+    transport handler threads and np.random.Generator is NOT thread-safe —
+    concurrent draws can corrupt generator state."""
+
+    def __init__(self, rng: np.random.Generator):
+        self._rng = rng
+        self._lock = rp.named_lock("locked_rng_lock")
+
+    def random(self) -> float:
+        with self._lock:
+            return float(self._rng.random())
+
+
+class VerifyingNode:
+    """One VN: verifies incoming proof envelopes and tracks bitmaps."""
+
+    def __init__(self, name: str, db_path: str,
+                 pubs: dict[str, tuple],
+                 verify_fns: Optional[dict[str, Callable[[bytes], bool]]] = None,
+                 seed: int = 0,
+                 verify_cache: Optional[VerifyCache] = None):
+        self.name = name
+        self.db = ProofDB(db_path)
+        self.pubs = pubs                      # sender id -> G1 affine pub
+        self.verify_fns = verify_fns or {}    # proof type -> payload verifier
+        self.rng = _LockedRng(np.random.default_rng(seed))
+        # pass ONE shared cache to co-located VNs (LocalCluster) so
+        # identical payloads verify once per process, not once per VN
+        self.verify_cache = verify_cache or VerifyCache()
+        self.surveys: dict[str, SurveyProofState] = {}
+        self.local_bitmaps: dict[str, dict[str, int]] = {}
+        self.chain = SkipChain(self.db,
+                               [bitmap_verifier(self.local_bitmaps)])
+        self._lock = rp.named_lock("verifying_node_lock")
+
+    # -- reference HandleSurveyQueryToVN (service_skipchain.go:31-93)
+    def register_survey(self, survey_id: str, expected_proofs: int,
+                        thresholds: dict[str, float],
+                        expected_range: int = 0) -> None:
+        with self._lock:
+            self.surveys[survey_id] = SurveyProofState(
+                expected=expected_proofs, expected_range=expected_range)
+            self.thresholds = getattr(self, "thresholds", {})
+            self.thresholds[survey_id] = thresholds
+
+    # -- reference ProofCollectionProtocol.Dispatch + storeProof (:183-406)
+    def receive_proof(self, req: rq.ProofRequest) -> int:
+        st = self.surveys.get(req.survey_id)
+        if st is None:
+            raise KeyError(f"unknown survey {req.survey_id!r}")
+        joint = self.verify_fns.get("range_joint")
+        if (req.proof_type == "range" and st.expected_range > 1
+                and joint is not None):
+            return self._receive_range_buffered(req, st, joint)
+        sample = self.thresholds.get(req.survey_id, {}).get(req.proof_type, 1.0)
+        pub = self.pubs.get(req.sender_id)
+        t0 = time.perf_counter()
+        vfn = self.verify_fns.get(req.proof_type)
+        if vfn is not None:
+            import hashlib
+
+            def vfn(data, sid, _base=vfn, _pt=req.proof_type):
+                key = (_pt, sid, hashlib.sha256(data).digest())
+
+                def compute():
+                    with _VERIFY_DEVICE_LOCK:
+                        return _base(data, sid)
+
+                return self.verify_cache.get_or_compute(key, compute)
+        code = (rq.BM_BADSIG if pub is None else rq.verify_proof_request(
+            req, pub, sample, vfn, self.rng))
+        self._echo_verify(req, t0, code)
+        self._record(st, req.storage_key(), req.data, code)
+        return code
+
+    def _echo_verify(self, req, t0: float, code: int) -> None:
+        if PhaseTimers.echo:
+            import sys
+
+            print(f"    [vn] {self.name} verify {req.proof_type} from "
+                  f"{req.sender_id}: {time.perf_counter() - t0:.3f}s "
+                  f"code={code}", file=sys.stderr, flush=True)
+
+    def _record(self, st: SurveyProofState, key: str, data: bytes,
+                code: int) -> None:
+        with self._lock:
+            st.bitmap[key] = code
+            self.db.put(key, data)
+            remaining = st.expected - len(st.bitmap)
+        if code not in (rq.BM_TRUE, rq.BM_RECVD):
+            log.warn(f"VN {self.name}: proof {key} -> code {code}")
+        log.lvl3(f"VN {self.name}: {key} code={code}, "
+                 f"{remaining} proofs outstanding")
+        if remaining <= 0:
+            st.done.set()
+
+    def _receive_range_buffered(self, req: rq.ProofRequest,
+                                st: SurveyProofState, joint) -> int:
+        """Buffer range payloads; when the last expected one arrives, verify
+        every sampled payload in ONE joint RLC check (the VN's dominant
+        cost — reference timeline: 21.73 s of range verification per query).
+        Signatures and the sampling draw stay per payload."""
+        sample = self.thresholds.get(req.survey_id, {}).get("range", 1.0)
+        pub = self.pubs.get(req.sender_id)
+        bad_sig = pub is None or not rq.verify_signature(req, pub)
+        if bad_sig:
+            # record the code NOW but still count this delivery toward the
+            # flush threshold (a tombstone) — otherwise one malformed
+            # sender stalls the joint flush and denies the whole survey
+            self._record(st, req.storage_key(), req.data, rq.BM_BADSIG)
+        sampled = (not bad_sig) and bool(self.rng.random() <= sample)
+        with self._lock:
+            if st.range_flushed:  # late re-delivery: keep the flushed code
+                return st.bitmap.get(req.storage_key(), rq.BM_RECVD)
+            st.pending_range[req.storage_key()] = (req, sampled, bad_sig)
+            pending = None
+            if len(st.pending_range) >= st.expected_range:
+                st.range_flushed = True
+                pending = dict(st.pending_range)
+        if pending is None:
+            return rq.BM_BADSIG if bad_sig else rq.BM_RECVD
+        self._flush_range(st, req.survey_id, pending, joint)
+        return st.bitmap[req.storage_key()]
+
+    def _flush_range(self, st: SurveyProofState, survey_id: str,
+                     pending: dict, joint) -> None:
+        """Joint-verify a snapshot of buffered range payloads and record
+        their codes. The caller must have set st.range_flushed under the
+        lock before snapshotting (exactly one flush per survey)."""
+        t0 = time.perf_counter()
+        keys = sorted(pending)
+        to_verify = [k for k in keys if pending[k][1]]
+
+        def compute():
+            # exceptions PROPAGATE out of the cache (never memoized): a
+            # transient crash in one VN's flush must not poison every
+            # co-located VN's verdict for the process lifetime
+            with _VERIFY_DEVICE_LOCK:
+                return joint([pending[k][0].data for k in to_verify],
+                             survey_id)
+
+        results: list = []
+        if to_verify:
+            import hashlib
+
+            h = hashlib.sha256()
+            for k in to_verify:
+                h.update(hashlib.sha256(pending[k][0].data).digest())
+            try:
+                results = self.verify_cache.get_or_compute(
+                    ("range_joint", survey_id, h.digest()), compute)
+            except Exception as e:
+                if is_fault(e):
+                    raise
+                # malformed payloads are FAILED verifications for THIS
+                # flush only (mirrors rq.verify_proof_request containment)
+                import traceback
+
+                log.warn(f"VN {self.name}: joint range verify raised: "
+                         f"{traceback.format_exc(limit=8)}")
+                results = [False] * len(to_verify)
+        verdicts = dict(zip(to_verify, results))
+        for k in keys:
+            r, was_sampled, was_bad = pending[k]
+            if was_bad:
+                continue  # BM_BADSIG already recorded at arrival
+            code = (rq.BM_TRUE if verdicts.get(k)
+                    else rq.BM_FALSE) if was_sampled else rq.BM_RECVD
+            self._record(st, k, r.data, code)
+        if PhaseTimers.echo:
+            import sys
+
+            print(f"    [vn] {self.name} JOINT range verify of "
+                  f"{len(to_verify)}/{len(keys)} payloads: "
+                  f"{time.perf_counter() - t0:.3f}s", file=sys.stderr,
+                  flush=True)
+
+    def bitmap_for(self, survey_id: str) -> dict[str, int]:
+        st = self.surveys[survey_id]
+        return dict(st.bitmap)
+
+    def stored_proofs(self, survey_id: str) -> dict[str, bytes]:
+        """Reference HandleGetProofs (service_skipchain.go:240-320)."""
+        out = {}
+        for k in self.db.keys():
+            ks = k.decode(errors="replace")
+            if ks.startswith(survey_id + "/"):
+                out[ks] = self.db.get(k)
+        return out
+
+
+class VNGroup:
+    """The VN roster: root VN aggregates bitmaps and commits the block
+    (reference service_skipchain.go:95-170)."""
+
+    def __init__(self, vns: list[VerifyingNode]):
+        if not vns:
+            raise ValueError("empty VN roster")
+        self.vns = vns
+        self.root = vns[0]
+
+    def register_survey(self, survey_id: str, expected_proofs: int,
+                        thresholds: dict[str, float],
+                        expected_range: int = 0) -> None:
+        for vn in self.vns:
+            vn.register_survey(survey_id, expected_proofs, thresholds,
+                               expected_range=expected_range)
+
+    def deliver(self, req: rq.ProofRequest) -> list:
+        """Star fan-out: every VN receives and verifies the proof; returns
+        their codes."""
+        return [vn.receive_proof(req) for vn in self.vns]
+
+    def end_verification(self, survey_id: str,
+                         timeout: float = rp.VN_GROUP_WAIT_S):
+        """Blocks until every VN's proof counter drained, then the root VN
+        funnels the VNs' bitmaps together and commits one audit block
+        (reference HandleEndVerification + the bitmap-aggregation
+        goroutine). All VNs share ONE deadline instead of a full timeout
+        each, so a straggler costs at most ``timeout``."""
+        deadline = time.monotonic() + timeout
+        while True:
+            waiting = [vn for vn in self.vns
+                       if not vn.surveys[survey_id].done.is_set()]
+            if not waiting:
+                break
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"VN {waiting[0].name}: proofs incomplete for "
+                    f"{survey_id!r}")
+            time.sleep(rp.POLL_INTERVAL_S)
+        merged: dict[str, int] = {}
+        for vn in self.vns:
+            for k, v in vn.bitmap_for(survey_id).items():
+                merged[f"{vn.name}:{k}"] = v
+        # drynx: deterministic[sample_time is excluded from transcripts]
+        block_data = DataBlock(survey_id=survey_id, sample_time=time.time(),
+                               bitmap=merged)
+        self.root.local_bitmaps[survey_id] = merged
+        return self.root.chain.append(block_data)
+
+
+__all__ = ["SurveyProofState", "VerifyingNode", "VNGroup", "VerifyCache"]

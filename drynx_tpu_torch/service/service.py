@@ -1,24 +1,75 @@
-"""The range-proof phases of a survey with proofs on, on one device.
+"""Survey orchestration: CN / DP / VN roles and the in-process cluster.
 
-The port's counterpart of two steps of drynx_tpu/service/service.py. The
-data collection (:727-810, the DP side of `LocalCluster.execute_survey` for
-`log_reg` with range proofs): every DP shifts its stats by u^l/2 so that
-signed log-reg coefficients become a provable [0, u^l) statement, encrypts
-them under the collective key, and proves each ciphertext's range against
-the computing nodes' digit signatures, all DPs in one batched creation.
-The verifying nodes' check (`vrange_joint`, :254-263): every DP's payload
-bytes decoded and checked jointly, one verdict per DP. The cluster around
-them (query, aggregation, key switch, transport) is not ported yet.
+The port's counterpart of drynx_tpu/service/service.py (the reference's
+services/service.go HandleSurveyQuery / StartService and the onet
+LocalTest harness, services/service_test.go:29-66). Phases per survey:
+
+  DP encode + encrypt  ->  collective aggregation  ->  key switch to the
+  querier  ->  decrypt + decode (+ gradient descent for log_reg)
+
+With proofs on, every DP proves its ciphertexts' ranges, every CN proves
+the aggregate and its key-switch contribution, each proof travels in a
+Schnorr-signed envelope to every verifying node (VN), and the root VN
+commits the survey's bitmap to the audit chain. All ciphertext work is
+batched over DPs and servers and runs through the kernels of
+`crypto.cuda_ops` and `crypto.cuda_pairing` on the cluster's device (the
+card unless the CPU is named). On the card the proofs are built and
+delivered on worker threads, one at a time under one lock, while the main
+path goes on; on the CPU they run inline. A survey's randomness is drawn
+on the main thread from one generator seeded by `seed`, in a fixed order,
+before any proof thread starts, so its payload bytes do not depend on
+thread scheduling.
+
+Not ported yet, each raising NotImplementedError where it is asked for:
+obfuscation (ROADMAP queue A, step 11), DRO noise and the shuffle
+(step 12), group-by and cutting factors (steps 8-9), fault probing,
+responder sets and quorums (step 16), durable checkpoints and resumption
+(step 16), held range proofs
+and the cross-survey flush (step 14), the kernel warm-up registry
+(step 15).
+
+Two free functions remain from the earlier slices and serve the cluster:
+`collect_with_range_proofs` (the DPs' encryption and range proofs, one
+batched creation) and `verify_collected_range_proofs` (the VN's joint
+check of the DPs' payloads).
 """
 from __future__ import annotations
+
+import dataclasses
+import pickle
+import secrets
+import tempfile
+import threading
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import flagship
+from ..crypto import curve as C
 from ..crypto import elgamal as eg
+from ..encoding import stats as st
+from ..models import logreg as lr
+from ..parallel import collective as col
+from ..proofs import aggregation as agg_proof
+from ..proofs import keyswitch as ks_proof
 from ..proofs import range_proof as rp
+from ..proofs import requests as rq
+from ..proofs.safe_pickle import safe_loads
+from ..resilience import policy as pol
+from ..utils import log
 from ..utils.device import resolve
+from ..utils.timers import PhaseTimers
+from . import topology as topo
+from .proof_collection import VerifyCache, VerifyingNode, VNGroup
+from .query import (DiffPParams, Operation, SurveyQuery, Query,
+                    check_parameters, choose_operation, query_to_proofs_nbrs)
 
+
+# ---------------------------------------------------------------------------
+# The range-proof phases as free functions
+# ---------------------------------------------------------------------------
 
 def make_range_sigs(u: int, n_servers: int, seed: int = 5,
                     device=None) -> list[rp.RangeSig]:
@@ -30,6 +81,20 @@ def make_range_sigs(u: int, n_servers: int, seed: int = 5,
     sigs = [rp.init_range_sig(u, rng) for _ in range(n_servers)]
     rp.sig_gt_pow_tables(sigs, dev)    # built here, outside any timed path
     return sigs
+
+
+def signed_offset(stats: torch.Tensor, ranges) -> int:
+    """u^l/2 for the survey's first (u, l) spec (0 when it is empty): the
+    shift that makes signed log-reg coefficients a provable [0, u^l)
+    statement. Raises when a value does not fit."""
+    u0, l0 = ranges[0]
+    if not u0:
+        return 0
+    offset = int(u0) ** int(l0) // 2
+    if int(stats.abs().max()) >= offset:
+        raise ValueError("log-reg encoding exceeds the range proof "
+                         f"bound u^l/2 = {offset}")
+    return offset
 
 
 def collect_with_range_proofs(dp_stats, enc_rs, ranges, sigs_by_u: dict,
@@ -47,13 +112,7 @@ def collect_with_range_proofs(dp_stats, enc_rs, ranges, sigs_by_u: dict,
     """
     dev = coll_pub_table.device
     stats = dp_stats.to(dev, torch.int64)
-    u0, l0 = ranges[0]
-    if u0:
-        offset = int(u0) ** int(l0) // 2
-        if int(stats.abs().max()) >= offset:
-            raise ValueError("log-reg encoding exceeds the range proof "
-                             f"bound u^l/2 = {offset}")
-        stats = stats + offset
+    stats = stats + signed_offset(stats, ranges)
     enc_rs = enc_rs.to(dev)
     cts = eg.encrypt_ints_with_tables(eg.BASE_TABLE.table.to(dev),
                                       coll_pub_table, stats, enc_rs)
@@ -75,5 +134,535 @@ def verify_collected_range_proofs(payloads, ranges, sigs_by_u: dict,
                                                 sigs_pub_by_u, coll_pub_table)
 
 
-__all__ = ["make_range_sigs", "collect_with_range_proofs",
-           "verify_collected_range_proofs"]
+# ---------------------------------------------------------------------------
+# Roles
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class NodeIdentity:
+    name: str
+    secret: int
+    public: tuple  # affine int pair
+
+
+def _new_identity(name: str, rng: np.random.Generator) -> NodeIdentity:
+    x, pub = eg.keygen(rng)
+    return NodeIdentity(name=name, secret=x, public=pub)
+
+
+class DataProvider:
+    """DP role: local data -> sufficient statistics (reference GenerateData,
+    data_collection_protocol.go:178-374)."""
+
+    def __init__(self, ident: NodeIdentity, data=None):
+        self.ident = ident
+        self.data = data  # op-dependent host array (or (X, y) for log_reg)
+
+    def local_stats(self, op: Operation, rng) -> torch.Tensor:
+        """The DP's (V,) int64 statistics vector, on the CPU."""
+        if op.name == "log_reg":
+            X, y = self.data
+            return lr.encode_clear(X, y, op.lr_params)
+        data = self.data
+        if data is None:  # dummy data like createFakeDataForOperation
+            data = rng.integers(op.query_min, max(op.query_max, 1),
+                                size=(32,)).astype(np.int64)
+        return st.encode_clear(op.name, data, op.query_min, op.query_max)
+
+
+class Survey:
+    """Mutable per-survey state on the root CN (reference ServiceDrynx
+    survey map, service.go:82-108)."""
+
+    def __init__(self, sq: SurveyQuery):
+        self.sq = sq
+        self.timers = PhaseTimers()
+        self.proof_threads: list[threading.Thread] = []
+        self.proof_errors: list[BaseException] = []
+
+
+def _unported(q: Query, group_by=None, responders=None, hold_range=False,
+              quorum=False) -> None:
+    """Raise for the parts of a survey this port does not run yet."""
+    steps = [(q.obfuscation, "obfuscation", 11),
+             (q.diffp.enabled(), "DRO noise and the shuffle", 12),
+             (bool(q.group_by or group_by), "group_by", 8),
+             (int(q.cutting_factor) > 1, "cutting_factor > 1", 9),
+             (responders is not None, "responder sets and fault probing", 16),
+             (quorum, "DP and VN quorums", 16),
+             (hold_range, "held range proofs and the cross-survey flush",
+              14)]
+    for asked, what, step in steps:
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP queue A, step {step})")
+
+
+class LocalCluster:
+    """In-process roster: CNs, DPs (mapped to CNs round robin), VNs and the
+    querier, on one device (the card unless the CPU is named).
+
+    `seed` draws the identities, the collective key, the client key and the
+    range-proof signatures with numpy's default_rng and the host curve
+    arithmetic, as the reference does: one seed gives the same keys in both
+    packages. The VNs' proof stores live in a temporary directory that
+    `close()` removes.
+    """
+
+    def __init__(self, n_cns: int = 3, n_dps: int = 5, n_vns: int = 3,
+                 seed: int = 1, dlog_limit: int = 10000, device=None):
+        self.device = dev = resolve(device)
+        rng = np.random.default_rng(seed)
+        self.rng = rng
+        self.cns = [_new_identity(f"cn{i}", rng) for i in range(n_cns)]
+        self.dp_idents = [_new_identity(f"dp{i}", rng) for i in range(n_dps)]
+        self.vn_idents = [_new_identity(f"vn{i}", rng) for i in range(n_vns)]
+        self.client = _new_identity("client", rng)
+
+        # collective key over the CN roster; fixed-base tables on the device
+        self.coll_pub = col.collective_key([c.public for c in self.cns])
+        self.coll_tbl = eg.pub_table(self.coll_pub)
+        self.client_tbl = eg.pub_table(self.client.public)
+        for tbl in (self.coll_tbl, self.client_tbl):
+            tbl.table = tbl.table.to(dev)
+        self.base_table = eg.BASE_TABLE.table.to(dev)
+        self.client_pt = C.from_ref(self.client.public).to(dev)
+        self.dlog = eg.DecryptionTable(limit=dlog_limit).to(dev)
+
+        # DP -> CN mapping (reference repartitionDPs round robin)
+        self.server_to_dp: dict = {}
+        for i, dp in enumerate(self.dp_idents):
+            cn = self.cns[i % n_cns].name
+            self.server_to_dp.setdefault(cn, []).append(dp.name)
+
+        self.dps: dict[str, DataProvider] = {
+            d.name: DataProvider(d) for d in self.dp_idents}
+
+        pubs = {n.name: n.public
+                for n in self.cns + self.dp_idents + [self.client]}
+        self.vns: Optional[VNGroup] = None
+        self._vn_dir = None
+        if n_vns > 0:
+            self._vn_dir = tempfile.TemporaryDirectory(prefix="drynx_vn_")
+            # co-located VNs share ONE verification cache: identical
+            # payloads (the aggregation and key-switch bodies every CN
+            # relays, the joint range flush) verify once per process, as
+            # real VNs on separate machines would in parallel (see
+            # VerifyCache)
+            shared_cache = VerifyCache()
+            self.vns = VNGroup([
+                VerifyingNode(v.name, f"{self._vn_dir.name}/{v.name}.db",
+                              pubs, verify_fns=self._verify_fns(), seed=i,
+                              verify_cache=shared_cache)
+                for i, v in enumerate(self.vn_idents)])
+
+        self.range_sigs: dict[int, list[rp.RangeSig]] = {}
+        self.surveys: dict[str, Survey] = {}
+        # serializes proof threads' device work (see _async_proof)
+        self._proof_device_lock = pol.named_lock("proof_device_lock")
+
+    def close(self) -> None:
+        """Remove the VNs' proof stores."""
+        if self._vn_dir is not None:
+            self._vn_dir.cleanup()
+
+    # ------------------------------------------------------------------
+    # Proof payload verifiers installed at the VNs
+    # ------------------------------------------------------------------
+    def _sigs_pub_by_u(self) -> dict:
+        return {u: [s.public for s in sigs]
+                for u, sigs in self.range_sigs.items()}
+
+    def _verify_fns(self):
+        def vrange(data: bytes, survey_id: str) -> bool:
+            survey = self.surveys.get(survey_id)
+            if survey is None:
+                return False
+            lst = rp.RangeProofList.from_bytes(data, self.device)
+            return rp.verify_range_proof_list(
+                lst, list(survey.sq.query.ranges), self._sigs_pub_by_u(),
+                self.coll_tbl.table)
+
+        def vrange_joint(datas: list, survey_id: str) -> list:
+            survey = self.surveys.get(survey_id)
+            if survey is None:
+                return [False] * len(datas)
+            return verify_collected_range_proofs(
+                datas, list(survey.sq.query.ranges), self.range_sigs,
+                self.coll_tbl.table)
+
+        def vagg(data: bytes, _sid: str) -> bool:
+            proof = safe_loads(data)
+            return bool(np.all(agg_proof.verify_aggregation_proof(
+                proof, self.device)))
+
+        def vks(data: bytes, _sid: str) -> bool:
+            proof = safe_loads(data)
+            return bool(np.all(ks_proof.verify_keyswitch_proofs(
+                proof, self.client_tbl.table)))
+
+        # each computed verification lands in its Verify<Type> timer and in
+        # AllProofs (cache hits add nothing)
+        def _timed(name, fn):
+            def wrapped(data, sid, _fn=fn, _name=name):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(data, sid)
+                finally:
+                    sv = self.surveys.get(sid)
+                    if sv is not None:
+                        dt = time.perf_counter() - t0
+                        sv.timers.add(_name, dt)
+                        sv.timers.add("AllProofs", dt)
+            return wrapped
+
+        return {"range": _timed("VerifyRange", vrange),
+                "range_joint": _timed("VerifyRange", vrange_joint),
+                "aggregation": _timed("VerifyAggregation", vagg),
+                "keyswitch": _timed("VerifyKeySwitch", vks)}
+
+    # ------------------------------------------------------------------
+    # Survey query construction (reference API.GenerateSurveyQuery, api.go:58)
+    # ------------------------------------------------------------------
+    def generate_survey_query(self, op_name: str, query_min: int = 0,
+                              query_max: int = 0, dims: int = 1,
+                              proofs: int = 0, obfuscation: bool = False,
+                              ranges=None, diffp: Optional[DiffPParams] = None,
+                              lr_params=None, thresholds: float = 1.0,
+                              cutting_factor: int = 0, group_by=None,
+                              survey_id: Optional[str] = None) -> SurveyQuery:
+        op = choose_operation(op_name, query_min, query_max, dims,
+                              cutting_factor, lr_params)
+        if (op_name == "log_reg" and proofs and ranges
+                and len(set(map(tuple, ranges))) > 1):
+            # the signed-encoding shift derives ONE offset from the spec;
+            # per-index specs would shift values out of range
+            raise ValueError(
+                "log_reg range proofs require a uniform (u, l) spec")
+        if proofs and ranges is None:
+            # default range: values fit in [0, 16^4)
+            ranges = [(16, 4)] * op.nbr_output
+        q = Query(operation=op, ranges=ranges, proofs=proofs,
+                  obfuscation=obfuscation,
+                  diffp=diffp or DiffPParams(),
+                  cutting_factor=cutting_factor,
+                  dp_data_min=query_min, dp_data_max=query_max,
+                  sigs_present=proofs == 1 and ranges is not None
+                  and not all(u == 0 and l == 0 for (u, l) in ranges),
+                  group_by=group_by)
+        _unported(q)
+        sq = SurveyQuery(
+            survey_id=survey_id or f"survey-{secrets.token_hex(4)}",
+            query=q,
+            server_ids=[c.name for c in self.cns],
+            server_to_dp=self.server_to_dp,
+            vn_ids=[v.name for v in self.vn_idents] if proofs else [],
+            client_pub=self.client.public,
+            id_to_public={n.name: n.public for n in
+                          self.cns + self.dp_idents + self.vn_idents},
+            threshold=thresholds if proofs else 0.0,
+            aggregation_proof_threshold=thresholds if proofs else 0.0,
+            obfuscation_proof_threshold=0.0,
+            range_proof_threshold=thresholds if proofs else 0.0,
+            key_switching_proof_threshold=thresholds if proofs else 0.0)
+        ok, msg = check_parameters(sq, q.diffp.enabled())
+        if not ok:
+            raise ValueError(f"invalid survey parameters: {msg}")
+        return sq
+
+    # ------------------------------------------------------------------
+    # Range-proof signature setup (reference InitRangeProofSignature — once
+    # per (server, base u) at query setup)
+    # ------------------------------------------------------------------
+    def ensure_range_sigs(self, u: int) -> list[rp.RangeSig]:
+        if u not in self.range_sigs:
+            self.range_sigs[u] = [rp.init_range_sig(u, self.rng)
+                                  for _ in self.cns]
+            # the one-time GT tables, built here rather than inside the
+            # first proof creation
+            rp.sig_gt_pow_tables(self.range_sigs[u], self.device)
+        return self.range_sigs[u]
+
+    # ------------------------------------------------------------------
+    # Not ported yet
+    # ------------------------------------------------------------------
+    def attach_checkpoint_store(self, path: str) -> None:
+        raise NotImplementedError("durable survey checkpoints are not "
+                                  "ported yet (ROADMAP queue A, step 16)")
+
+    def probe_liveness(self) -> dict:
+        raise NotImplementedError("DP liveness probing is not ported yet "
+                                  "(ROADMAP queue A, step 16)")
+
+    def _warm_kernels(self, tm: PhaseTimers, q) -> None:
+        raise NotImplementedError("the kernel warm-up registry is not "
+                                  "ported yet (ROADMAP queue A, step 15)")
+
+    def prewarm_dro(self, *args, **kwargs) -> None:
+        raise NotImplementedError("DRO noise is not ported yet (ROADMAP "
+                                  "queue A, step 12)")
+
+    # ------------------------------------------------------------------
+    # The full survey (reference SendSurveyQuery path, SURVEY.md §3.1)
+    # ------------------------------------------------------------------
+    def run_survey(self, sq: SurveyQuery, seed: int = 0) -> "SurveyResult":
+        return self.finalize_survey(self.execute_survey(sq, seed))
+
+    def _draw(self, gen, n_dps: int, V: int, ranges, proofs_on: bool):
+        """The survey's randomness, in a fixed order: encryption, range
+        proofs (per (u, l) spec: s, t, m, v as create_range_proofs draws
+        them), key switch, key-switch proofs (wr, wx)."""
+        dev, ns = self.device, len(self.cns)
+        draw = lambda shape: eg.random_scalars(shape, gen, dev)
+        enc_rs = draw((n_dps, V))
+        range_draws = {}
+        if proofs_on:
+            for (u, l), idx in rp.group_ranges(ranges).items():
+                nv = n_dps * len(idx)
+                range_draws[(u, l)] = [draw(s) for s in
+                                       ((nv, l), (nv, l), (nv, l),
+                                        (ns, nv, l))]
+        ks_rs = draw((ns, V))
+        ks_draws = [draw((ns, V)), draw((ns, V))] if proofs_on else None
+        return enc_rs, range_draws, ks_rs, ks_draws
+
+    def execute_survey(self, sq: SurveyQuery, seed: int = 0,
+                       hold_range: bool = False,
+                       responders: Optional[list] = None
+                       ) -> "PendingSurvey":
+        """Phases through decrypt + decode; returns a PendingSurvey whose
+        proof verification `finalize_survey` completes."""
+        q = sq.query
+        _unported(q, responders=responders, hold_range=hold_range,
+                  quorum=bool(sq.min_dp_quorum) or sq.vn_quorum != 1.0)
+        survey = Survey(sq)
+        self.surveys[sq.survey_id] = survey
+        op = q.operation
+        tm = survey.timers
+        dev = self.device
+        proofs_on = q.proofs == 1 and self.vns is not None
+        log.lvl1(f"survey {sq.survey_id}: op={op.name} "
+                 f"dps={len(self.dp_idents)} cns={len(self.cns)} "
+                 f"proofs={int(proofs_on)} device={dev}")
+
+        if proofs_on:
+            nbrs = query_to_proofs_nbrs(sq)
+            self.vns.register_survey(
+                sq.survey_id, sum(nbrs),
+                {"range": sq.range_proof_threshold,
+                 "shuffle": sq.threshold,
+                 "aggregation": sq.aggregation_proof_threshold,
+                 "obfuscation": sq.obfuscation_proof_threshold,
+                 "keyswitch": sq.key_switching_proof_threshold},
+                expected_range=nbrs[0])
+
+        # --- DP phase: encode + encrypt (+ range proofs) ----------------
+        tm.start("DataCollectionProtocol")
+        dp_stats = torch.stack([
+            self.dps[d.name].local_stats(op, self.rng)
+            for d in self.dp_idents]).to(dev)               # (n_dps, V)
+        n_dps, V = dp_stats.shape
+        # Sound range proofs for signed encodings: log-reg coefficients can
+        # be negative, which a [0, u^l) digit proof cannot express, so each
+        # plaintext is shifted by u^l/2 and the key switch subtracts the
+        # public n_dps * offset again (reference service.py:746-760)
+        range_offset = 0
+        if proofs_on and op.name == "log_reg" and q.ranges:
+            range_offset = signed_offset(dp_stats, q.ranges)
+            dp_stats = dp_stats + range_offset
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        enc_rs, range_draws, ks_rs, ks_draws = self._draw(
+            gen, n_dps, V, list(q.ranges or []), proofs_on)
+        cts = eg.encrypt_ints_with_tables(self.base_table,
+                                          self.coll_tbl.table, dp_stats,
+                                          enc_rs)           # (n_dps, V, 2,3,16)
+        _sync(dev)
+        tm.end("DataCollectionProtocol")
+
+        if proofs_on:
+            ranges_v = list(q.ranges)
+            sigs_by_u = {u: self.ensure_range_sigs(u)
+                         for (u, _l) in rp.group_ranges(ranges_v)}
+            # ONE device-batched creation for all DPs (their per-value
+            # transcripts are independent, so batching changes no proof);
+            # each DP's payload still ships and verifies separately
+            dp_lists = _once(lambda: rp.create_range_proof_lists_batched(
+                dp_stats, enc_rs, cts, ranges_v, sigs_by_u,
+                self.coll_tbl.table, draws=range_draws))
+            for i, dp in enumerate(self.dp_idents):
+                self._async_proof(survey, "range", dp,
+                                  lambda i=i: dp_lists()[i].to_bytes())
+
+        # --- Aggregation phase (reference AggregationPhase :775) --------
+        tm.start("AggregationPhase")
+        agg = topo.fold_cts(cts)                             # (V, 2, 3, 16)
+        _sync(dev)
+        tm.end("AggregationPhase")
+        if proofs_on:
+            # each CN signs its own request but the (transparent) proof body
+            # is identical — build and serialize it ONCE, not per CN
+            agg_bytes = _once(lambda: pickle.dumps(
+                agg_proof.create_aggregation_proof(cts, agg)))
+            for cn in self.cns:
+                self._async_proof(survey, "aggregation", cn, agg_bytes)
+
+        # --- Key switch to the querier's key ----------------------------
+        tm.start("KeySwitchingPhase")
+        srv_x = torch.stack([eg.secret_to_limbs(c.secret)
+                             for c in self.cns]).to(dev)
+        # per-server contributions, batched over (ns, V):
+        # U = r·B,  W = r·Q − x·K (commuting; the sums replace the CN chain)
+        u_pts, w_pts = col.keyswitch_contribution(
+            agg[None], srv_x[:, None, :], ks_rs, self.client_tbl.table,
+            self.base_table)
+        switched = col.keyswitch_finish(
+            agg, flagship._tree_reduce_points(u_pts),
+            flagship._tree_reduce_points(w_pts))
+        # the public aggregate shift (one offset per responder) times B
+        total = range_offset * n_dps
+        if total:
+            corr = eg.fixed_base_mul(self.base_table, eg.int_to_scalar(
+                torch.tensor([total], dtype=torch.int64, device=dev)))
+            c2 = C.add(switched[:, 1], C.neg(corr.expand(V, 3, -1)))
+            switched = torch.stack([switched[:, 0], c2], dim=-3)
+        _sync(dev)
+        tm.end("KeySwitchingPhase")
+        if proofs_on:
+            t0 = time.perf_counter()
+            pr = ks_proof.create_keyswitch_proofs(
+                agg[:, 0], srv_x, ks_rs, self.client_pt,
+                self.client_tbl.table, u_pts, w_pts, draws=ks_draws)
+            tm.add("AllProofs", time.perf_counter() - t0)
+            ks_bytes = _once(lambda: pickle.dumps(pr))
+            for cn in self.cns:
+                self._async_proof(survey, "keyswitch", cn, ks_bytes)
+
+        # --- Querier decrypt + decode -----------------------------------
+        tm.start("Decryption")
+        xq = eg.secret_to_limbs(self.client.secret).to(dev)
+        pts = eg.decrypt_point(switched, xq)
+        vals, found = self.dlog.lookup(pts)
+        dec = st.DecryptedVector(
+            values=vals.cpu().numpy().astype(np.int64),
+            found=found.cpu().numpy(),
+            is_zero=C.is_infinity(pts).cpu().numpy())
+        tm.end("Decryption")
+
+        if op.name == "log_reg":
+            tm.start("GradientDescent")
+            Ts = lr.unpack(vals.to(torch.int64), op.lr_params)
+            result = lr.train(Ts, op.lr_params).cpu().numpy()
+            tm.end("GradientDescent")
+        else:
+            result = st.decode(op.name, dec, op.query_min, op.query_max,
+                               dims=(op.nbr_input - 1)
+                               if op.name == "lin_reg" else 1)
+        return PendingSurvey(survey=survey, sq=sq, result=result,
+                             decrypted=dec, proofs_on=proofs_on)
+
+    def finalize_survey(self, pending: "PendingSurvey") -> "SurveyResult":
+        """Join the survey's proof threads, end VN verification, and
+        commit the audit block (the back half of run_survey). A proof
+        thread that died fails the survey here with its exception."""
+        survey, sq = pending.survey, pending.sq
+        sid = sq.survey_id
+        tm = survey.timers
+        block = None
+        if pending.proofs_on:
+            for t in survey.proof_threads:
+                t.join(timeout=pol.COLD_COMPILE_WAIT_S)
+            if survey.proof_errors:
+                raise survey.proof_errors[0]
+            block = self.vns.end_verification(
+                sid, timeout=pol.COLD_COMPILE_WAIT_S)
+            log.lvl2(f"survey {sid}: audit block #{block.index} committed, "
+                     f"{len(block.data.bitmap)} bitmap entries")
+        log.lvl1(f"survey {sid}: done; phases: " + ", ".join(
+            f"{k}={v:.3f}s" for k, v in tm.items()))
+        return SurveyResult(result=pending.result,
+                            decrypted=pending.decrypted, block=block,
+                            timers=tm, survey_id=sid)
+
+    # ------------------------------------------------------------------
+    def _async_proof(self, survey: Survey, ptype: str, ident: NodeIdentity,
+                     build) -> None:
+        """Build a proof's bytes, sign the envelope and deliver it to the
+        VNs (the reference's async goroutine pipeline).
+
+        On the card this runs on a thread, and the device work of all proof
+        threads (the build and the VNs' verification) is serialized by one
+        lock, while the main phase path goes on. A thread that dies keeps
+        its exception for `finalize_survey`. On the CPU it runs inline:
+        overlap buys nothing there."""
+        lock = self._proof_device_lock
+
+        def work():
+            with lock:
+                t0 = time.perf_counter()
+                data = build()
+                survey.timers.add("AllProofs", time.perf_counter() - t0)
+            req = rq.new_proof_request(
+                ptype, survey.sq.survey_id, ident.name,
+                f"{ptype}-{ident.name}", 0, data, ident.secret)
+            with lock:
+                self.vns.deliver(req)
+
+        if self.device.type != "cuda":
+            work()
+            return
+
+        def guarded():
+            try:
+                work()
+            except Exception as e:
+                log.warn(f"proof thread {ptype}/{ident.name} died: {e!r}")
+                survey.proof_errors.append(e)
+
+        t = threading.Thread(target=guarded, daemon=True)
+        t.start()
+        survey.proof_threads.append(t)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _once(build):
+    """Memoize a zero-argument build function across the per-CN proof
+    threads."""
+    lock = threading.Lock()
+    box: dict = {}
+
+    def get():
+        with lock:
+            if "v" not in box:
+                box["v"] = build()
+            return box["v"]
+
+    return get
+
+
+@dataclasses.dataclass
+class PendingSurvey:
+    """A survey that ran through decrypt + decode but whose proof
+    verification is not yet finalized (execute_survey/finalize_survey)."""
+    survey: Survey
+    sq: SurveyQuery
+    result: object
+    decrypted: st.DecryptedVector
+    proofs_on: bool
+
+
+@dataclasses.dataclass
+class SurveyResult:
+    result: object
+    decrypted: st.DecryptedVector
+    block: object
+    timers: PhaseTimers
+    survey_id: str
+
+
+__all__ = ["make_range_sigs", "signed_offset", "collect_with_range_proofs",
+           "verify_collected_range_proofs", "NodeIdentity", "DataProvider",
+           "Survey", "LocalCluster", "PendingSurvey", "SurveyResult"]

@@ -58,6 +58,7 @@ ENTRY_POINTS = {
         "f12_csqr": (2, 1),
         "f12_slotmul": (3, 2),
         "f12_wpow": (3, 3),
+        "f12_pow": (3, 2),
     },
     "miller": {
         "miller": (3, 1),
@@ -192,6 +193,37 @@ def check_shape(name, t, shape):
                          f"expected {tuple(shape)}")
 
 
+_FAULTS = (KernelError, MemoryError, torch.cuda.OutOfMemoryError,
+           getattr(torch, "AcceleratorError", KernelError))
+
+
+def is_fault(exc: Exception, device=None) -> bool:
+    """Whether an exception raised while decoding or verifying a payload is
+    a fault of the program or the card, not of the payload: a kernel that
+    failed to build or launch, memory that ran out, or a CUDA error. A
+    kernel that faults while it runs surfaces at a later torch call, under
+    any name, and leaves its error in the CUDA context, where a
+    synchronize raises it again. `device`: the verifier's device, or None
+    for the current one when CUDA is in use."""
+    if isinstance(exc, _FAULTS) or "CUDA" in str(exc):
+        return True
+    if device is None and torch.cuda.is_initialized():
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return False
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(launches: dict, kernel: str) -> None:
+    """Add one launch of `kernel` to a wrapper module's counts; proof
+    threads launch beside the main thread, so the add holds a lock."""
+    with _COUNT_LOCK:
+        launches[kernel] += 1
+
+
 def launch(name: str, entry: str, out, inputs, ints) -> None:
     """Call entry point `entry` of csrc/<name>.cu on the current stream of
     `out`'s device: input pointers, the output pointer, the ints, the
@@ -210,5 +242,6 @@ def launch(name: str, entry: str, out, inputs, ints) -> None:
 
 
 __all__ = ["KernelError", "build_all", "load", "check", "check_operands",
+           "count", "is_fault",
            "check_shape", "launch", "ptxas_report", "library_path",
            "nvcc_path", "BUILD_DIR"]

@@ -1,0 +1,86 @@
+"""Phase-level wall-clock timers -> CSV (a copy of drynx_tpu/utils/timers.py).
+
+Mirrors unlynx StartTimer/EndTimer keyed by "<serverID>_<Phase>" (used at
+reference services/service.go:381,412,717-744 and across lib/proof), whose
+CSV output feeds simul/test_data/parse_time_data_test.go. The phase taxonomy
+(SURVEY.md §5) is preserved so benchmark output stays comparable:
+DataCollectionProtocol, AggregationPhase, KeySwitchingPhase, DPencoding,
+VerifyRange, VerifyAggregation, VerifyKeySwitch, GradientDescent, Decryption,
+AllProofs, JustExecution.
+"""
+from __future__ import annotations
+
+import io
+import time
+
+from ..resilience.policy import named_lock
+
+
+class PhaseTimers:
+    """Thread-safe named wall-clock timers accumulating per-phase seconds.
+
+    With the class flag `echo` set, every completed phase prints to stderr
+    immediately — so a benchmark killed mid-run still shows where the time
+    went."""
+
+    echo = False
+
+    def __init__(self):
+        self._lock = named_lock("timers_lock")
+        self._open: dict[str, float] = {}
+        self._acc: dict[str, float] = {}
+
+    def start(self, name: str) -> None:
+        with self._lock:
+            self._open[name] = time.perf_counter()
+
+    def end(self, name: str) -> float:
+        now = time.perf_counter()
+        with self._lock:
+            t0 = self._open.pop(name, None)
+            if t0 is None:
+                return 0.0
+            dt = now - t0
+            self._acc[name] = self._acc.get(name, 0.0) + dt
+        if PhaseTimers.echo:
+            import sys
+
+            print(f"    [phase] {name}: {dt:.3f}s", file=sys.stderr,
+                  flush=True)
+        return dt
+
+    def add(self, name: str, dt: float) -> None:
+        """Accumulate an externally-measured span. Unlike start/end this is
+        safe under arbitrary thread overlap (no shared open-slot state) —
+        it is how the concurrent proof creation/verification paths attribute
+        their time (service.py: AllProofs / Verify<Type>)."""
+        with self._lock:
+            self._acc[name] = self._acc.get(name, 0.0) + dt
+        if PhaseTimers.echo:
+            import sys
+
+            print(f"    [phase] {name}: +{dt:.3f}s", file=sys.stderr,
+                  flush=True)
+
+    def clear(self) -> None:
+        """Drop accumulated spans (benchmarks isolating a timed window)."""
+        with self._lock:
+            self._open.clear()
+            self._acc.clear()
+
+    def __getitem__(self, name: str) -> float:
+        return self._acc.get(name, 0.0)
+
+    def items(self):
+        return sorted(self._acc.items())
+
+    def csv(self) -> str:
+        """Two-row CSV (header + values), the simulation output format."""
+        buf = io.StringIO()
+        keys = [k for k, _ in self.items()]
+        buf.write(",".join(keys) + "\n")
+        buf.write(",".join(f"{self._acc[k]:.6f}" for k in keys) + "\n")
+        return buf.getvalue()
+
+
+__all__ = ["PhaseTimers"]

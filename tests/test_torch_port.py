@@ -28,6 +28,8 @@ from drynx_tpu_torch.crypto import fp2 as F2
 from drynx_tpu_torch.crypto import fp12 as F12
 from drynx_tpu_torch.crypto import g2 as G2
 from drynx_tpu_torch.crypto import params, refimpl
+from drynx_tpu_torch.proofs import requests as rq
+from drynx_tpu_torch.service import api
 from drynx_tpu_torch.service import service as svc
 from drynx_tpu_torch.utils import cuda_build
 
@@ -75,7 +77,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
                                  num_dps=1),
     lambda: flagship.entry(),
     lambda: svc.make_range_sigs(u=4, n_servers=1),
-], ids=["create", "from_numpy", "make_inputs", "entry", "range_sigs"])
+    lambda: svc.LocalCluster(n_cns=1, n_dps=1, n_vns=0, dlog_limit=2),
+    lambda: api.DrynxClient(n_cns=1, n_dps=1, n_vns=0, dlog_limit=2),
+], ids=["create", "from_numpy", "make_inputs", "entry", "range_sigs",
+        "cluster", "client"])
 def test_entry_points_need_cuda_unless_the_cpu_is_named(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -90,7 +95,7 @@ def _gt(k):
 
 @pytest.mark.parametrize("kernel", ["point_add", "f2_inv", "g2_scalar_mul",
                                     "f12_mul", "f12_mulreduce8", "f12_inv",
-                                    "f12_wpow"])
+                                    "f12_wpow", "f12_pow"])
 def test_cpu_tensors_take_the_plain_versions_without_counting(kernel):
     before = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
     if kernel == "point_add":
@@ -115,10 +120,37 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(kernel):
         out = cuda_pairing.f12_wpow_flat(_gt(3)[None], F.from_int([100]),
                                          n_bits=63, cyc=True)
         assert torch.equal(out[0], _gt(300))
+    elif kernel == "f12_pow":
+        f, k = _gt(3)[None], F.from_int([0xABCDEF123456])
+        out = cuda_pairing.f12_pow_flat(f, k, n_bits=48)
+        assert torch.equal(out, F12.pow_var(f, k, 48))
+        assert torch.equal(out[0], _gt(3 * 0xABCDEF123456))
     else:
         g = torch.stack([_gt(k) for k in range(1, 9)])[None]
         assert torch.equal(cuda_pairing.f12_mulreduce8_flat(g)[0], _gt(36))
     assert {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES} == before
+
+
+def test_launch_counts_lose_no_update_across_threads():
+    """Proof threads count launches beside the main thread: with a very
+    short switch interval, 8 threads x 2,000 adds give exactly 16,000."""
+    import threading
+
+    counts = {"k": 0}
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            cuda_build.count(counts, "k") for _ in range(2000)])
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(saved)
+    assert counts["k"] == 16000
 
 
 def test_kernel_build_targets_hopper_and_names_every_source():
@@ -134,7 +166,7 @@ def test_kernel_build_targets_hopper_and_names_every_source():
                                                       "f2_inv"}
     assert set(cuda_build.ENTRY_POINTS["gt_ops"]) == {
         "f12_mul", "f12_mulreduce8", "f12_inv", "f12_csqr", "f12_slotmul",
-        "f12_wpow"}
+        "f12_wpow", "f12_pow"}
     assert set(cuda_build.ENTRY_POINTS["miller"]) == {"miller"}
 
 
@@ -266,7 +298,7 @@ def _verify_operands(device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["miller", "f12_inv", "f12_csqr",
-                                    "f12_slotmul", "f12_wpow"])
+                                    "f12_slotmul", "f12_wpow", "f12_pow"])
 def test_verify_kernel_equals_plain_version_on_the_card(cuda, kernel):
     a, k, pq = _verify_operands(cuda)
     cp = cuda_pairing
@@ -283,6 +315,8 @@ def test_verify_kernel_equals_plain_version_on_the_card(cuda, kernel):
                       lambda n=n, c=c: cp.f12_wpow_plain(a, k, n, c))
                      for n, c in ((63, True), (128, True), (256, True),
                                   (63, False), (256, False))],
+        "f12_pow": [(lambda n=n: cp.f12_pow_flat(a, k, n),
+                     lambda n=n: F12.pow_var(a, k, n)) for n in (48, 256)],
     }
     for kern, plain in calls[kernel]:
         before = cp.LAUNCHES[kernel]
@@ -307,3 +341,28 @@ def test_survey_on_the_card_equals_the_survey_on_the_cpu(cuda):
     (w_c, dec_c, found_c), (w_g, dec_g, found_g) = out.values()
     assert bool(found_g.all()) and torch.equal(dec_g, dec_c)
     torch.testing.assert_close(w_g, w_c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_proofs_on_survey_on_the_card_commits_a_clean_block(cuda):
+    """The small proofs-on survey of tests/test_torch_cluster.py on the
+    card: proof threads, kernels, a clean audit block."""
+    cluster = svc.LocalCluster(n_cns=2, n_dps=2, n_vns=2, seed=3,
+                               dlog_limit=300, device=cuda)
+    rng = np.random.default_rng(3)
+    data = [rng.integers(0, 16, size=6) for _ in range(2)]
+    for dp, x in zip(cluster.dps.values(), data):
+        dp.data = x
+    sq = cluster.generate_survey_query("mean", query_min=0, query_max=15,
+                                       proofs=1, ranges=[(16, 3)] * 2)
+    before = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
+    res = cluster.run_survey(sq, seed=3)
+    after = {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
+    allv = np.concatenate(data)
+    assert res.decrypted.found.all()
+    assert res.decrypted.values.tolist() == [int(allv.sum()), len(allv)]
+    bitmap = res.block.data.bitmap
+    assert len(bitmap) == 12 and set(bitmap.values()) == {rq.BM_TRUE}
+    assert after["miller"] > before["miller"]
+    assert after["g2_scalar_mul"] > before["g2_scalar_mul"]
+    cluster.close()
