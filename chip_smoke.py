@@ -9,7 +9,11 @@ Phases (any failed check exits non-zero; nothing is caught):
      print the ptxas lines (registers, stack, spills).
   2. Run each kernel at the shapes of the main path on the card and hold
      its output against its plain PyTorch version on the same inputs, byte
-     for byte; time both with CUDA events.
+     for byte; time both with CUDA events; print each kernel's ptxas
+     registers, stack and spills. The two team kernels also run at more
+     shapes (the fixed-base ladder at W in {1, 16, 17, 64} x N in {1, 90,
+     270, 900} and on crafted tables, the Miller loop at N = 1 and 1,000),
+     checked and timed the same way but left out of the JSON line's sums.
   3. Run the flagship encrypted logistic-regression survey at the full
      Pima width (10 DPs x 768 records, d=8, K=2, 450 GD steps, 3 servers,
      discrete-log table of +-10000): with every launch count set to 0 just
@@ -51,6 +55,7 @@ Phases (any failed check exits non-zero; nothing is caught):
 It imports nothing of JAX and nothing of the drynx_tpu package.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -141,7 +146,47 @@ SMS, IMAD_PER_CLK_SM, MEM_BYTES_PER_S = 132, 64, 3.35e12
 # 32-bit multiply-adds in one 8-word CIOS Montgomery product
 IMAD_PER_MONT_MUL = 256
 # Montgomery products per element (counted from the algorithms)
-MM_PADD = 23          # complete add: 16 for the add, 7 for the double
+# Jacobian add-2007-bl 11M + 5S, mixed add madd-2007-bl (the second point
+# affine) 7M + 4S, double dbl-2009-l 2M + 5S. The kernels' complete add
+# also computes a double and keeps it only when both points are equal,
+# which this run's random data never makes them, so it is not counted.
+MM_G1_ADD, MM_G1_MADD, MM_G1_DBL = 16, 11, 7
+
+
+def _digits(k, n_windows):
+    """The low n_windows 4-bit digits of plain 16-bit-limb scalars, LSB
+    first, as (rows, n_windows)."""
+    d = (k.long()[:, :, None] >> (4 * torch.arange(4, device=k.device))) & 15
+    return d.reshape(k.shape[0], -1)[:, :n_windows]
+
+
+def mm_fixed_base(k, n_windows):
+    """Montgomery products per row, averaged over the rows, that the sum
+    of the selected table entries needs for this run's scalars k: digit 0
+    selects infinity and costs nothing, the first non-zero digit's entry
+    is a copy, and each further one a mixed add (every table entry is
+    affine, Z = 1). The kernel reads every window, adds the infinities and
+    sums in a tree of complete adds; the bound counts only what these
+    scalars need."""
+    nonzero = (_digits(k, n_windows) != 0).sum(1)
+    return float((nonzero - 1).clamp(min=0).sum()) * MM_G1_MADD / k.shape[0]
+
+
+def mm_scalar_mul(k, n_windows):
+    """Montgomery products per row, averaged over the rows, of the
+    variable-base ladder for this run's scalars k: the table d*P (7
+    doubles and 7 adds), then, below the highest non-zero digit, 4 doubles
+    a window and an add for each non-zero digit. The kernel doubles from
+    the top window and adds at every digit, infinity or not."""
+    nonzero = _digits(k, n_windows) != 0
+    top = torch.where(nonzero, torch.arange(n_windows, device=k.device),
+                      -1).amax(1)
+    rows = top >= 0
+    work = (4 * top[rows] * MM_G1_DBL
+            + (nonzero[rows].sum(1) - 1) * MM_G1_ADD)
+    return 7 * (MM_G1_DBL + MM_G1_ADD) + float(work.sum()) / k.shape[0]
+
+
 # G2 over Fp2 (3 products per Fp2 product, 2 per square): a double is
 # 5 squares + 2 products = 16, a complete add 5 squares + 11 products + a
 # double = 59; the ladder builds 7 doubles and 7 adds, then 63 windows of
@@ -164,8 +209,8 @@ def mm_miller(ate_bits):
     Fp element, 5 more squares = 31; the Fp12 square 36; the line product
     54), an add step where the bit is set and for each of the 2 Frobenius
     corrections (4 squares, 10 products, 2 by an Fp element = 42; the line
-    product 54). The kernel computes the add step at every bit and keeps it
-    by mask; the bits are public, so the bound counts only the adds kept."""
+    product 54). The bits are public: the kernel adds only where one is
+    set, as the function does."""
     return (len(ate_bits) * (31 + MM_F12_SQR + MM_F12_MUL)
             + (sum(ate_bits) + 2) * (42 + MM_F12_MUL))
 
@@ -200,6 +245,46 @@ def smi(query):
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(report, kernel):
+    """Registers, stack and spill bytes of `kernel` in a ptxas report."""
+    lines = report.splitlines()
+    for j, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            text = " ".join(lines[j:j + 4])
+            nums = [re.search(pat, text) for pat in (
+                r"Used (\d+) registers", r"(\d+) bytes stack frame",
+                r"(\d+) bytes spill stores", r"(\d+) bytes spill loads")]
+            regs, stack, st, ld = (m.group(1) if m else "?" for m in nums)
+            return (f"{regs} registers, {stack}-byte stack, spill stores "
+                    f"{st} B, spill loads {ld} B")
+    return "not in the ptxas report"
+
+
+def crafted_fixed_base_cases(C, F, refimpl, device):
+    """(name, table, scalars) whose fixed-base sums send the team kernel's
+    complete adds, in the lanes' windows and in the tree, through every
+    branch (tests/test_torch_kernels_redesign.py checks that they do).
+    Table "same" holds P at every digit of every window, table "alt" P in
+    even windows and -P in odd ones; digit 0 is the table's infinity. The
+    scalars' digits (window w is hex digit w, least significant first):
+    all 1 ("same": every add is a double; "alt": a lane's P + (-P) is
+    infinity and the tree adds infinities); a checkerboard whose partial
+    sums 2P and -2P meet in the tree on "alt"; a zero upper half (the tree
+    adds a point and infinity); all 0. C, F, refimpl: the port's curve,
+    field and refimpl modules."""
+    P = refimpl.g1_mul(refimpl.G1, 5)
+    same = C.from_ref_batch([None] + [P] * 15)
+    neg = C.from_ref_batch([None] + [refimpl.g1_neg(P)] * 15)
+    tables = {"same": same.expand(64, 16, 3, 16),
+              "alt": torch.stack([neg if w % 2 else same for w in range(64)])}
+    digits = [[1] * 64, [int((w % 4 + w // 4) % 2 == 0) for w in range(64)],
+              [3] * 32 + [0] * 32, [0] * 64]
+    ks = F.from_int([sum(d << (4 * w) for w, d in enumerate(ds))
+                     for ds in digits]).to(device)
+    return [(name, t.contiguous().to(device), ks)
+            for name, t in tables.items()]
 
 
 def cuda_ms(fn, reps):
@@ -563,59 +648,61 @@ def main():
             (f"W=64 N={K} (rB)", lambda: cuda_ops.fixed_base_mul_flat(
                 base, enc_rs.reshape(-1, 16)),
              lambda: cuda_ops.fixed_base_mul_plain(base, enc_rs.reshape(-1, 16)),
-             MM_PADD * 64, K, nbytes(base, enc_rs) + K * 192),
+             mm_fixed_base(enc_rs.reshape(-1, 16), 64), K,
+             nbytes(base, enc_rs) + K * 192),
             (f"W=16 N={K} (|m|B)", lambda: cuda_ops.fixed_base_mul_flat(
                 base, mag, 16),
              lambda: cuda_ops.fixed_base_mul_plain(base, mag, 16),
-             MM_PADD * 16, K, nbytes(base[:16], mag) + K * 192),
+             mm_fixed_base(mag, 16), K, nbytes(base[:16], mag) + K * 192),
             (f"W=64 N={K} (rP)", lambda: cuda_ops.fixed_base_mul_flat(
                 setup.coll_pub_table, enc_rs.reshape(-1, 16)),
              lambda: cuda_ops.fixed_base_mul_plain(setup.coll_pub_table,
                                                    enc_rs.reshape(-1, 16)),
-             MM_PADD * 64, K, nbytes(base, enc_rs) + K * 192),
+             mm_fixed_base(enc_rs.reshape(-1, 16), 64), K,
+             nbytes(base, enc_rs) + K * 192),
             (f"W=64 N={N_SERVERS * V} (key switch rB)",
              lambda: cuda_ops.fixed_base_mul_flat(base, ks_rs.reshape(-1, 16)),
              lambda: cuda_ops.fixed_base_mul_plain(base, ks_rs.reshape(-1, 16)),
-             MM_PADD * 64, N_SERVERS * V,
+             mm_fixed_base(ks_rs.reshape(-1, 16), 64), N_SERVERS * V,
              nbytes(base, ks_rs) + N_SERVERS * V * 192),
             (f"W=64 N={N_SERVERS * V} (key switch rQ)",
              lambda: cuda_ops.fixed_base_mul_flat(setup.query_pub_table,
                                                   ks_rs.reshape(-1, 16)),
              lambda: cuda_ops.fixed_base_mul_plain(setup.query_pub_table,
                                                    ks_rs.reshape(-1, 16)),
-             MM_PADD * 64, N_SERVERS * V,
+             mm_fixed_base(ks_rs.reshape(-1, 16), 64), N_SERVERS * V,
              nbytes(base, ks_rs) + N_SERVERS * V * 192),
         ],
         "scalar_mul": [
             (f"W=64 N={N_SERVERS * V} (key switch xK)",
              lambda: cuda_ops.scalar_mul_flat(pts_sv, secrets.reshape(-1, 16)),
              lambda: cuda_ops.scalar_mul_plain(pts_sv, secrets.reshape(-1, 16)),
-             210 + 63 * (4 * 7 + MM_PADD), N_SERVERS * V,
+             mm_scalar_mul(secrets.reshape(-1, 16), 64), N_SERVERS * V,
              N_SERVERS * V * (192 + 64 + 192)),
             (f"W=64 N={V} (decrypt)",
              lambda: cuda_ops.scalar_mul_flat(pts_v, qx.contiguous()),
              lambda: cuda_ops.scalar_mul_plain(pts_v, qx.contiguous()),
-             210 + 63 * (4 * 7 + MM_PADD), V, V * (192 + 64 + 192)),
+             mm_scalar_mul(qx, 64), V, V * (192 + 64 + 192)),
         ],
         "point_reduce": [
             (f"R={NUM_DPS} N={2 * V} (aggregate)",
              lambda: cuda_ops.point_reduce_flat(cts.reshape(NUM_DPS, -1, 3, 16)),
              lambda: cuda_ops.point_reduce_plain(cts.reshape(NUM_DPS, -1, 3, 16)),
-             MM_PADD * (NUM_DPS - 1), 2 * V, (NUM_DPS + 1) * 2 * V * 192),
+             MM_G1_ADD * (NUM_DPS - 1), 2 * V, (NUM_DPS + 1) * 2 * V * 192),
             (f"R={N_SERVERS} N={V} (key switch K sum)",
              lambda: cuda_ops.point_reduce_flat(cts[:N_SERVERS, :, 0]),
              lambda: cuda_ops.point_reduce_plain(cts[:N_SERVERS, :, 0]),
-             MM_PADD * (N_SERVERS - 1), V, (N_SERVERS + 1) * V * 192),
+             MM_G1_ADD * (N_SERVERS - 1), V, (N_SERVERS + 1) * V * 192),
             (f"R={N_SERVERS} N={V} (key switch C sum)",
              lambda: cuda_ops.point_reduce_flat(cts[:N_SERVERS, :, 1]),
              lambda: cuda_ops.point_reduce_plain(cts[:N_SERVERS, :, 1]),
-             MM_PADD * (N_SERVERS - 1), V, (N_SERVERS + 1) * V * 192),
+             MM_G1_ADD * (N_SERVERS - 1), V, (N_SERVERS + 1) * V * 192),
         ],
         "point_add": [
             (f"N={n} ({what})",
              (lambda n=n: cuda_ops.point_add_flat(a900[:n], b900[:n])),
              (lambda n=n: cuda_ops.point_add_plain(a900[:n], b900[:n])),
-             MM_PADD, n, 3 * n * 192)
+             MM_G1_ADD, n, 3 * n * 192)
             for n, what in ((K, "encrypt mB + rP"),
                             (N_SERVERS * V, "key switch rQ - xK"),
                             (V, "key switch finish"), (V, "decrypt C - xK"))
@@ -699,6 +786,41 @@ def main():
             for n in (48, 256)
         ],
     }
+    # the two team kernels at more shapes than the main path's and on
+    # crafted tables: checked and timed like the rows above, not summed.
+    # The crafted sums repeat one point, which doubles compute in far fewer
+    # products than adds of distinct points: their bound counts only bytes
+    rng_x = np.random.default_rng(PROOF_SEED + 2)
+
+    def scalars(n, n_windows):
+        lim = min(refimpl.N, 16 ** n_windows)
+        return F.from_int([int.from_bytes(rng_x.bytes(32), "little") % lim
+                           for _ in range(n)]).to(dev)
+
+    extra = {
+        "fixed_base_mul": [
+            (f"W={w} N={n}",
+             (lambda k=k, w=w: cuda_ops.fixed_base_mul_flat(base, k, w)),
+             (lambda k=k, w=w: cuda_ops.fixed_base_mul_plain(base, k, w)),
+             mm_fixed_base(k, w), n, nbytes(base[:w], k) + n * 192)
+            for w in (1, 16, 17, 64) for n in (1, 90, 270, 900)
+            for k in [scalars(n, w)]
+        ] + [
+            (f"crafted table {name}",
+             (lambda t=t, k=k: cuda_ops.fixed_base_mul_flat(t, k)),
+             (lambda t=t, k=k: cuda_ops.fixed_base_mul_plain(t, k)),
+             0, len(k), nbytes(t, k) + len(k) * 192)
+            for name, t, k in crafted_fixed_base_cases(C, F, refimpl, dev)
+        ],
+        "miller": [
+            (f"N={n}",
+             (lambda n=n: cuda_pairing.miller_flat(*(t[:n] for t in ml_in))),
+             (lambda n=n: cuda_pairing.miller_plain(*(t[:n] for t in ml_in))),
+             mm_miller(cuda_pairing.ATE_BITS), n,
+             nbytes(*(t[:n] for t in ml_in)) + n * 768)
+            for n in (1, 1000)
+        ],
+    }
     meta = {
         "fixed_base_mul": ("drynx_tpu_torch/csrc/g1_ops.cu",
                            "drynx_tpu/crypto/pallas_ops.py:338"),
@@ -739,7 +861,13 @@ def main():
     for name, rows in cases.items():
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0, err=0)
-        for label, kern, plain, mm, n, moved in rows:
+        source = meta[name][0].rsplit("/", 1)[1][:-3]
+        symbol = f"{len(name) + 7}{name}_kernel"     # as mangled
+        print(f"  {name}: ptxas {ptxas_summary(reports[source], symbol)}",
+              flush=True)
+        n_main = len(rows)
+        for j, (label, kern, plain, mm, n, moved) in enumerate(
+                rows + extra.get(name, [])):
             got = kern()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -755,8 +883,11 @@ def main():
             bytes_ms = moved / MEM_BYTES_PER_S * 1e3
             print(f"  {name:15s} {label:32s} ok  kernel {ms:9.4f} ms  "
                   f"plain {plain_ms:10.2f} ms  bound {max(ops_ms, bytes_ms):.6f}"
-                  f" ms ({'operations' if ops_ms >= bytes_ms else 'bytes'})",
+                  f" ms ({'operations' if ops_ms >= bytes_ms else 'bytes'})"
+                  + ("" if j < n_main else "  (extra shape, not summed)"),
                   flush=True)
+            if j >= n_main:
+                continue
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
                 tot[key] += val

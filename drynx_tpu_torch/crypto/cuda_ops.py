@@ -16,13 +16,17 @@ launches its kernel, adds one to its count in `LAUNCHES`, and raises if the
 launch fails; on a CPU tensor it runs the plain version. There is no other
 route between them.
 
-The plain versions mirror the Pallas algorithms step for step: the same
-window order, the same table builds, the same complete-add formulas and
-select order, and the Pallas kernels' point at infinity (X = Y = 1 plain,
-Z = 0, `pallas_ops._inf_like`). Field values are canonical residues, so a
-kernel and its plain version agree byte for byte, and agree with the
+The plain versions follow their kernels step for step: the same window
+order, the same table builds, the same complete-add formulas and select
+order, and the Pallas kernels' point at infinity (X = Y = 1 plain, Z = 0,
+`pallas_ops._inf_like`). The fixed-base kernel sums a row's windows in
+FIXED_BASE_TEAM runs, one thread each, then adds the run sums in a binary
+tree, and its plain version sums in that order, where the Pallas kernel
+adds the windows one after another. Field values are canonical residues, so
+a kernel and its plain version agree byte for byte, and agree with the
 reference's jnp ladders as points (after normalisation: Jacobian limbs of
-one point are not unique).
+one point are not unique, and the tree gives another representative than
+the sequential ladder).
 
 What bounds the kernels, and what their design does about it, is noted at
 the top of `csrc/g1_ops.cu`.
@@ -40,6 +44,9 @@ LAUNCHES = {"fixed_base_mul": 0, "scalar_mul": 0, "point_reduce": 0,
             "point_add": 0}
 
 WINDOW_ENTRIES = 16
+# threads per row of the fixed-base kernel (csrc/g1_ops.cu, kFixedBaseTeam):
+# the plain version sums in the kernel's grouping and tree order
+FIXED_BASE_TEAM = 32
 
 
 # ---------------------------------------------------------------------------
@@ -127,17 +134,19 @@ def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return res
 
 
-def _digit(k: torch.Tensor, w: int) -> torch.Tensor:
-    """4-bit window digit w of (N, 16) int64 scalar limbs."""
+def _digit(k: torch.Tensor, w) -> torch.Tensor:
+    """4-bit window digit w of (N, 16) int64 scalar limbs; w an int, or a
+    tensor of windows for (N, len(w)) digits."""
     return (k[:, w // 4] >> (4 * (w % 4))) & 0xF
 
 
 def _select(entries: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """Per-element table entry by digit, reading every entry under a mask
-    (no load depends on the secret digit). entries: (N or 1, 16, 3, 16)."""
+    (no load depends on the secret digit). entries: (..., 16, 3, 16)
+    broadcast against d: (...) -> (..., 3, 16)."""
     v = torch.arange(WINDOW_ENTRIES, device=d.device)
-    mask = (d[:, None] == v).to(torch.int64)
-    return (mask[:, :, None, None] * entries).sum(1)
+    mask = (d[..., None] == v).to(torch.int64)
+    return (mask[..., None, None] * entries).sum(-3)
 
 
 # ---------------------------------------------------------------------------
@@ -146,13 +155,26 @@ def _select(entries: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 def fixed_base_mul_plain(table, k, n_windows: int = 64):
     """k*P from the shared window table, W add-only windows, little-endian
-    digits (pallas_ops._fixed_base_kernel)."""
+    digits (pallas_ops._fixed_base_kernel), summed in the fixed-base
+    kernel's order: FIXED_BASE_TEAM runs of 64 / FIXED_BASE_TEAM
+    consecutive windows, each summed in order from a copy of its first
+    selected entry (a run with no window below n_windows is infinity),
+    then the run sums added pairwise, (0, 1), (2, 3), ..., level by level
+    down to one."""
     tab = table.to(torch.int64)
     k64 = k.to(torch.int64)
-    acc = inf_like(k.shape[:1], k.device)
-    for w in range(n_windows):
-        acc = padd(acc, _select(tab[w][None], _digit(k64, w)))
-    return acc.to(torch.int32)
+    run = 64 // FIXED_BASE_TEAM
+    starts = torch.arange(0, 64, run, device=k.device)
+    parts = inf_like((k.shape[0], FIXED_BASE_TEAM), k.device)
+    for j in range(min(run, n_windows)):
+        w = starts + j
+        w = w[w < n_windows]            # the runs that reach window j
+        sel = _select(tab[w][None], _digit(k64, w))
+        g = len(w)
+        parts[:, :g] = sel if j == 0 else padd(parts[:, :g], sel)
+    while parts.shape[1] > 1:
+        parts = padd(parts[:, 0::2], parts[:, 1::2])
+    return parts[:, 0].to(torch.int32)
 
 
 def scalar_mul_plain(p, k, n_windows: int = 64):

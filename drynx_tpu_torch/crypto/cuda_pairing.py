@@ -363,9 +363,8 @@ def _miller_add(T, f, qx, qy, xp, yp):
 def miller_plain(px, py, qx, qy):
     """The optimal-ate Miller value per row, (N, 6, 2, 16) int32, for
     affine G1 (px, py) (N, 16) and affine twist points (qx, qy) (N, 2, 16),
-    all Montgomery. The kernel computes every add step and keeps it where
-    the bit of 6u + 2 is set; the bits are public, so this version skips
-    the adds it would not keep, with the same result."""
+    all Montgomery. The bits of 6u + 2 are public: like the kernel, this
+    version adds only where one is set."""
     xp, yp = px.to(torch.int64), py.to(torch.int64)
     qx, qy = qx.to(torch.int64), qy.to(torch.int64)
     n = xp.shape[0]
@@ -515,8 +514,7 @@ def f12_pow_flat(f, k, n_bits: int = 256):
 
 def miller_flat(px, py, qx, qy):
     """The Miller value per row, before the final exponentiation: px, py
-    (N, 16) and qx, qy (N, 2, 16) affine Montgomery -> (N, 6, 2, 16). The
-    Frobenius images of Q are computed here, outside the kernel."""
+    (N, 16) and qx, qy (N, 2, 16) affine Montgomery -> (N, 6, 2, 16)."""
     device = cuda_build.check_operands(("px", px), ("py", py), ("qx", qx),
                                        ("qy", qy))
     n = len(px)
@@ -526,10 +524,9 @@ def miller_flat(px, py, qx, qy):
         cuda_build.check_shape(name, t, shape)
     if device.type == "cpu":
         return miller_plain(px, py, qx, qy)
-    x, y = qx.to(torch.int64), qy.to(torch.int64)
-    q = torch.stack([x, y, *_frobenius_images(x, y)], dim=1).to(torch.int32)
     return _launch("miller", "miller", (n, 6, 2, NUM_LIMBS),
-                   (torch.stack([px, py], dim=1), q))
+                   (torch.stack([px, py], dim=1),
+                    torch.stack([qx, qy], dim=1)))
 
 
 # ---------------------------------------------------------------------------

@@ -65,11 +65,33 @@ __device__ __forceinline__ void store_fp(int32_t* dst, const Fp& a) {
   }
 }
 
+// 16-byte vector loads of the same layout: one Fp is 16 int32 words =
+// 4 x int4 (the wrappers hand the kernels 16-byte-aligned tensors)
+__device__ __forceinline__ Fp load_fp_v(const int32_t* src) {
+  const int4* s = reinterpret_cast<const int4*>(src);
+  Fp r;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int4 v = s[q];
+    r.w[2 * q] = (uint32_t)v.x | ((uint32_t)v.y << 16);
+    r.w[2 * q + 1] = (uint32_t)v.z | ((uint32_t)v.w << 16);
+  }
+  return r;
+}
+
 __device__ __forceinline__ G1 load_g1(const int32_t* src) {
   G1 p;
   p.X = load_fp(src);
   p.Y = load_fp(src + NL16);
   p.Z = load_fp(src + 2 * NL16);
+  return p;
+}
+
+__device__ __forceinline__ G1 load_g1_v(const int32_t* src) {
+  G1 p;
+  p.X = load_fp_v(src);
+  p.Y = load_fp_v(src + NL16);
+  p.Z = load_fp_v(src + 2 * NL16);
   return p;
 }
 

@@ -38,20 +38,9 @@ struct Fp12 {
 };
 
 // ---------------------------------------------------------------------------
-// Tensor edge, vectorised: one Fp is 16 int32 words = 4 x int4
+// Tensor edge, vectorised: one Fp is 16 int32 words = 4 x int4 (load_fp_v
+// is in bn256_g1.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ Fp load_fp_v(const int32_t* src) {
-  const int4* s = reinterpret_cast<const int4*>(src);
-  Fp r;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int4 v = s[q];
-    r.w[2 * q] = (uint32_t)v.x | ((uint32_t)v.y << 16);
-    r.w[2 * q + 1] = (uint32_t)v.z | ((uint32_t)v.w << 16);
-  }
-  return r;
-}
 
 __device__ __forceinline__ void store_fp_v(int32_t* dst, const Fp& a) {
   int4* d = reinterpret_cast<int4*>(dst);

@@ -1,15 +1,17 @@
-// bn256 G1 kernels of the encrypted survey's main path, one curve element
-// per thread. Each replaces one Pallas TPU kernel of
-// drynx_tpu/crypto/pallas_ops.py; drynx_tpu_torch/crypto/cuda_ops.py binds
-// them with ctypes and holds each beside its plain PyTorch version.
+// bn256 G1 kernels of the encrypted survey's main path. Each replaces one
+// Pallas TPU kernel of drynx_tpu/crypto/pallas_ops.py;
+// drynx_tpu_torch/crypto/cuda_ops.py binds them with ctypes and holds each
+// beside its plain PyTorch version. The fixed-base ladder gives each row a
+// team of threads (its note below); the others run one curve element per
+// thread.
 //
 // What bounds them: integer multiply-adds (a Montgomery product is 64
 // 32x32->64-bit products plus as many for the reduction, on the IMAD
 // pipe); memory traffic is a few hundred bytes per element. At the main
-// path's 90-900 elements the launches fill only a few of the 132 SMs, with
-// one warp or less per SM, so latency of the dependent multiply chains,
-// not the card's multiply rate, sets their time. Filling the card (more
-// threads per element, shared-memory tables) is later work.
+// path's 90-900 elements the launches fill only a few of the 132 SMs, so
+// the latency of the dependent multiply chains, not the card's multiply
+// rate, sets their time: a Montgomery product's carry chain is one long
+// dependency, ~1-2 us for one warp alone on its scheduler.
 //
 // Plain C entry points: each launches on the caller's stream and returns
 // cudaGetLastError(), so a refused launch reaches the wrapper, which raises.
@@ -31,34 +33,76 @@ inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // Kernel 1 (pallas_ops._fixed_base_kernel): k*P from a shared window table
 // table[w][v] = v * 16^w * P, W add-only windows, little-endian digits.
-// Each window's 16 entries are staged in shared memory, already repacked
-// to 32-bit words, and every thread reads all 16 under masks: the digit is
-// secret, so no load depends on it.
-__global__ void fixed_base_mul_kernel(const int32_t* __restrict__ table,
-                                      const int32_t* __restrict__ k,
-                                      int32_t* __restrict__ out, int n,
-                                      int n_windows) {
-  __shared__ G1 row[kWindowEntries];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+//
+// k*P = sum_w T[w][d_w] is a sum of independent table entries, so a team of
+// kFixedBaseTeam threads computes one row. Lane t sums the windows
+// [t * kLaneWindows, (t + 1) * kLaneWindows) below W in order, from a copy
+// of its first selected entry; a lane with no window below W holds the
+// point at infinity. The team's partial sums then meet in shared memory in
+// a binary tree of complete adds, level by level: partials 2i and 2i + 1
+// make partial i of the next level, down to one. Each window's entry is
+// chosen by reading all 16 under masks: the digit is secret, so no address
+// depends on it. The table (192 KB at W = 64) stays in device memory and
+// reaches the lanes through L2 and L1, read with 16-byte vector loads:
+// staged in shared memory it would hold one block per SM. The plain version
+// (cuda_ops.fixed_base_mul_plain) sums in the same grouping and tree order,
+// so the two agree byte for byte; the Jacobian representative differs from
+// the one-thread ladder's, the point does not.
+//
+// What bounds it: each lane's chain of complete adds, kLaneWindows - 1 for
+// its windows and log2(kFixedBaseTeam) for the tree: 6 with 32 lanes,
+// against 63 for one thread per row. At the main path's 90-900 rows the
+// launch is one partial wave, so the chain's latency sets the time, ~0.28
+// ms at 270 rows and 0.34 at 900 on the H100. 16 lanes (a chain of 7) and
+// 64 (a chain of 6 over twice the warps) measured slower at these shapes
+// (scripts/torch_team_variants.py). ptxas: 188 registers, no stack.
+constexpr int kFixedBaseTeam = 32;   // cuda_ops.FIXED_BASE_TEAM
+constexpr int kLaneWindows = 64 / kFixedBaseTeam;
+constexpr int kFixedBaseRows = kThreads / kFixedBaseTeam;
+static_assert((kFixedBaseTeam & (kFixedBaseTeam - 1)) == 0 &&
+                  kFixedBaseTeam <= kThreads,
+              "the team is a power of two within a block");
+
+// the entry of window w named by digit d, all 16 entries read under masks
+__device__ __forceinline__ G1 select_entry(const int32_t* __restrict__ table,
+                                           int w, uint32_t d) {
+  const int32_t* row = table + (size_t)w * kWindowEntries * kPointWords;
+  G1 sel = load_g1_v(row);
+#pragma unroll 1
+  for (int v = 1; v < kWindowEntries; ++v) {
+    sel = g1_select(mask_of(d == (uint32_t)v),
+                    load_g1_v(row + v * kPointWords), sel);
+  }
+  return sel;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fixed_base_mul_kernel(const int32_t* __restrict__ table,
+                          const int32_t* __restrict__ k,
+                          int32_t* __restrict__ out, int n, int n_windows) {
+  __shared__ G1 part[kThreads];
+  const int t = threadIdx.x % kFixedBaseTeam;
+  const int row = threadIdx.x / kFixedBaseTeam;
+  const int i = blockIdx.x * kFixedBaseRows + row;
   const bool live = i < n;
   const int32_t* ki = k + (size_t)(live ? i : 0) * NL16;
+  const int w0 = t * kLaneWindows;
+  const int w1 = min(w0 + kLaneWindows, n_windows);
   G1 acc = g1_inf();
-  for (int w = 0; w < n_windows; ++w) {
-    __syncthreads();
-    if (threadIdx.x < kWindowEntries) {
-      row[threadIdx.x] = load_g1(
-          table + ((size_t)w * kWindowEntries + threadIdx.x) * kPointWords);
-    }
-    __syncthreads();
-    const uint32_t d = window_digit(ki, w);
-    G1 sel = row[0];
+  if (w0 < w1) acc = select_entry(table, w0, window_digit(ki, w0));
 #pragma unroll 1
-    for (int v = 1; v < kWindowEntries; ++v) {
-      sel = g1_select(mask_of(d == (uint32_t)v), row[v], sel);
-    }
-    acc = padd(acc, sel);
+  for (int w = w0 + 1; w < w1; ++w) {
+    acc = padd(acc, select_entry(table, w, window_digit(ki, w)));
   }
-  if (live) store_g1(out + (size_t)i * kPointWords, acc);
+  G1* team = part + row * kFixedBaseTeam;
+#pragma unroll 1
+  for (int m = kFixedBaseTeam; m > 1; m /= 2) {
+    if (t < m) team[t] = acc;
+    __syncthreads();
+    if (t < m / 2) acc = padd(team[2 * t], team[2 * t + 1]);
+    __syncthreads();
+  }
+  if (t == 0 && live) store_g1(out + (size_t)i * kPointWords, acc);
 }
 
 // Kernel 2 (pallas_ops._scalar_mul_kernel): variable-base k*P. The thread
@@ -128,8 +172,9 @@ extern "C" {
 
 int g1_fixed_base_mul(const int32_t* table, const int32_t* k, int32_t* out,
                       int n, int n_windows, void* stream) {
-  fixed_base_mul_kernel<<<blocks_for(n), kThreads, 0,
-                          (cudaStream_t)stream>>>(table, k, out, n, n_windows);
+  const int blocks = (n + kFixedBaseRows - 1) / kFixedBaseRows;
+  fixed_base_mul_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      table, k, out, n, n_windows);
   return (int)cudaGetLastError();
 }
 

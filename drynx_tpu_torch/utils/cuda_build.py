@@ -10,7 +10,9 @@ library and returned by `ptxas_report`.
 
 Nothing is built at import: the first wrapper that launches a kernel calls
 `load`, and `build_all` compiles every source at once, one nvcc process per
-source, for scripts that want the build out of the way up front.
+source, for scripts that want the build out of the way up front;
+`build_copies` builds edited copies of sources the same way, for scripts
+that time versions of a kernel side by side.
 
 A kernel that cannot be built, loaded or launched raises `KernelError`. It
 is a fault of the program, never a verdict on the data, so the verifiers'
@@ -103,40 +105,68 @@ def _report_path(name: str) -> Path:
     return library_path(name).with_suffix(".ptxas.txt")
 
 
-def _start_build(name: str):
-    """Start nvcc for one source; returns (Popen, output path, tmp path)
-    or None when the library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _start_build(src: Path, out: Path):
+    """Start nvcc for one source; returns (Popen, output path, tmp path)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+           str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, out, tmp
 
 
-def _finish_build(name: str, started) -> None:
+def _finish_build(started, what: str) -> str:
+    """Wait for nvcc; returns its ptxas report."""
     proc, out, tmp = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise KernelError(f"nvcc failed for csrc/{name}.cu "
+        raise KernelError(f"nvcc failed for {what} "
                           f"(exit {proc.returncode}):\n{log}")
-    _report_path(name).write_text(log)
     os.replace(tmp, out)
+    return log
+
+
+def _start_source(name: str):
+    """Start building csrc/<name>.cu, or None when it is already built."""
+    out = library_path(name)
+    return None if out.exists() else _start_build(CSRC / f"{name}.cu", out)
+
+
+def _finish_source(name: str, started) -> None:
+    log = _finish_build(started, f"csrc/{name}.cu")
+    _report_path(name).write_text(log)
 
 
 def build_all() -> dict[str, str]:
     """Build every source in parallel (one nvcc each); returns each
     source's ptxas report."""
     with _LOCK:
-        started = {name: _start_build(name) for name in ENTRY_POINTS}
+        started = {name: _start_source(name) for name in ENTRY_POINTS}
         for name, s in started.items():
             if s is not None:
-                _finish_build(name, s)
+                _finish_source(name, s)
     return {name: ptxas_report(name) for name in ENTRY_POINTS}
+
+
+def build_copies(copies) -> list[tuple[ctypes.CDLL, str]]:
+    """Build edited copies of sources side by side, one nvcc each, all at
+    once. `copies`: (name, text) pairs, text an edited csrc/<name>.cu.
+    Returns, for each, its loaded library with the entry points bound as
+    `load` binds them, and its ptxas report. For scripts that time
+    versions of a kernel in one run; the package loads only csrc/."""
+    out_dir = BUILD_DIR / "copies"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    started = []
+    for i, (name, text) in enumerate(copies):
+        src = out_dir / f"{i}-{name}.cu"
+        src.write_text(text)
+        started.append((name, src, _start_build(src, src.with_suffix(".so"))))
+    built = []
+    for name, src, s in started:
+        log = _finish_build(s, src.name)
+        built.append((_bind(ctypes.CDLL(str(s[1])), name), log))
+    return built
 
 
 def ptxas_report(name: str) -> str:
@@ -150,21 +180,27 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        started = _start_build(name)
+        started = _start_source(name)
         if started is not None:
-            _finish_build(name, started)
+            _finish_source(name, started)
         try:
             lib = ctypes.CDLL(str(library_path(name)))
         except OSError as e:
             raise KernelError(f"cannot load csrc/{name}.cu's library: {e}") \
                 from e
-        for fn_name, (n_ptrs, n_ints) in ENTRY_POINTS[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+        lib = _bind(lib, name)
         _LIBS[name] = lib
         return lib
+
+
+def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declare the C signatures of csrc/<name>.cu's entry points."""
+    for fn_name, (n_ptrs, n_ints) in ENTRY_POINTS[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def check(rc: int, what: str) -> None:
@@ -241,7 +277,7 @@ def launch(name: str, entry: str, out, inputs, ints) -> None:
     check(rc, entry)
 
 
-__all__ = ["KernelError", "build_all", "load", "check", "check_operands",
-           "count", "is_fault",
+__all__ = ["KernelError", "build_all", "build_copies", "load", "check",
+           "check_operands", "count", "is_fault",
            "check_shape", "launch", "ptxas_report", "library_path",
            "nvcc_path", "BUILD_DIR"]

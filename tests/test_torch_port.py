@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import crafted_fixed_base_cases
 from drynx_tpu_torch import flagship
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
@@ -186,6 +187,24 @@ def test_device_header_constants_match_params():
     assert (hi << 64) + lo == ate and top + 2 == ate.bit_length()
 
 
+def test_miller_frobenius_factors_match_refimpl():
+    """kFrob in csrc/miller.cu: refimpl's twist factors of the Frobenius
+    maps, Montgomery Fp2 as 8 x 32-bit words per coordinate."""
+    src = (cuda_build.CSRC / "miller.cu").read_text()
+    body = src[src.index("kFrob[3][2][NW] = {"):
+               src.index("frob_factor(int k)")]
+    vals = re.findall(r"0x([0-9a-f]{8})u|\b(0)u\b", body)
+    words = [int(a, 16) if a else 0 for a, _ in vals]
+    assert len(words) == 3 * 2 * 8
+    want = [F2.from_ref(c) for c in (refimpl._G12, refimpl._G13,
+                                     refimpl._G22)]
+    for k, fp2 in enumerate(want):
+        for c in range(2):
+            limbs = fp2[c].tolist()
+            assert words[16 * k + 8 * c:16 * k + 8 * c + 8] == [
+                limbs[2 * i] | (limbs[2 * i + 1] << 16) for i in range(8)]
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -324,6 +343,57 @@ def test_verify_kernel_equals_plain_version_on_the_card(cuda, kernel):
         torch.cuda.synchronize()
         assert cp.LAUNCHES[kernel] == before + 1
         assert torch.equal(got, plain())
+
+
+def _fixed_base_scalars(n, n_windows, device):
+    rng = np.random.default_rng(n + n_windows)
+    lim = min(params.N, 16 ** n_windows)
+    ks = [int.from_bytes(rng.bytes(32), "little") % lim for _ in range(n)]
+    return F.from_int(ks).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_windows", [1, 16, 17, 64])
+@pytest.mark.parametrize("n", [1, 90, 270, 900])
+def test_fixed_base_team_kernel_equals_plain_version(cuda, n, n_windows):
+    """The team kernel at the ladder's window counts and the main path's
+    row counts (a team of cuda_ops.FIXED_BASE_TEAM lanes per row)."""
+    base = eg.BASE_TABLE.table.to(cuda)
+    k = _fixed_base_scalars(n, n_windows, cuda)
+    got = cuda_ops.fixed_base_mul_flat(base, k, n_windows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_ops.fixed_base_mul_plain(base, k, n_windows))
+
+
+@pytest.mark.gpu
+def test_fixed_base_team_kernel_on_crafted_tables(cuda):
+    for name, table, k in crafted_fixed_base_cases(C, F, refimpl, cuda):
+        got = cuda_ops.fixed_base_mul_flat(table, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_ops.fixed_base_mul_plain(table, k)), name
+
+
+def _miller_operands(n, device):
+    """n affine pairs (k G1, m G2), made on the card by the ladders."""
+    rng = np.random.default_rng(n)
+    rand = lambda: F.from_int([int.from_bytes(rng.bytes(32), "little")
+                               % params.N for _ in range(n)]).to(device)
+    px, py, _ = C.normalize(cuda_ops.fixed_base_mul_flat(
+        eg.BASE_TABLE.table.to(device), rand()))
+    gen = G2.from_ref(refimpl.G2).to(device).expand(n, 3, 2, 16).contiguous()
+    qx, qy, _ = G2.normalize(cuda_pairing.g2_scalar_mul_flat(gen, rand()))
+    return px, py, qx, qy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 1000, 13500])
+def test_miller_team_kernel_equals_plain_version(cuda, n):
+    """The team kernel (six lanes per pairing, 20 pairings per block) at
+    one pairing, a ragged block count and the verifier's 13,500."""
+    pq = _miller_operands(n, cuda)
+    got = cuda_pairing.miller_flat(*pq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.miller_plain(*pq))
 
 
 @pytest.mark.gpu
