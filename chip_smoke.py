@@ -10,10 +10,15 @@ Phases (any failed check exits non-zero; nothing is caught):
   2. Run each kernel at the shapes of the main path on the card and hold
      its output against its plain PyTorch version on the same inputs, byte
      for byte; time both with CUDA events; print each kernel's ptxas
-     registers, stack and spills. The two team kernels also run at more
+     registers, stack and spills. The four team kernels also run at more
      shapes (the fixed-base ladder at W in {1, 16, 17, 64} x N in {1, 90,
-     270, 900} and on crafted tables, the Miller loop at N = 1 and 1,000),
-     checked and timed the same way but left out of the JSON line's sums.
+     270, 900} and on crafted tables, the Miller loop at N = 1 and 1,000,
+     the variable-base ladder on crafted scalars at W in {1, 2, 16, 64}
+     and at N in {1, 5, 21}, the windowed GT power on crafted values and
+     exponents at n_bits in {1, 2, 3, 4, 63, 64, 128, 256} with and
+     without cyc and at N in {1, 5, 21}), and the 8-way product at the
+     joint check's fold shapes, checked and timed the same way but left
+     out of the JSON line's sums.
   3. Run the flagship encrypted logistic-regression survey at the full
      Pima width (10 DPs x 768 records, d=8, K=2, 450 GD steps, 3 servers,
      discrete-log table of +-10000): with every launch count set to 0 just
@@ -287,6 +292,51 @@ def crafted_fixed_base_cases(C, F, refimpl, device):
             for name, t in tables.items()]
 
 
+# crafted scalars of the variable-base ladder: 0, 1, 15, 16, n - 1, n (its
+# last add is P + (-P)), n + 1, 2^256 - 1, top and bottom digits with 62
+# zero windows between, and 16 a + 15 with 16 a = 15 (mod n) (its last add
+# is Q + Q, the complete add's double)
+def crafted_ladder_scalars(n_order):
+    return [0, 1, 15, 16, n_order - 1, n_order, n_order + 1, (1 << 256) - 1,
+            (0xF << 252) | 0xF,
+            16 * (15 * pow(16, -1, n_order) % n_order) + 15]
+
+
+def crafted_ladder_cases(C, F, refimpl, device):
+    """(points, scalars) for the variable-base ladder: the crafted scalars
+    on multiples of the generator, then the point at infinity with 5. At
+    W = 64 their ladders meet every branch of the complete add (a double,
+    P + (-P), either operand at infinity; tests/test_torch_team_kernels.py
+    checks that they do). C, F, refimpl: the port's curve, field and
+    refimpl modules."""
+    ks = crafted_ladder_scalars(refimpl.N) + [5]
+    pts = [refimpl.g1_mul(refimpl.G1, 3 + j) for j in range(len(ks) - 1)]
+    return (C.from_ref_batch(pts + [None]).to(device),
+            F.from_int(ks).to(device))
+
+
+WPOW_BITS = (1, 2, 3, 4, 63, 64, 128, 256)
+
+
+def crafted_wpow_cases(F, F12, params, refimpl, device):
+    """(f, k) for the windowed GT power: five GPhi12 members gtB^(j + 2)
+    and, last, one value outside GPhi12 (where the cyclotomic square is not
+    a square); exponents 0, 1, 2^256 - 1, u and two with set bits at the
+    limb edges that 3-bit windows straddle (bits 15-17, 47-49, 127-129).
+    F, F12, params, refimpl: the port's modules."""
+    gtb = refimpl.pair(refimpl.G1, refimpl.G2)
+    vals, cur = [], refimpl.fp12_mul(gtb, gtb)
+    for _ in range(5):
+        vals.append(cur)
+        cur = refimpl.fp12_mul(cur, gtb)
+    rng = np.random.default_rng(29)
+    vals.append(tuple(tuple(int.from_bytes(rng.bytes(40), "little")
+                            % refimpl.P for _ in range(2)) for _ in range(6)))
+    edges = sum(7 << b for b in (15, 47, 127))
+    ks = [0, 1, (1 << 256) - 1, params.U, edges, edges ^ ((1 << 256) - 1)]
+    return (F12.from_ref_batch(vals).to(device), F.from_int(ks).to(device))
+
+
 def cuda_ms(fn, reps):
     """Mean device time of fn() over reps runs, after one warm-up."""
     fn()
@@ -522,7 +572,7 @@ def main():
     from drynx_tpu_torch.crypto import fp12 as F12
     from drynx_tpu_torch.crypto import g2 as G2
     from drynx_tpu_torch.crypto import gt as GT
-    from drynx_tpu_torch.crypto import refimpl
+    from drynx_tpu_torch.crypto import params as bn256, refimpl
     from drynx_tpu_torch.models import logreg as lr
     from drynx_tpu_torch.proofs import encoding as enc
     from drynx_tpu_torch.proofs import range_proof as rp
@@ -640,6 +690,19 @@ def main():
     ml_out = cuda_pairing.miller_flat(*ml_in)
     f12_bytes = nbytes(gt_a)
 
+    # the ladder's other main-path shapes: the D equation's c C2 (one row a
+    # value), the VN's key-switch check (c U, zx K, c W, c Y), c y (a row a
+    # value and server) and the RLC weighting of every digit proof's
+    # c y - Zphi B by its 62-bit weight (16 windows)
+    u_k = F.from_int(bn256.U).to(dev)[None]
+    lgen = torch.Generator(device=dev).manual_seed(PROOF_SEED + 3)
+    ladder_rows = [
+        (64, a900.repeat(3, 1, 1)[:n], eg.random_scalars((n,), lgen, dev),
+         what) for n, what in ((n_vals, "D equation c C2"),
+                               (4 * N_SERVERS * V, "key-switch check"),
+                               (N_SERVERS * n_vals, "c y"))] + [
+        (16, rp._g1_args(vb, pubs).reshape(-1, 3, 16), r_w,
+         "RLC weighting")]
     K = NUM_DPS * V
     cases = {
         # kernel: list of (label, wrapper call, plain call, mont muls/elem,
@@ -683,6 +746,12 @@ def main():
              lambda: cuda_ops.scalar_mul_flat(pts_v, qx.contiguous()),
              lambda: cuda_ops.scalar_mul_plain(pts_v, qx.contiguous()),
              mm_scalar_mul(qx, 64), V, V * (192 + 64 + 192)),
+        ] + [
+            (f"W={w} N={len(k)} ({what})",
+             (lambda p=p, k=k, w=w: cuda_ops.scalar_mul_flat(p, k, w)),
+             (lambda p=p, k=k, w=w: cuda_ops.scalar_mul_plain(p, k, w)),
+             mm_scalar_mul(k, w), len(k), len(k) * (192 + 64 + 192))
+            for w, p, k, what in ladder_rows
         ],
         "point_reduce": [
             (f"R={NUM_DPS} N={2 * V} (aggregate)",
@@ -774,6 +843,10 @@ def main():
              lambda: cuda_pairing.f12_wpow_flat(gt_ca, r_w, 63, cyc=True),
              lambda: cuda_pairing.f12_wpow_plain(gt_ca, r_w, 63, True),
              mm_wpow(63, True), n_proofs, 2 * f12_bytes + nbytes(r_w)),
+            ("N=1 63 bits cyc (final exp, power by u)",
+             lambda: cuda_pairing.f12_wpow_flat(gt_a[:1], u_k, 63, cyc=True),
+             lambda: cuda_pairing.f12_wpow_plain(gt_a[:1], u_k, 63, True),
+             mm_wpow(63, True), 1, 2 * 768 + 64),
         ],
         # square-and-multiply-always; the bound counts the squares and the
         # set bits' products that these exponents need (mm_pow)
@@ -786,11 +859,14 @@ def main():
             for n in (48, 256)
         ],
     }
-    # the two team kernels at more shapes than the main path's and on
-    # crafted tables: checked and timed like the rows above, not summed.
+    # the four team kernels at more shapes than the main path's and on
+    # crafted inputs, and the 8-way product at the joint check's small
+    # shapes: checked and timed like the rows above, not summed.
     # The crafted sums repeat one point, which doubles compute in far fewer
     # products than adds of distinct points: their bound counts only bytes
     rng_x = np.random.default_rng(PROOF_SEED + 2)
+    ladder_crafted = crafted_ladder_cases(C, F, refimpl, dev)
+    wpow_crafted = crafted_wpow_cases(F, F12, bn256, refimpl, dev)
 
     def scalars(n, n_windows):
         lim = min(refimpl.N, 16 ** n_windows)
@@ -811,6 +887,47 @@ def main():
              (lambda t=t, k=k: cuda_ops.fixed_base_mul_plain(t, k)),
              0, len(k), nbytes(t, k) + len(k) * 192)
             for name, t, k in crafted_fixed_base_cases(C, F, refimpl, dev)
+        ],
+        "scalar_mul": [
+            (f"crafted W={w}",
+             (lambda w=w: cuda_ops.scalar_mul_flat(*ladder_crafted, w)),
+             (lambda w=w: cuda_ops.scalar_mul_plain(*ladder_crafted, w)),
+             mm_scalar_mul(ladder_crafted[1], w), len(ladder_crafted[1]),
+             len(ladder_crafted[1]) * (192 + 64 + 192))
+            for w in (1, 2, 16, 64)
+        ] + [
+            (f"W=64 N={n} (a partly filled block)",
+             (lambda k=k: cuda_ops.scalar_mul_flat(a900[:len(k)], k)),
+             (lambda k=k: cuda_ops.scalar_mul_plain(a900[:len(k)], k)),
+             mm_scalar_mul(k, 64), n, n * (192 + 64 + 192))
+            for n in (1, 5, 21) for k in [scalars(n, 64)]
+        ],
+        "f12_wpow": [
+            (f"crafted {nb} bits cyc={cyc}",
+             (lambda nb=nb, cyc=cyc: cuda_pairing.f12_wpow_flat(
+                 *wpow_crafted, nb, cyc=cyc)),
+             (lambda nb=nb, cyc=cyc: cuda_pairing.f12_wpow_plain(
+                 *wpow_crafted, nb, cyc)),
+             mm_wpow(nb, cyc), len(wpow_crafted[0]),
+             len(wpow_crafted[0]) * (2 * 768 + 64))
+            for nb in WPOW_BITS for cyc in (True, False)
+        ] + [
+            (f"N={n} 63 bits cyc (a partly filled block)",
+             (lambda n=n: cuda_pairing.f12_wpow_flat(gt_ca[:n], r_w[:n], 63,
+                                                     cyc=True)),
+             (lambda n=n: cuda_pairing.f12_wpow_plain(gt_ca[:n], r_w[:n], 63,
+                                                      True)),
+             mm_wpow(63, True), n, n * (2 * 768 + 64))
+            for n in (1, 5, 21)
+        ],
+        # the joint check's folds (five passes each over 13,500 values
+        # padded to 8^5) and its gtB^S (two passes on one power)
+        "f12_mulreduce8": [
+            (f"N={n} (joint check fold or gtB^S pass)",
+             (lambda n=n: cuda_pairing.f12_mulreduce8_flat(g_multi[:n])),
+             (lambda n=n: cuda_pairing.f12_mulreduce8_plain(g_multi[:n])),
+             7 * MM_F12_MUL, n, nbytes(g_multi[:n]) * 9 // 8)
+            for n in (4096, 512, 64, 8, 1)
         ],
         "miller": [
             (f"N={n}",

@@ -1,7 +1,8 @@
-// Fp12 (GT) kernels of range-proof creation and verification, one row per
-// thread. Each replaces one Pallas TPU kernel of
-// drynx_tpu/crypto/pallas_pairing.py; drynx_tpu_torch/crypto/cuda_pairing.py
-// binds them with ctypes and holds each beside its plain PyTorch version.
+// Fp12 (GT) kernels of range-proof creation and verification. Each
+// replaces one Pallas TPU kernel of drynx_tpu/crypto/pallas_pairing.py;
+// drynx_tpu_torch/crypto/cuda_pairing.py binds them with ctypes and holds
+// each beside its plain PyTorch version. f12_wpow gives each row a team of
+// threads (its note below); the others run one row per thread.
 //
 //   f12_mul         replaces _f12_mul_kernel         (f12_mul_flat)
 //   f12_mulreduce8  replaces _f12_mulreduce8_kernel  (f12_mulreduce8_flat)
@@ -26,14 +27,9 @@
 // The verification kernels are the same kind of chain. f12_inv is 488
 // Montgomery products per row, 379 of them the Fermat inverse's dependent
 // chain; f12_csqr 18 and f12_slotmul 18 (six Fp2 products by constants that
-// every thread reads from one small array). f12_wpow is f^k by 3-bit windows
-// MSB-first over an 8-entry table [1, f, f^2, ..., f^7] in local memory
-// (3 KB per thread, like the G2 ladder's): 4,752 products at 128 bits and
-// 2,376 at 63 with cyclotomic squares. The exponents are RLC weights the
-// verifier keeps secret, so a window's entry is chosen by reading all eight
-// under masks (pallas_pairing.py:611-615), never by an indexed load. At the
-// verifier's 13,500 rows a launch is one wave, so the per-thread chain's
-// latency, not the card's multiply rate, sets the time.
+// every thread reads from one small array). At the verifier's 13,500 rows a
+// launch is one wave, so the per-thread chain's latency, not the card's
+// multiply rate, sets the time.
 //
 // f12_pow is the reference's first power, square-and-multiply-always
 // LSB-first over n_bits bits: per bit one product (kept by mask where the
@@ -44,7 +40,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bn256_tower.cuh"
+#include "team.cuh"
 
 using namespace bn256;
 
@@ -52,6 +48,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kF12Words = 6 * 2 * NL16;   // int32 words of one Fp12 value
+constexpr int kPowEntries = 8;           // f12_wpow: 3-bit windows
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
@@ -120,46 +117,260 @@ __device__ __forceinline__ uint32_t window3(const int32_t* k, int w) {
   return d & 7u;
 }
 
-__device__ __forceinline__ Fp12 square(const Fp12& a, int cyc) {
-  return cyc ? f12csqr(a) : f12sqr(a);
+// f12_wpow: f^k over ceil(n_bits / 3) windows MSB-first, as
+// _f12_wpow_kernel (pallas_pairing.py:572): the table T[d] = f^d (T[2j] =
+// T[j]^2, T[2j+1] = T[2j] f), then per window three squares and a product
+// with the entry its digit picks. cyc swaps every square, in the table and
+// in the chain, for Granger-Scott's cyclotomic one: the kernel computes
+// that function itself, which is the square only on GPhi12, so on any f
+// it gives the plain version's bytes.
+//
+// A team of kPowTeam lanes computes one row; lane t owns the kPowSlots Fp2
+// slots c_m, m = t kPowSlots + s, of the accumulator (f = sum c_m w^m,
+// w^6 = XI), in registers, and of every table entry, in shared memory (a
+// row's table is 3 KB: no local memory). A lane only ever reads its own
+// slots of the table, so the table needs no barrier. Every step trades
+// values through the team's exchange (team.cuh):
+//   - a product a b (f12mul's Karatsuba over Fp6, 18 Fp2 products): the
+//     lanes publish their slots of a and b; every one of the 18 products
+//     multiplies a sum of a's slots by the same sum of b's slots, so each
+//     lane forms its 18 / kPowTeam products' operands from the published
+//     slots; the products are published and each lane forms its output
+//     slots from them (c_k = t0_k + v t1, d_k = t2_k - t0_k - t1_k, the
+//     Fp6 parts of Karatsuba's three products);
+//   - a cyclotomic square: the lanes publish their slots; the 9 Fp2
+//     squares of Granger-Scott (s0-s5 and the three squares of sums) are
+//     spread over the lanes, published, and each lane forms its output
+//     slots (3t -+ 2f);
+//   - a square without cyc is the product a a (any correct square gives
+//     the same canonical residues; no path of the port takes it).
+// A window is then a chain of 3 x 2 Fp2 squares and 3 Fp2 products a lane
+// with six lanes (21 Montgomery products) against 3 x 9 squares and 18
+// products (108) for one thread; the entry is chosen by reading a lane's
+// slots of all eight entries under masks (the exponents are secret RLC
+// weights), never by an indexed load.
+//
+// What bounds it: the chain's latency, in which each product's operand
+// sums and each slot's Karatsuba combination weigh as much as its
+// Montgomery products. The verifier's 13,500 rows are 2,700 warps, at 8
+// an SM (255 registers); at N = 1 (the final exponentiation's powers by u)
+// one team carries the whole chain. On an H100 80GB HBM3 at 700 W: 9.4 ms
+// at 128 bits and 4.8 at 63 on 13,500 rows, 1.3 ms at 63 bits on one; 3
+// lanes a row (two slots each) measured slower at each of these shapes
+// (scripts/torch_team_variants.py).
+constexpr int kPowTeam = 6;                     // lanes per row
+constexpr int kPowSlots = 6 / kPowTeam;         // Fp2 slots a lane owns
+constexpr int kPowProds = 18 / kPowTeam;        // a product's Fp2 products
+constexpr int kPowSqrs = (9 + kPowTeam - 1) / kPowTeam;   // a square's
+constexpr int kPowTeamsPerWarp = 32 / kPowTeam;
+constexpr int kPowWarps = 1;
+constexpr int kPowThreads = 32 * kPowWarps;
+constexpr int kPowRows = kPowWarps * kPowTeamsPerWarp;
+constexpr int kFp2Words = 2 * NL16;
+static_assert(6 % kPowTeam == 0, "a lane owns whole slots");
+
+using PowTeam = Team<Fp2, kPowTeam, 18>;
+using Slots = Fp2[kPowSlots];
+
+struct PowMem {
+  Fp2 xch[2][18];
+  Fp2 tab[kPowEntries][6];
+};
+constexpr size_t kPowSmem = sizeof(PowMem) * kPowRows;
+
+// every Fp2 square of the kernel: one body, called
+static __device__ __noinline__ Fp2 sqr2(const Fp2& a) { return f2sqr(a); }
+
+__device__ __forceinline__ Fp2 f2zero() { return Fp2{fp_zero(), fp_zero()}; }
+
+// component kk of the Fp6 product whose six Fp2 products (t0, t1, t2, m01,
+// m02, m12) are P[0..5], as fp6_mul forms it
+__device__ __forceinline__ Fp2 fp6_part(const Fp2* P, int kk) {
+  const Fp2 p0 = P[0], p1 = P[1], p2 = P[2];
+  const Fp2 r0 = f2add(p0, f2mul_xi(f2sub(f2sub(P[5], p1), p2)));
+  const Fp2 r1 = f2add(f2sub(f2sub(P[3], p0), p1), f2mul_xi(p2));
+  const Fp2 r2 = f2add(f2sub(f2sub(P[4], p0), p2), p1);
+  return f2select(mask_of(kk == 0), r0, f2select(mask_of(kk == 1), r1, r2));
 }
 
-// f^k over ceil(n_bits / 3) windows MSB-first: the table T[d] = f^d
-// (T[2j] = T[j]^2, T[2j+1] = T[2j] f), then per window three squares and a
-// product with the entry its digit picks. cyc swaps every square, in the
-// table and in the chain, for the cyclotomic one (f in GPhi12 only).
-__global__ void f12_wpow_kernel(const int32_t* __restrict__ f,
-                                const int32_t* __restrict__ k,
-                                int32_t* __restrict__ out, int n, int n_bits,
-                                int cyc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t* ki = k + (size_t)i * NL16;
-  Fp12 tab[8];
-  tab[0] = f12_one();
-  tab[1] = load_fp12(f + (size_t)i * kF12Words);
-#pragma unroll 1
-  for (int d = 2; d < 8; ++d) {
-    tab[d] = (d % 2 == 0) ? square(tab[d / 2], cyc)
-                          : f12mul(tab[d - 1], tab[1]);
+// this lane's slots of a b, a's slots being ca, b's cb across the team
+// (cb == nullptr: b = a)
+__device__ __forceinline__ void team_f12mul(PowTeam& tm, Slots& out,
+                                            const Slots& ca,
+                                            const Slots* cb) {
+  Fp2* w = tm.out();
+#pragma unroll
+  for (int s = 0; s < kPowSlots; ++s) {
+    w[tm.slot * kPowSlots + s] = ca[s];
+    if (cb) w[6 + tm.slot * kPowSlots + s] = (*cb)[s];
   }
-  auto pick = [&](uint32_t d) {
-    Fp12 s = tab[0];
+  const Fp2* a = tm.publish();
+  const Fp2* b = cb ? a + 6 : a;
+  // product j = 6h + r of Karatsuba over Fp6 (h: A1 A2, B1 B2, (A1 + B1)
+  // (A2 + B2)) and 3-way Karatsuba within it (r: components {0}, {1},
+  // {2}, {0, 1}, {0, 2}, {1, 2}); component e of the h-th Fp6 operand is
+  // slot 2e + h, or slots 2e and 2e + 1 for h = 2. Its two operands are
+  // the same sums of a's and of b's slots.
+  Fp2* pw = tm.out();
+#pragma unroll
+  for (int q = 0; q < kPowProds; ++q) {
+    const int j = tm.slot * kPowProds + q;
+    const int h = j / 6, r = j % 6;
+    const int e0 = r < 3 ? r : (r == 5 ? 1 : 0);
+    const int e1 = r < 3 ? e0 : (r == 3 ? 1 : 2);
+    const uint32_t two = mask_of(h == 2), both = mask_of(r >= 3);
+    const int o = h & 1;
+    auto sum = [&](const Fp2* v) {
+      const Fp2 s0 = f2add(v[2 * e0 + o], f2select(two, v[2 * e0 + 1],
+                                                    f2zero()));
+      const Fp2 s1 = f2add(v[2 * e1 + o], f2select(two, v[2 * e1 + 1],
+                                                    f2zero()));
+      return f2add(s0, f2select(both, s1, f2zero()));
+    };
+    pw[j] = mul2(sum(a), sum(b));
+  }
+  const Fp2* P = tm.publish();
+#pragma unroll
+  for (int s = 0; s < kPowSlots; ++s) {
+    const int m = tm.slot * kPowSlots + s;
+    const int kk = m >> 1;
+    const bool odd = m & 1;
+    // c_k = t0_k + (v t1)_k, (v t1) = (XI t1_2, t1_0, t1_1); d_k = t2_k -
+    // t0_k - t1_k; slot 2k is c_k, slot 2k + 1 is d_k
+    const Fp2 t0 = fp6_part(P, kk);
+    const Fp2 t1 = fp6_part(P + 6, odd ? kk : (kk + 2) % 3);
+    const Fp2 t2 = fp6_part(P + 12, kk);
+    const Fp2 c = f2add(t0, f2select(mask_of(kk == 0), f2mul_xi(t1), t1));
+    const Fp2 d = f2sub(f2sub(t2, t0), t1);
+    out[s] = f2select(mask_of(odd), d, c);
+  }
+}
+
+// this lane's slots of Granger-Scott's cyclotomic square of f, f's slots
+// being c across the team (bn256_tower.cuh f12csqr)
+__device__ __forceinline__ void team_f12csqr(PowTeam& tm, Slots& c) {
+  Fp2* w = tm.out();
+#pragma unroll
+  for (int s = 0; s < kPowSlots; ++s) w[tm.slot * kPowSlots + s] = c[s];
+  const Fp2* f = tm.publish();
+  // square j = 3g + r of group g: f_{3+g}^2, f_g^2, (f_{3+g} + f_g)^2 (s0,
+  // s1, then the square of the sum for g = 0; s2, s3 for g = 1; s4, s5
+  // for g = 2); a lane's squares past the ninth are not stored
+  Fp2* sw = tm.out();
+#pragma unroll
+  for (int q = 0; q < kPowSqrs; ++q) {
+    const int j = tm.slot + q * kPowTeam;
+    const int jj = j < 9 ? j : 0;
+    const int g = jj / 3, r = jj % 3;
+    const Fp2 hi = f[3 + g], lo = f[g];
+    const Fp2 x = f2add(f2select(mask_of(r == 1), lo, hi),
+                        f2select(mask_of(r == 2), lo, f2zero()));
+    const Fp2 y = sqr2(x);
+    if (j < 9) sw[j] = y;
+  }
+  const Fp2* S = tm.publish();
+#pragma unroll
+  for (int s = 0; s < kPowSlots; ++s) {
+    const int m = tm.slot * kPowSlots + s;
+    const int kk = m >> 1;
+    const bool odd = m & 1;
+    // even slot 2k: t = XI S[3k] + S[3k + 1], out 3t - 2f; odd slot: group
+    // g = (k + 2) % 3, t = S[3g + 2] - S[3g] - S[3g + 1] (times XI for
+    // slot 1), out 3t + 2f
+    const Fp2 te = f2add(f2mul_xi(S[3 * kk]), S[3 * kk + 1]);
+    const int g = (kk + 2) % 3;
+    Fp2 to = f2sub(f2sub(S[3 * g + 2], S[3 * g]), S[3 * g + 1]);
+    to = f2select(mask_of(m == 1), f2mul_xi(to), to);
+    const Fp2 t = f2select(mask_of(odd), to, te);
+    const Fp2 u = f2select(mask_of(odd), f2add(t, c[s]), f2sub(t, c[s]));
+    c[s] = f2add(f2add(u, u), t);
+  }
+}
+
+__device__ __forceinline__ void team_square(PowTeam& tm, Slots& c, int cyc) {
+  if (cyc) {
+    team_f12csqr(tm, c);
+  } else {
+    Slots r;
+    team_f12mul(tm, r, c, nullptr);
+#pragma unroll
+    for (int s = 0; s < kPowSlots; ++s) c[s] = r[s];
+  }
+}
+
+__global__ void __launch_bounds__(kPowThreads)
+    f12_wpow_kernel(const int32_t* __restrict__ f,
+                    const int32_t* __restrict__ k, int32_t* __restrict__ out,
+                    int n, int n_bits, int cyc) {
+  extern __shared__ __align__(16) unsigned char pow_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int team = lane / kPowTeam;
+  if (team == kPowTeamsPerWarp) return;   // lanes past the last team
+  const int i = (blockIdx.x * kPowWarps + warp) * kPowTeamsPerWarp + team;
+  if (i >= n) return;                     // the whole team leaves
+  const int slot = lane - kPowTeam * team;
+  PowMem& mem = reinterpret_cast<PowMem*>(
+      pow_smem)[warp * kPowTeamsPerWarp + team];
+  PowTeam tm{mem.xch, team_mask<kPowTeam>(kPowTeam * team), slot, 0};
+  const int32_t* ki = k + (size_t)i * NL16;
+  const int32_t* fi = f + (size_t)i * kF12Words;
+  Slots base, c;
+#pragma unroll
+  for (int s = 0; s < kPowSlots; ++s) {
+    const int m = slot * kPowSlots + s;
+    base[s] = load_fp2(fi + m * kFp2Words);
+    mem.tab[0][m] = Fp2{fp_select(mask_of(m == 0), fp_one(), fp_zero()),
+                        fp_zero()};
+    mem.tab[1][m] = base[s];
+  }
 #pragma unroll 1
-    for (int v = 1; v < 8; ++v) {
-      s = f12select(mask_of(d == (uint32_t)v), tab[v], s);
+  for (int d = 2; d < kPowEntries; ++d) {
+    // T[d - 1] is in c (d odd)
+#pragma unroll
+    for (int s = 0; s < kPowSlots; ++s) {
+      if (d % 2 == 0) c[s] = mem.tab[d / 2][slot * kPowSlots + s];
     }
-    return s;
+    if (d % 2 == 0) {
+      team_square(tm, c, cyc);
+    } else {
+      Slots r;
+      team_f12mul(tm, r, c, &base);
+#pragma unroll
+      for (int s = 0; s < kPowSlots; ++s) c[s] = r[s];
+    }
+#pragma unroll
+    for (int s = 0; s < kPowSlots; ++s) mem.tab[d][slot * kPowSlots + s] = c[s];
+  }
+  auto pick = [&](Slots& e, uint32_t dg) {
+#pragma unroll
+    for (int s = 0; s < kPowSlots; ++s) {
+      const int m = slot * kPowSlots + s;
+      e[s] = mem.tab[0][m];
+#pragma unroll 1
+      for (int v = 1; v < kPowEntries; ++v) {
+        e[s] = f2select(mask_of(dg == (uint32_t)v), mem.tab[v][m], e[s]);
+      }
+    }
   };
   const int n_win = (n_bits + 2) / 3;
-  Fp12 acc = pick(window3(ki, n_win - 1));
+  pick(c, window3(ki, n_win - 1));
 #pragma unroll 1
   for (int w = n_win - 2; w >= 0; --w) {
 #pragma unroll 1
-    for (int s = 0; s < 3; ++s) acc = square(acc, cyc);
-    acc = f12mul(acc, pick(window3(ki, w)));
+    for (int s = 0; s < 3; ++s) team_square(tm, c, cyc);
+    Slots e, r;
+    pick(e, window3(ki, w));
+    team_f12mul(tm, r, c, &e);
+#pragma unroll
+    for (int s = 0; s < kPowSlots; ++s) c[s] = r[s];
   }
-  store_fp12(out + (size_t)i * kF12Words, acc);
+#pragma unroll
+  for (int s = 0; s < kPowSlots; ++s) {
+    store_fp2(out + (size_t)i * kF12Words +
+                  (slot * kPowSlots + s) * kFp2Words,
+              c[s]);
+  }
 }
 
 // f^k, LSB-first: acc *= base where bit w of k is set, base squared after
@@ -220,7 +431,14 @@ int f12_slotmul(const int32_t* a, const int32_t* c, int32_t* out, int n,
 
 int f12_wpow(const int32_t* f, const int32_t* k, int32_t* out, int n,
              int n_bits, int cyc, void* stream) {
-  f12_wpow_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  // a warp of 3-lane teams holds 54 KB of tables and exchanges, past the
+  // 48 KB of static shared memory: the kernel asks for it at launch
+  const cudaError_t e = cudaFuncSetAttribute(
+      f12_wpow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kPowSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + kPowRows - 1) / kPowRows;
+  f12_wpow_kernel<<<blocks, kPowThreads, kPowSmem, (cudaStream_t)stream>>>(
       f, k, out, n, n_bits, cyc);
   return (int)cudaGetLastError();
 }

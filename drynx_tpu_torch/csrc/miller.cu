@@ -21,10 +21,9 @@
 // lanes 30 and 31 leave at once), so no team straddles two warps, and a
 // block of four warps runs 20 pairings. Team lanes trade values through
 // two buffers of six Fp2 slots per team in shared memory, written in turn,
-// with __syncwarp on the team's six lanes after each write: a lane reads a
-// buffer only before its next exchange, and a buffer is written again only
-// two exchanges later, after every lane of the team has passed the barrier
-// between. Every lane runs the same instructions on its own operands:
+// with __syncwarp on the team's six lanes after each write (the exchange
+// of team.cuh, shared with the other team kernels). Every lane runs the
+// same instructions on its own operands:
 //   - f^2: lane m computes its slot from four Fp2 products of slots,
 //     c_i c_j with i + j = m (mod 6), the cross terms doubled, XI where
 //     i + j >= 6 (odd slots need three; the fourth is computed and
@@ -50,22 +49,22 @@
 // on canonical residues: any correct way to compute f^2 l or f l gives the
 // same residues, hence the same bytes.
 //
-// What bounds it now: the latency of each lane's chain of ~2,550
-// dependent Montgomery products, ~1.3 us each for a warp alone on its
-// scheduler (one pairing takes 3.4 ms on the H100), against a bound of
+// What bounds it now: the latency of each lane's chain of ~2,550 dependent
+// Montgomery products, ~1.3 us each for a warp alone on its scheduler (one
+// pairing takes 3.4 ms on an H100 80GB HBM3 at 700 W), against a bound of
 // ~10,300 products per pairing in the function (65 x 121 for the double
-// steps, 25 x 96 for the adds) at the card's multiply rate; the team
-// issues ~16,300 per pairing (the fourth square term of the odd slots, the
-// idle lanes of the G2 levels and of each warp). Memory traffic is 1 KB
-// per pairing. ptxas: 255 registers, an 848-byte stack, 460 bytes of spill
-// stores; so 8 warps an SM, and the verifier's 13,500 pairings (2,700
-// warps) run in three rounds. Capping the registers (168 or 128) spills
-// more and is slower, as is inlining mul2 (scripts/torch_team_variants.py).
+// steps, 25 x 96 for the adds) at the card's multiply rate; the team issues
+// ~16,300 per pairing (the fourth square term of the odd slots, the idle
+// lanes of the G2 levels and of each warp). Memory traffic is 1 KB per
+// pairing. ptxas: 255 registers, a 776-byte stack, 232 bytes of spill
+// stores; so 8 warps an SM, and the verifier's 13,500 pairings (2,700 warps)
+// run in three rounds. Capping the registers (168 or 128) spills more and is
+// slower (scripts/torch_team_variants.py), as was inlining mul2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bn256_tower.cuh"
+#include "team.cuh"
 
 using namespace bn256;
 
@@ -124,11 +123,6 @@ __device__ __forceinline__ uint32_t ate_bit(int b) {
   return b >= 64 ? (kAteHi >> (b - 64)) & 1u : (uint32_t)(kAteLo >> b) & 1u;
 }
 
-// Every Fp2 product of the kernel: one body, called
-static __device__ __noinline__ Fp2 mul2(const Fp2& a, const Fp2& b) {
-  return f2mul(a, b);
-}
-
 // The terms of slot m of f^2, one byte each: i | j << 3, then flags
 constexpr uint32_t kXiTerm = 1u << 6;    // times XI (i + j >= 6)
 constexpr uint32_t kTwice = 1u << 7;     // a cross term, doubled
@@ -155,47 +149,15 @@ __device__ __forceinline__ uint32_t sqr_terms(int m) {
   }
 }
 
-// A lane's place in its team and the team's exchange buffers
-struct Team {
-  Fp2 (*buf)[kTeam];   // two buffers of six slots, in shared memory
-  uint32_t mask;       // the team's lanes, for __syncwarp
-  int slot;            // this lane's slot of f and product of a level
-  int next;            // the buffer of the next exchange
-  uint32_t sqr;        // sqr_terms(slot)
-
-  // Leave v in this lane's slot of the next buffer; returns the buffer once
-  // every lane of the team has written its slot.
-  __device__ __forceinline__ const Fp2* exchange(const Fp2& v) {
-    Fp2* b = buf[next];
-    next ^= 1;
-    b[slot] = v;
-    __syncwarp(mask);
-    return b;
-  }
-};
-
-// One level of a formula spread over the team: lane s computes a[s] b[s]
-// (lanes s >= K repeat the first product) and every lane gets all K back.
-template <int K>
-__device__ __forceinline__ const Fp2* team_products(Team& tm,
-                                                    const Fp2 (&a)[K],
-                                                    const Fp2 (&b)[K]) {
-  static_assert(K <= kTeam, "a level has at most one product per lane");
-  Fp2 x = a[0], y = b[0];
-#pragma unroll
-  for (int s = 1; s < K; ++s) {
-    const uint32_t m = mask_of(tm.slot == s);
-    x = f2select(m, a[s], x);
-    y = f2select(m, b[s], y);
-  }
-  return tm.exchange(mul2(x, y));
-}
+// A lane's place in its team: two exchange buffers of six Fp2 slots
+using MillerTeam = Team<Fp2, kTeam, kTeam>;
 
 // T <- 2T and the tangent at T scaled by 2YZ^3: l0 = 2YZ^3 yp,
 // l1 = -3X^2 Z^2 xp, l3 = 3X^3 - 2Y^2; the point double is make_group's
 // dbl-2009-l
-__device__ __forceinline__ void dbl_line(Team& tm, G2& T, const Fp2& xp,
-                                         const Fp2& yp, Line& l) {
+__device__ __forceinline__ void dbl_line(MillerTeam& tm, G2& T,
+                                         const Fp2& xp, const Fp2& yp,
+                                         Line& l) {
   const Fp2* r = team_products<4>(tm, {T.X, T.Y, T.Z, T.Y},
                                   {T.X, T.Y, T.Z, T.Z});
   const Fp2 A = r[0], Bv = r[1], zz = r[2], YZ = r[3];
@@ -223,9 +185,10 @@ __device__ __forceinline__ void dbl_line(Team& tm, G2& T, const Fp2& xp,
 // them, l0 = HZ yp, l1 = -r xp, l3 = r qx - HZ qy, H = qx Z^2 - X,
 // r = qy Z^3 - Y (madd-2007-bl). Returns the mask of a line that is not
 // vertical; T is left as it was elsewhere.
-__device__ __forceinline__ uint32_t add_line(Team& tm, G2& T, const Fp2& qx,
-                                             const Fp2& qy, const Fp2& xp,
-                                             const Fp2& yp, Line& l) {
+__device__ __forceinline__ uint32_t add_line(MillerTeam& tm, G2& T,
+                                             const Fp2& qx, const Fp2& qy,
+                                             const Fp2& xp, const Fp2& yp,
+                                             Line& l) {
   const Fp2 zz = mul2(T.Z, T.Z);
   const Fp2* r = team_products<2>(tm, {qx, T.Z}, {zz, zz});
   const Fp2 Hm = f2sub(r[0], T.X);
@@ -254,13 +217,14 @@ __device__ __forceinline__ uint32_t add_line(Team& tm, G2& T, const Fp2& qx,
 }
 
 // This lane's slot of f^2, f's slots being c across the team
-__device__ __forceinline__ Fp2 sqr_slot(Team& tm, const Fp2& c) {
+__device__ __forceinline__ Fp2 sqr_slot(MillerTeam& tm, uint32_t sqr,
+                                        const Fp2& c) {
   const Fp2* f = tm.exchange(c);
   const Fp2 zero{fp_zero(), fp_zero()};
   Fp2 single = zero, cross = zero;
 #pragma unroll 1
   for (int k = 0; k < 4; ++k) {
-    const uint32_t t = (tm.sqr >> (8 * k)) & 0xFFu;
+    const uint32_t t = (sqr >> (8 * k)) & 0xFFu;
     Fp2 p = mul2(f[t & 7u], f[(t >> 3) & 7u]);
     p = f2select(mask_of(t & kXiTerm), f2mul_xi(p), p);
     const uint32_t used = mask_of(t != kUnused);
@@ -272,7 +236,7 @@ __device__ __forceinline__ Fp2 sqr_slot(Team& tm, const Fp2& c) {
 }
 
 // This lane's slot of f * (l0 + l1 w + l3 w^3), f's slots being c
-__device__ __forceinline__ Fp2 line_slot(Team& tm, const Fp2& c,
+__device__ __forceinline__ Fp2 line_slot(MillerTeam& tm, const Fp2& c,
                                          const Line& l) {
   const Fp2* f = tm.exchange(c);
   const int m = tm.slot;
@@ -296,8 +260,9 @@ __global__ void __launch_bounds__(kThreads)
   const int i = (blockIdx.x * kWarps + warp) * kTeamsPerWarp + team;
   if (i >= n) return;                  // the whole team leaves
   const int slot = lane - kTeam * team;
-  Team tm{xch[warp * kTeamsPerWarp + team], 0x3Fu << (kTeam * team), slot, 0,
-          sqr_terms(slot)};
+  MillerTeam tm{xch[warp * kTeamsPerWarp + team],
+                team_mask<kTeam>(kTeam * team), slot, 0};
+  const uint32_t sqr = sqr_terms(slot);
   const int32_t* pi = p + (size_t)i * 2 * NL16;
   const int32_t* qi = q + (size_t)i * 2 * kFp2Words;
   const Fp2 xp{load_fp_v(pi), fp_zero()};
@@ -308,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 1
   for (int b = kAteTop; b >= 0; --b) {
     dbl_line(tm, T, xp, yp, l);
-    c = line_slot(tm, sqr_slot(tm, c), l);
+    c = line_slot(tm, sqr_slot(tm, sqr, c), l);
     if (ate_bit(b)) {
       const uint32_t keep = add_line(tm, T, load_fp2(qi),
                                      load_fp2(qi + kFp2Words), xp, yp, l);

@@ -1,22 +1,42 @@
 #!/usr/bin/env python3
-"""Time versions of the port's two team kernels side by side on one card.
+"""Time versions of the port's team kernels side by side on one card.
 
     python3 scripts/torch_team_variants.py
 
-Each variant is the package's csrc/miller.cu or csrc/g1_ops.cu with one
-line changed by an exact text edit: the fixed-base team size
-kFixedBaseTeam (16, 32, 64), or, for the Miller loop, its Fp2 product
-inlined, two warps a block, or its registers capped. `cuda_build` builds
-them all at once with the package's flags. Every variant is checked
-against the package's plain versions before it is timed: the Miller loop
-byte for byte against `miller_plain`, the fixed-base ladder as points
-(another team size sums in another order, so its Jacobian representative
-differs). Times are CUDA-event means at the main path's shapes: the Miller
-loop at 13,500 pairings, the fixed-base ladder at W = 64 with 900 and 270
-rows and at W = 16 with 900 rows. Prints one JSON line per variant with
-its ptxas registers, stack and spills, then the card's name and power
-limit. The package keeps one kernel per function; PERF.md records the
-readings and the choice.
+Each variant is one of the package's sources with one line changed by an
+exact text edit: the fixed-base team size kFixedBaseTeam (16, 32, 64) in
+csrc/g1_ops.cu; for the Miller loop (csrc/miller.cu) two warps a block or
+its registers capped; the variable-base ladder's team size kLadderTeam (4,
+6, 8) in csrc/g1_ops.cu; the windowed GT power's team size kPowTeam (6
+lanes with one Fp2 slot each, or 3 with two) in csrc/gt_ops.cu.
+`cuda_build` builds them all at once with the package's flags. Every
+variant is checked against the package's plain versions before it is
+timed: the Miller loop, the variable-base ladder and the power byte for
+byte against `miller_plain`, `scalar_mul_plain` and `f12_wpow_plain`, the
+fixed-base ladder as points (another team size sums in another order, so
+its Jacobian representative differs). Times are CUDA-event means at the
+main path's shapes: the Miller loop at 13,500 pairings; the fixed-base
+ladder at W = 64 with 900 and 270 rows and at W = 16 with 900 rows; the
+variable-base ladder at W = 64 with 90, 270 and 2,700 rows and at W = 16
+with 13,500; the power with cyclotomic squares at 63 bits on 1 row (the
+final exponentiation's power by u) and at 63 and 128 bits on 13,500.
+Prints one JSON line per variant with its ptxas registers, stack and
+spills, then the card's name and power limit. The package keeps one kernel
+per function; PERF.md records the readings and the choice.
+
+    python3 scripts/torch_team_variants.py --against OTHER_ROOT
+
+times this checkout's variable-base ladder and windowed GT power against
+another checkout's instead (for instance a parent commit unpacked with
+`git archive` under build/, which .gitignore lists). Each tree runs in a
+process of its own (the two packages share a name), in the order this,
+other, other, this; each builds its kernels with its own `cuda_build`,
+makes the same inputs from one seed, checks its kernels against its plain
+versions on the first rows and times the main path's shapes: the ladder
+at W = 64 on 90, 270, 900, 1,080 and 2,700 rows and at W = 16 on 13,500,
+the power at 63 bits on 1 row and at 63 and 128 bits on 13,500. Prints one
+JSON line per run with each shape's time and a digest of each output (the
+two trees must agree), then the card's name and power limit.
 
 It imports nothing of JAX and nothing of the drynx_tpu package. Without a
 card it exits with code 2.
@@ -35,23 +55,31 @@ sys.path.insert(0, str(ROOT))
 REPS = 20
 MILLER_N = 13_500
 TEAM = "constexpr int kFixedBaseTeam = 32;"
+LADDER_TEAM = "constexpr int kLadderTeam = 4;"
+POW_TEAM = "constexpr int kPowTeam = 6;"
 FIXED_BASE_SHAPES = (("W=64 N=900", 900, 64), ("W=64 N=270", 270, 64),
                      ("W=16 N=900", 900, 16))
+LADDER_SHAPES = (("W=64 N=90", 90, 64), ("W=64 N=270", 270, 64),
+                 ("W=64 N=2700", 2700, 64), ("W=16 N=13500", 13_500, 16))
+POW_SHAPES = (("63 bits N=1", 1, 63), ("63 bits N=13500", 13_500, 63),
+              ("128 bits N=13500", 13_500, 128))
 
-# (label, source, (old, new) edit or None)
+# (label, kind, source, (old, new) edit or None)
 VARIANTS = [
-    ("miller", "miller", None),
-    ("miller, mul2 inlined", "miller",
-     ("static __device__ __noinline__ Fp2 mul2",
-      "static __device__ __forceinline__ Fp2 mul2")),
-    ("miller, 2 warps a block", "miller",
+    ("miller", "miller", "miller", None),
+    ("miller, 2 warps a block", "miller", "miller",
      ("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")),
-    ("miller, at most 168 registers", "miller",
+    ("miller, at most 168 registers", "miller", "miller",
      ("__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 3)")),
-    ("miller, at most 128 registers", "miller",
+    ("miller, at most 128 registers", "miller", "miller",
      ("__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 4)")),
-] + [(f"fixed_base G={g}", "g1_ops",
-      (TEAM, f"constexpr int kFixedBaseTeam = {g};")) for g in (16, 32, 64)]
+] + [(f"fixed_base G={g}", "fixed_base", "g1_ops",
+      (TEAM, f"constexpr int kFixedBaseTeam = {g};")) for g in (16, 32, 64)
+     ] + [(f"scalar_mul lanes={g}", "ladder", "g1_ops",
+           (LADDER_TEAM, f"constexpr int kLadderTeam = {g};"))
+          for g in (4, 6, 8)
+     ] + [(f"f12_wpow lanes={g}", "wpow", "gt_ops",
+           (POW_TEAM, f"constexpr int kPowTeam = {g};")) for g in (6, 3)]
 
 
 def edited(source, edit, cuda_build):
@@ -77,10 +105,96 @@ def timed(fn):
     return a.elapsed_time(b) / REPS
 
 
+CHECK_ROWS = 32
+TREE_LADDER = ((64, 90), (64, 270), (64, 900), (64, 1080), (64, 2700),
+               (16, 13_500))
+TREE_POWER = ((63, 1), (63, 13_500), (128, 13_500))
+
+
+def time_tree(root):
+    """Time the ladder and the power of the package under `root` (a
+    process of its own); prints one JSON line."""
+    import hashlib
+    sys.path.insert(0, str(root))
+    from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
+    from drynx_tpu_torch.crypto import curve as C
+    from drynx_tpu_torch.crypto import field as F
+    from drynx_tpu_torch.crypto import fp12 as F12
+    from drynx_tpu_torch.crypto import params, refimpl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    pts = C.from_ref_batch([refimpl.g1_mul(refimpl.G1, 3 + j)
+                            for j in range(90)]).to(dev)
+    gtb = refimpl.pair(refimpl.G1, refimpl.G2)
+    vals, cur = [], gtb
+    for _ in range(90):
+        cur = refimpl.fp12_mul(cur, gtb)
+        vals.append(cur)
+    gts = F12.from_ref_batch(vals).to(dev)
+    rows = lambda t, n: t.repeat((n + len(t) - 1) // len(t),
+                                 *[1] * (t.dim() - 1))[:n].contiguous()
+    scalars = lambda n, bits: F.from_int(
+        [int.from_bytes(rng.bytes(32), "little") % min(params.N, 1 << bits)
+         for _ in range(n)]).to(dev)
+    shapes = [(f"scalar_mul W={w} N={n}", rows(pts, n), scalars(n, 4 * w),
+               w, cuda_ops.scalar_mul_flat, cuda_ops.scalar_mul_plain)
+              for w, n in TREE_LADDER]
+    shapes += [(f"f12_wpow {b} bits N={n}", rows(gts, n), scalars(n, b), b,
+                lambda f, k, b: cuda_pairing.f12_wpow_flat(f, k, b, True),
+                lambda f, k, b: cuda_pairing.f12_wpow_plain(f, k, b, True))
+               for b, n in TREE_POWER]
+    out = {"tree": str(root)}
+    for label, x, k, arg, kern, plain in shapes:
+        got = kern(x, k, arg)
+        torch.cuda.synchronize()
+        c = min(CHECK_ROWS, len(k))
+        if not torch.equal(got[:c], plain(x[:c], k[:c], arg)):
+            raise SystemExit(f"{root}: {label} differs from its plain "
+                             "version")
+        out[label] = {"ms": timed(lambda: kern(x, k, arg)),
+                      "sha": hashlib.sha256(got.cpu().numpy().tobytes())
+                      .hexdigest()[:16]}
+    print(json.dumps(out), flush=True)
+
+
+def against(other):
+    """This tree's ladder and power against `other`'s, in turn this,
+    other, other, this; the trees' outputs must agree."""
+    if not (other / "drynx_tpu_torch").is_dir():
+        raise SystemExit(f"{other} holds no drynx_tpu_torch package")
+    lines = []
+    for root in (ROOT, other, other, ROOT):
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--tree",
+             str(root)], cwd=root, capture_output=True, text=True,
+            timeout=1500)
+        if res.returncode != 0:
+            raise SystemExit(f"{root}: exit {res.returncode}\n"
+                             f"{res.stdout}\n{res.stderr}")
+        line = res.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        lines.append({k: v["sha"] for k, v in json.loads(line).items()
+                      if k != "tree"})
+    if any(d != lines[0] for d in lines):
+        raise SystemExit("the two trees' outputs differ")
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tree"]:
+        time_tree(Path(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--against"]:
+        against(Path(sys.argv[2]).resolve())
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip())
+        return 0
     from chip_smoke import ptxas_summary
     from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
     from drynx_tpu_torch.crypto import curve as C
@@ -97,7 +211,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     libs = cuda_build.build_copies(
         [(source, edited(source, edit, cuda_build))
-         for _, source, edit in VARIANTS])
+         for _, _, source, edit in VARIANTS])
 
     rng = np.random.default_rng(11)
     rand = lambda n, bits: F.from_int(
@@ -105,8 +219,8 @@ def main():
          for _ in range(n)]).to(dev)
     base = eg.BASE_TABLE.table.to(dev)
     # Miller inputs: affine multiples of the generators, made on the card
-    px, py, _ = C.normalize(cuda_ops.fixed_base_mul_flat(
-        base, rand(MILLER_N, 256)))
+    pts = cuda_ops.fixed_base_mul_flat(base, rand(MILLER_N, 256))
+    px, py, _ = C.normalize(pts)
     g2_gen = G2.from_ref(refimpl.G2).to(dev).expand(
         MILLER_N, 3, 2, 16).contiguous()
     qx, qy, _ = G2.normalize(cuda_pairing.g2_scalar_mul_flat(
@@ -120,11 +234,32 @@ def main():
         k = rand(n, 4 * w)
         want = C.normalize(cuda_ops.fixed_base_mul_plain(base, k, w))
         fixed.append((label, k, w, want))
+    # the ladder on Jacobian multiples of B; the power on pairing values
+    # (GPhi12 members)
+    ladder = []
+    for label, n, w in LADDER_SHAPES:
+        k = rand(n, 4 * w)
+        ladder.append((label, pts[:n], k, w,
+                       cuda_ops.scalar_mul_plain(pts[:n], k, w)))
+    gts = cuda_pairing.final_exp_flat(cuda_pairing.miller_flat(px, py, qx,
+                                                               qy))
+    power = []
+    for label, n, bits in POW_SHAPES:
+        k = rand(n, bits)
+        power.append((label, gts[:n], k, bits,
+                      cuda_pairing.f12_wpow_plain(gts[:n], k, bits, True)))
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
-    for (name, source, _), (lib, log) in zip(VARIANTS, libs):
+    def held(name, label, got, want, same):
+        if not same(got, want):
+            raise SystemExit(f"{name} {label}: differs from the plain "
+                             "version")
+
+    points = lambda a, b: all(torch.equal(x, y)
+                              for x, y in zip(C.normalize(a), b))
+    for (name, kind, _, _), (lib, log) in zip(VARIANTS, libs):
         row = {"variant": name}
-        if source == "miller":
+        if kind == "miller":
             row["ptxas"] = ptxas_summary(log, "miller_kernel")
             out = torch.empty((MILLER_N, 6, 2, 16), dtype=torch.int32,
                               device=dev)
@@ -133,10 +268,9 @@ def main():
                            MILLER_N, stream()), name)
             run()
             torch.cuda.synchronize()
-            if not torch.equal(out[:1000], miller_want):
-                raise SystemExit(f"{name}: differs from miller_plain")
+            held(name, "", out[:1000], miller_want, torch.equal)
             row["ms N=13500"] = timed(run)
-        else:
+        elif kind == "fixed_base":
             row["ptxas"] = ptxas_summary(log, "fixed_base_mul_kernel")
             for label, k, w, want in fixed:
                 out = torch.empty((len(k), 3, 16), dtype=torch.int32,
@@ -147,10 +281,30 @@ def main():
                                           stream()), name)
                 run()
                 torch.cuda.synchronize()
-                got = C.normalize(out)
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise SystemExit(f"{name} {label}: another point than "
-                                     "the plain version's")
+                held(name, label, out, want, points)
+                row[f"ms {label}"] = timed(run)
+        elif kind == "ladder":
+            row["ptxas"] = ptxas_summary(log, "scalar_mul_kernel")
+            for label, p, k, w, want in ladder:
+                out = torch.empty_like(want)
+                run = lambda p=p, k=k, w=w, out=out: cuda_build.check(
+                    lib.g1_scalar_mul(p.data_ptr(), k.data_ptr(),
+                                      out.data_ptr(), len(k), w, stream()),
+                    name)
+                run()
+                torch.cuda.synchronize()
+                held(name, label, out, want, torch.equal)
+                row[f"ms {label}"] = timed(run)
+        else:
+            row["ptxas"] = ptxas_summary(log, "f12_wpow_kernel")
+            for label, f, k, bits, want in power:
+                out = torch.empty_like(want)
+                run = lambda f=f, k=k, bits=bits, out=out: cuda_build.check(
+                    lib.f12_wpow(f.data_ptr(), k.data_ptr(), out.data_ptr(),
+                                 len(k), bits, 1, stream()), name)
+                run()
+                torch.cuda.synchronize()
+                held(name, label, out, want, torch.equal)
                 row[f"ms {label}"] = timed(run)
         print(json.dumps(row), flush=True)
     print(card)

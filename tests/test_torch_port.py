@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import crafted_fixed_base_cases
+from chip_smoke import (WPOW_BITS, crafted_fixed_base_cases,
+                        crafted_ladder_cases, crafted_wpow_cases)
 from drynx_tpu_torch import flagship
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
@@ -394,6 +395,60 @@ def test_miller_team_kernel_equals_plain_version(cuda, n):
     got = cuda_pairing.miller_flat(*pq)
     torch.cuda.synchronize()
     assert torch.equal(got, cuda_pairing.miller_plain(*pq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_windows", [1, 2, 16, 64])
+def test_ladder_team_kernel_on_crafted_cases(cuda, n_windows):
+    """The variable-base team kernel on the crafted scalars (every branch
+    of the complete add at W = 64) and the point at infinity."""
+    pts, k = crafted_ladder_cases(C, F, refimpl, cuda)
+    got = cuda_ops.scalar_mul_flat(pts, k, n_windows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_ops.scalar_mul_plain(pts, k, n_windows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, n_windows", [
+    (1, 64), (5, 64), (21, 64), (90, 64), (270, 64), (900, 64), (1080, 64),
+    (2700, 64), (13500, 16)])
+def test_ladder_team_kernel_at_main_path_shapes(cuda, n, n_windows):
+    """The main path's shapes (decryption, key switch and its proof, the D
+    equation, the key-switch check, c y, the RLC weighting at 16 windows)
+    and partly filled last blocks."""
+    pts, _ = _operands(130, cuda)
+    p = pts.repeat((n + 129) // 130, 1, 1)[:n].contiguous()
+    k = _fixed_base_scalars(n, n_windows, cuda)
+    got = cuda_ops.scalar_mul_flat(p, k, n_windows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_ops.scalar_mul_plain(p, k, n_windows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits", WPOW_BITS)
+def test_wpow_team_kernel_on_crafted_cases(cuda, n_bits):
+    """The windowed-power team kernel on GPhi12 members and a non-member,
+    with and without cyc, on exponents whose windows straddle limbs."""
+    f, k = crafted_wpow_cases(F, F12, params, refimpl, cuda)
+    for cyc in (True, False):
+        got = cuda_pairing.f12_wpow_flat(f, k, n_bits, cyc=cyc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_pairing.f12_wpow_plain(f, k, n_bits,
+                                                            cyc)), cyc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, n_bits", [(1, 63), (5, 63), (21, 63),
+                                       (13500, 63), (13500, 128)])
+def test_wpow_team_kernel_at_main_path_shapes(cuda, n, n_bits):
+    """The final exponentiation's power by u (N = 1), a^r and the order
+    gate (N = 13,500) and partly filled last blocks, on GPhi12 members."""
+    gts = _gt_operands(160, cuda)
+    f = gts.repeat((n + 159) // 160, 1, 1, 1)[:n].contiguous()
+    k = _fixed_base_scalars(n, (n_bits + 3) // 4, cuda)
+    got = cuda_pairing.f12_wpow_flat(f, k, n_bits, cyc=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f12_wpow_plain(f, k, n_bits, True))
 
 
 @pytest.mark.gpu
