@@ -10,15 +10,16 @@ Phases (any failed check exits non-zero; nothing is caught):
   2. Run each kernel at the shapes of the main path on the card and hold
      its output against its plain PyTorch version on the same inputs, byte
      for byte; time both with CUDA events; print each kernel's ptxas
-     registers, stack and spills. The four team kernels also run at more
+     registers, stack and spills. The six team kernels also run at more
      shapes (the fixed-base ladder at W in {1, 16, 17, 64} x N in {1, 90,
      270, 900} and on crafted tables, the Miller loop at N = 1 and 1,000,
      the variable-base ladder on crafted scalars at W in {1, 2, 16, 64}
-     and at N in {1, 5, 21}, the windowed GT power on crafted values and
-     exponents at n_bits in {1, 2, 3, 4, 63, 64, 128, 256} with and
-     without cyc and at N in {1, 5, 21}), and the 8-way product at the
-     joint check's fold shapes, checked and timed the same way but left
-     out of the JSON line's sums.
+     and at N in {1, 5, 21}, the G2 ladder on crafted scalars and at N in
+     {1, 5, 21}, the windowed GT power on crafted values and exponents at
+     n_bits in {1, 2, 3, 4, 63, 64, 128, 256} with and without cyc and at
+     N in {1, 5, 21}, the 8-way product at the joint check's fold shapes
+     and at N in {5, 21}), checked and timed the same way but left out of
+     the JSON line's sums.
   3. Run the flagship encrypted logistic-regression survey at the full
      Pima width (10 DPs x 768 records, d=8, K=2, 450 GD steps, 3 servers,
      discrete-log table of +-10000): with every launch count set to 0 just
@@ -177,26 +178,36 @@ def mm_fixed_base(k, n_windows):
     return float((nonzero - 1).clamp(min=0).sum()) * MM_G1_MADD / k.shape[0]
 
 
-def mm_scalar_mul(k, n_windows):
-    """Montgomery products per row, averaged over the rows, of the
+def _mm_ladder(k, n_windows, mm_dbl, mm_add):
+    """Montgomery products per row, averaged over the rows, of a
     variable-base ladder for this run's scalars k: the table d*P (7
     doubles and 7 adds), then, below the highest non-zero digit, 4 doubles
-    a window and an add for each non-zero digit. The kernel doubles from
-    the top window and adds at every digit, infinity or not."""
+    a window and an add for each non-zero digit. The kernels double from
+    the top window and add at every digit, infinity or not."""
     nonzero = _digits(k, n_windows) != 0
     top = torch.where(nonzero, torch.arange(n_windows, device=k.device),
                       -1).amax(1)
     rows = top >= 0
-    work = (4 * top[rows] * MM_G1_DBL
-            + (nonzero[rows].sum(1) - 1) * MM_G1_ADD)
-    return 7 * (MM_G1_DBL + MM_G1_ADD) + float(work.sum()) / k.shape[0]
+    work = (4 * top[rows] * mm_dbl + (nonzero[rows].sum(1) - 1) * mm_add)
+    return 7 * (mm_dbl + mm_add) + float(work.sum()) / k.shape[0]
+
+
+def mm_scalar_mul(k, n_windows):
+    """The G1 ladder's products per row for this run's scalars k."""
+    return _mm_ladder(k, n_windows, MM_G1_DBL, MM_G1_ADD)
 
 
 # G2 over Fp2 (3 products per Fp2 product, 2 per square): a double is
-# 5 squares + 2 products = 16, a complete add 5 squares + 11 products + a
-# double = 59; the ladder builds 7 doubles and 7 adds, then 63 windows of
-# 4 doubles and an add
-MM_G2_LADDER = 7 * 16 + 7 * 59 + 63 * (4 * 16 + 59)
+# 5 squares + 2 products = 16, an add (add-2007-bl) 5 squares + 11
+# products = 43; as for G1, the complete add's masked double is not counted
+MM_G2_DBL, MM_G2_ADD = 16, 43
+
+
+def mm_g2_ladder(k):
+    """The G2 ladder's products per row (64 windows) for this run's
+    scalars k."""
+    return _mm_ladder(k, 64, MM_G2_DBL, MM_G2_ADD)
+
 MM_F2_INV = 2 + 255 + 124 + 2   # norm, Fermat over p - 2, two products
 MM_F12_MUL = 18 * 3             # 18 Fp2 products
 MM_F12_SQR = 12 * 3             # complex method: 12 Fp2 products
@@ -312,6 +323,18 @@ def crafted_ladder_cases(C, F, refimpl, device):
     ks = crafted_ladder_scalars(refimpl.N) + [5]
     pts = [refimpl.g1_mul(refimpl.G1, 3 + j) for j in range(len(ks) - 1)]
     return (C.from_ref_batch(pts + [None]).to(device),
+            F.from_int(ks).to(device))
+
+
+def crafted_g2_ladder_cases(G2, F, refimpl, device):
+    """(points, scalars) for the G2 ladder: the crafted scalars of
+    crafted_ladder_scalars on multiples of the twist's generator, then the
+    point at infinity with 5. Their ladders meet every branch of the
+    complete add, as on G1 (tests/test_torch_team_kernels.py checks that
+    they do). G2, F, refimpl: the port's g2, field and refimpl modules."""
+    ks = crafted_ladder_scalars(refimpl.N) + [5]
+    pts = [refimpl.g2_mul(refimpl.G2, 3 + j) for j in range(len(ks) - 1)]
+    return (torch.stack([G2.from_ref(q) for q in pts + [None]]).to(device),
             F.from_int(ks).to(device))
 
 
@@ -790,7 +813,7 @@ def main():
             (f"N={n_proofs} (V = v A[digit])",
              lambda: cuda_pairing.g2_scalar_mul_flat(g2_p, g2_k),
              lambda: cuda_pairing.g2_scalar_mul_plain(g2_p, g2_k),
-             MM_G2_LADDER, n_proofs, 2 * nbytes(g2_p) + nbytes(g2_k)),
+             mm_g2_ladder(g2_k), n_proofs, 2 * nbytes(g2_p) + nbytes(g2_k)),
         ],
         "f12_mul": [
             (f"N={n_proofs} (a = gt1 gt2)",
@@ -859,13 +882,14 @@ def main():
             for n in (48, 256)
         ],
     }
-    # the four team kernels at more shapes than the main path's and on
-    # crafted inputs, and the 8-way product at the joint check's small
-    # shapes: checked and timed like the rows above, not summed.
+    # the six team kernels at more shapes than the main path's and on
+    # crafted inputs (the 8-way product at the joint check's small
+    # shapes): checked and timed like the rows above, not summed.
     # The crafted sums repeat one point, which doubles compute in far fewer
     # products than adds of distinct points: their bound counts only bytes
     rng_x = np.random.default_rng(PROOF_SEED + 2)
     ladder_crafted = crafted_ladder_cases(C, F, refimpl, dev)
+    g2_crafted = crafted_g2_ladder_cases(G2, F, refimpl, dev)
     wpow_crafted = crafted_wpow_cases(F, F12, bn256, refimpl, dev)
 
     def scalars(n, n_windows):
@@ -902,6 +926,21 @@ def main():
              mm_scalar_mul(k, 64), n, n * (192 + 64 + 192))
             for n in (1, 5, 21) for k in [scalars(n, 64)]
         ],
+        "g2_scalar_mul": [
+            ("crafted", lambda: cuda_pairing.g2_scalar_mul_flat(*g2_crafted),
+             lambda: cuda_pairing.g2_scalar_mul_plain(*g2_crafted),
+             mm_g2_ladder(g2_crafted[1]), len(g2_crafted[1]),
+             2 * nbytes(g2_crafted[0]) + nbytes(g2_crafted[1]))
+        ] + [
+            (f"N={n} (a partly filled block)",
+             (lambda n=n: cuda_pairing.g2_scalar_mul_flat(g2_p[:n],
+                                                          g2_k[:n])),
+             (lambda n=n: cuda_pairing.g2_scalar_mul_plain(g2_p[:n],
+                                                           g2_k[:n])),
+             mm_g2_ladder(g2_k[:n]), n,
+             2 * nbytes(g2_p[:n]) + nbytes(g2_k[:n]))
+            for n in (1, 5, 21)
+        ],
         "f12_wpow": [
             (f"crafted {nb} bits cyc={cyc}",
              (lambda nb=nb, cyc=cyc: cuda_pairing.f12_wpow_flat(
@@ -921,13 +960,14 @@ def main():
             for n in (1, 5, 21)
         ],
         # the joint check's folds (five passes each over 13,500 values
-        # padded to 8^5) and its gtB^S (two passes on one power)
+        # padded to 8^5) and its gtB^S (two passes on one power), and
+        # partly filled blocks (21, 5)
         "f12_mulreduce8": [
             (f"N={n} (joint check fold or gtB^S pass)",
              (lambda n=n: cuda_pairing.f12_mulreduce8_flat(g_multi[:n])),
              (lambda n=n: cuda_pairing.f12_mulreduce8_plain(g_multi[:n])),
              7 * MM_F12_MUL, n, nbytes(g_multi[:n]) * 9 // 8)
-            for n in (4096, 512, 64, 8, 1)
+            for n in (4096, 512, 64, 21, 8, 5, 1)
         ],
         "miller": [
             (f"N={n}",

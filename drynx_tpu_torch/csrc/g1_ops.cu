@@ -19,7 +19,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "team.cuh"
+#include "team_ladder.cuh"
 
 using namespace bn256;
 
@@ -107,30 +107,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Kernel 2 (pallas_ops._scalar_mul_kernel): variable-base k*P, 4-bit
-// windows MSB-first over the table T[d] = d*P (T[2j] = 2T[j], T[2j+1] =
-// T[2j] + P): 4 doublings, then a complete add of the entry the digit
-// names.
+// windows MSB-first over the table T[d] = d*P: 4 doublings, then a complete
+// add of the entry the digit names.
 //
-// The windows depend on each other, so a team of kLadderTeam lanes works
-// on one row by splitting each group-law step: the independent Montgomery
-// products of a formula level are spread over the lanes (team.cuh's
-// team_products) and every lane reads them all back, so every lane holds
-// the same point, H, r and select masks with no further exchange. The
-// double (dbl-2009-l) is 3 levels of 3, 3 and 1 products (the last one
-// each lane computes itself); the complete add (add-2007-bl) runs the
-// double it may select beside its first three levels:
-//   1. Z1^2, Z2^2, X1^2, Y1^2
-//   2. U1 = X1 Z2^2, U2 = X2 Z1^2, Z2 Z2^2, Z1 Z1^2, (Z1 + Z2)^2, B^2,
-//      (X1 + B)^2, E^2
-//   3. S1, S2, I = (2H)^2, ZZ H, E (D - X3'), Y1 Z1
-//   4. J = H I, V = U1 I, r^2
-//   5. S1 J, r (V - X3)
-// and then takes the reference's selects in its order (P = Q, P = -Q,
-// either operand at infinity; bn256_g1.cuh padd). The formulas are padd's
-// and pdouble's on canonical residues, so the kernel's Jacobian limbs equal
-// the plain version's byte for byte. The digits are secret: the table (1.5
-// KB a row) sits in shared memory, and each window's entry is chosen by
-// reading all 16 entries under masks, never by an indexed load.
+// A team of kLadderTeam lanes computes one row, its group law spread level
+// by level over the lanes: team_ladder.cuh, one body with the G2 ladder of
+// g2_ops.cu. The table (1.5 KB a row) sits in shared memory.
 //
 // What bounds it: the chain of dependent products. With 4 lanes a window
 // is 4 x 3 + 7 = 19 products of chain against 51 for one thread (4
@@ -145,99 +127,14 @@ constexpr int kLadderTeamsPerWarp = 32 / kLadderTeam;
 constexpr int kLadderWarps = 2;
 constexpr int kLadderThreads = 32 * kLadderWarps;
 constexpr int kLadderRows = kLadderWarps * kLadderTeamsPerWarp;
-constexpr int kLadderWidth = 8;   // the most products in one level
 
 using LadderTeam = Team<Fp, kLadderTeam, kLadderWidth>;
-
-struct LadderMem {
-  Fp xch[2][kLadderWidth];
-  G1 tab[kWindowEntries];
-};
-
-__device__ __forceinline__ Fp times8(const Fp& c) {
-  const Fp c2 = fadd(c, c);
-  const Fp c4 = fadd(c2, c2);
-  return fadd(c4, c4);
-}
-
-// 2P (pdouble)
-__device__ __forceinline__ G1 team_double(LadderTeam& tm, const G1& p) {
-  const Fp* r = team_products<3>(tm, {p.X, p.Y, p.Y}, {p.X, p.Y, p.Z});
-  const Fp A = r[0], B = r[1], YZ = r[2];
-  const Fp E = fadd(fadd(A, A), A);
-  const Fp XB = fadd(p.X, B);
-  r = team_products<3>(tm, {B, XB, E}, {B, XB, E});
-  const Fp C = r[0];
-  const Fp t = fsub(r[1], fadd(A, C));
-  const Fp D = fadd(t, t);
-  G1 q;
-  q.X = fsub(r[2], fadd(D, D));
-  q.Y = fsub(mont_mul(E, fsub(D, q.X)), times8(C));
-  q.Z = fadd(YZ, YZ);
-  return q;
-}
-
-// P + Q, complete (padd)
-__device__ __forceinline__ G1 team_add(LadderTeam& tm, const G1& p,
-                                       const G1& q) {
-  const Fp* r = team_products<4>(tm, {p.Z, q.Z, p.X, p.Y},
-                                 {p.Z, q.Z, p.X, p.Y});
-  const Fp Z1Z1 = r[0], Z2Z2 = r[1], A = r[2], B = r[3];
-  const Fp E = fadd(fadd(A, A), A);
-  const Fp XB = fadd(p.X, B);
-  const Fp t1 = fadd(p.Z, q.Z);
-  r = team_products<8>(tm, {p.X, q.X, q.Z, p.Z, t1, B, XB, E},
-                       {Z2Z2, Z1Z1, Z2Z2, Z1Z1, t1, B, XB, E});
-  const Fp U1 = r[0], U2 = r[1], Z2c = r[2], Z1c = r[3];
-  const Fp ZZ = fsub(fsub(r[4], Z1Z1), Z2Z2);
-  const Fp C = r[5];
-  const Fp t = fsub(r[6], fadd(A, C));
-  const Fp D = fadd(t, t);
-  G1 dbl;
-  dbl.X = fsub(r[7], fadd(D, D));
-  const Fp H = fsub(U2, U1);
-  const Fp HH = fadd(H, H);
-  r = team_products<6>(tm, {p.Y, q.Y, HH, ZZ, E, p.Y},
-                       {Z2c, Z1c, HH, H, fsub(D, dbl.X), p.Z});
-  const Fp S1 = r[0], S2 = r[1], I = r[2];
-  G1 res;
-  res.Z = r[3];
-  dbl.Y = fsub(r[4], times8(C));
-  dbl.Z = fadd(r[5], r[5]);
-  Fp rr = fsub(S2, S1);
-  rr = fadd(rr, rr);
-  r = team_products<3>(tm, {H, U1, rr}, {I, I, rr});
-  const Fp J = r[0], V = r[1];
-  res.X = fsub(fsub(r[2], J), fadd(V, V));
-  r = team_products<2>(tm, {S1, rr}, {J, fsub(V, res.X)});
-  res.Y = fsub(r[1], fadd(r[0], r[0]));
-
-  const bool p_inf = fis_zero(p.Z);
-  const bool q_inf = fis_zero(q.Z);
-  const bool h0 = fis_zero(H);
-  const bool r0 = fis_zero(rr);
-  res = g1_select(mask_of(h0 && r0 && !p_inf && !q_inf), dbl, res);
-  res = g1_select(mask_of(h0 && !r0 && !p_inf && !q_inf), g1_inf(), res);
-  res = g1_select(mask_of(q_inf), p, res);
-  res = g1_select(mask_of(p_inf), q, res);
-  return res;
-}
-
-// the entry the digit d names, all 16 read under masks
-__device__ __forceinline__ G1 ladder_pick(const G1* tab, uint32_t d) {
-  G1 s = tab[0];
-#pragma unroll 1
-  for (int v = 1; v < kWindowEntries; ++v) {
-    s = g1_select(mask_of(d == (uint32_t)v), tab[v], s);
-  }
-  return s;
-}
 
 __global__ void __launch_bounds__(kLadderThreads)
     scalar_mul_kernel(const int32_t* __restrict__ p,
                       const int32_t* __restrict__ k,
                       int32_t* __restrict__ out, int n, int n_windows) {
-  __shared__ LadderMem mem[kLadderRows];
+  __shared__ LadderMem<Fp, G1> mem[kLadderRows];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int team = lane / kLadderTeam;
@@ -246,32 +143,11 @@ __global__ void __launch_bounds__(kLadderThreads)
                 team;
   if (i >= n) return;                        // the whole team leaves
   const int slot = lane - kLadderTeam * team;
-  LadderMem& m = mem[warp * kLadderTeamsPerWarp + team];
+  LadderMem<Fp, G1>& m = mem[warp * kLadderTeamsPerWarp + team];
   LadderTeam tm{m.xch, team_mask<kLadderTeam>(kLadderTeam * team), slot, 0};
-  const int32_t* ki = k + (size_t)i * NL16;
-  const G1 P = load_g1_v(p + (size_t)i * kPointWords);
-  G1 prev = P;
-  if (slot == 0) {
-    m.tab[0] = g1_inf();
-    m.tab[1] = P;
-  }
-  __syncwarp(tm.mask);
-#pragma unroll 1
-  for (int d = 2; d < kWindowEntries; ++d) {
-    // T[d - 1] is in prev; T[d / 2] in the table (written by lane 0 and
-    // published by the exchanges since)
-    prev = (d % 2 == 0) ? team_double(tm, m.tab[d / 2])
-                        : team_add(tm, prev, P);
-    if (slot == 0) m.tab[d] = prev;
-    __syncwarp(tm.mask);
-  }
-  G1 acc = ladder_pick(m.tab, window_digit(ki, n_windows - 1));
-#pragma unroll 1
-  for (int w = n_windows - 2; w >= 0; --w) {
-#pragma unroll 1
-    for (int s = 0; s < 4; ++s) acc = team_double(tm, acc);
-    acc = team_add(tm, acc, ladder_pick(m.tab, window_digit(ki, w)));
-  }
+  const G1 acc = team_ladder(tm, m.tab,
+                             load_g1_v(p + (size_t)i * kPointWords),
+                             k + (size_t)i * NL16, n_windows);
   if (slot == 0) store_g1(out + (size_t)i * kPointWords, acc);
 }
 

@@ -1,8 +1,9 @@
 // Fp12 (GT) kernels of range-proof creation and verification. Each
 // replaces one Pallas TPU kernel of drynx_tpu/crypto/pallas_pairing.py;
 // drynx_tpu_torch/crypto/cuda_pairing.py binds them with ctypes and holds
-// each beside its plain PyTorch version. f12_wpow gives each row a team of
-// threads (its note below); the others run one row per thread.
+// each beside its plain PyTorch version. f12_wpow and f12_mulreduce8 give
+// each row a team of threads (their notes below, one team product); the
+// others run one row per thread.
 //
 //   f12_mul         replaces _f12_mul_kernel         (f12_mul_flat)
 //   f12_mulreduce8  replaces _f12_mulreduce8_kernel  (f12_mulreduce8_flat)
@@ -16,13 +17,14 @@
 // products of 3), 256 32-bit multiply-adds each, against 2 x 384 bytes in
 // and 384 out; mulreduce8 does 7 products per 3 KB read. Both are
 // operation-bound by that count (about 40 multiply-adds per byte against
-// the card's ~5 per byte). An Fp12 value is 96 32-bit words, so the
-// accumulator and the operand alone fill most of a thread's registers; the
-// Fp6 products are not inlined and keep their temporaries in their own
-// frame, and what does not fit spills to local memory (L1). Rows are read
-// with 16-byte vector loads. The window gather that feeds mulreduce8 in the
-// fixed-base GT powers stays a torch index op (an intermediate of 64
-// entries x 768 bytes per power); fusing it here is later work.
+// the card's ~5 per byte). An Fp12 value is 96 32-bit words, so in the
+// one-thread kernels the operands alone fill most of a thread's
+// registers; the Fp6 products are not inlined and keep their temporaries
+// in their own frame, and what does not fit spills to local memory (L1).
+// Rows are read with 16-byte vector loads. The window gather that feeds
+// mulreduce8 in the fixed-base GT powers stays a torch index op (an
+// intermediate of 64 entries x 768 bytes per power); fusing it here is
+// later work.
 //
 // The verification kernels are the same kind of chain. f12_inv is 488
 // Montgomery products per row, 379 of them the Fermat inverse's dependent
@@ -59,18 +61,6 @@ __global__ void f12_mul_kernel(const int32_t* __restrict__ a,
   if (i >= n) return;
   const size_t off = (size_t)i * kF12Words;
   store_fp12(out + off, f12mul(load_fp12(a + off), load_fp12(b + off)));
-}
-
-// out[i] = g[i][0] * g[i][1] * ... * g[i][7], left to right
-__global__ void f12_mulreduce8_kernel(const int32_t* __restrict__ g,
-                                      int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t* row = g + (size_t)i * 8 * kF12Words;
-  Fp12 acc = load_fp12(row);
-#pragma unroll 1
-  for (int w = 1; w < 8; ++w) acc = f12mul(acc, load_fp12(row + w * kF12Words));
-  store_fp12(out + (size_t)i * kF12Words, acc);
 }
 
 __global__ void f12_inv_kernel(const int32_t* __restrict__ a,
@@ -160,16 +150,19 @@ __device__ __forceinline__ uint32_t window3(const int32_t* k, int w) {
 // (scripts/torch_team_variants.py).
 constexpr int kPowTeam = 6;                     // lanes per row
 constexpr int kPowSlots = 6 / kPowTeam;         // Fp2 slots a lane owns
-constexpr int kPowProds = 18 / kPowTeam;        // a product's Fp2 products
 constexpr int kPowSqrs = (9 + kPowTeam - 1) / kPowTeam;   // a square's
 constexpr int kPowTeamsPerWarp = 32 / kPowTeam;
 constexpr int kPowWarps = 1;
 constexpr int kPowThreads = 32 * kPowWarps;
 constexpr int kPowRows = kPowWarps * kPowTeamsPerWarp;
 constexpr int kFp2Words = 2 * NL16;
-static_assert(6 % kPowTeam == 0, "a lane owns whole slots");
 
-using PowTeam = Team<Fp2, kPowTeam, 18>;
+// A team of kSize lanes holding Fp12 values slot by slot: lane t owns the
+// 6 / kSize Fp2 slots c_m, m = t (6 / kSize) + s, of each value
+template <int kSize>
+using F12Team = Team<Fp2, kSize, 18>;
+
+using PowTeam = F12Team<kPowTeam>;
 using Slots = Fp2[kPowSlots];
 
 struct PowMem {
@@ -194,15 +187,20 @@ __device__ __forceinline__ Fp2 fp6_part(const Fp2* P, int kk) {
 }
 
 // this lane's slots of a b, a's slots being ca, b's cb across the team
-// (cb == nullptr: b = a)
-__device__ __forceinline__ void team_f12mul(PowTeam& tm, Slots& out,
-                                            const Slots& ca,
-                                            const Slots* cb) {
+// (cb == nullptr: b = a). f12mul's Karatsuba, so its bytes.
+template <int kSize>
+__device__ __forceinline__ void team_f12mul(F12Team<kSize>& tm,
+                                            Fp2 (&out)[6 / kSize],
+                                            const Fp2 (&ca)[6 / kSize],
+                                            const Fp2 (*cb)[6 / kSize]) {
+  static_assert(6 % kSize == 0, "a lane owns whole slots");
+  constexpr int kSlots = 6 / kSize;
+  constexpr int kProds = 18 / kSize;   // a lane's Fp2 products
   Fp2* w = tm.out();
 #pragma unroll
-  for (int s = 0; s < kPowSlots; ++s) {
-    w[tm.slot * kPowSlots + s] = ca[s];
-    if (cb) w[6 + tm.slot * kPowSlots + s] = (*cb)[s];
+  for (int s = 0; s < kSlots; ++s) {
+    w[tm.slot * kSlots + s] = ca[s];
+    if (cb) w[6 + tm.slot * kSlots + s] = (*cb)[s];
   }
   const Fp2* a = tm.publish();
   const Fp2* b = cb ? a + 6 : a;
@@ -213,8 +211,8 @@ __device__ __forceinline__ void team_f12mul(PowTeam& tm, Slots& out,
   // the same sums of a's and of b's slots.
   Fp2* pw = tm.out();
 #pragma unroll
-  for (int q = 0; q < kPowProds; ++q) {
-    const int j = tm.slot * kPowProds + q;
+  for (int q = 0; q < kProds; ++q) {
+    const int j = tm.slot * kProds + q;
     const int h = j / 6, r = j % 6;
     const int e0 = r < 3 ? r : (r == 5 ? 1 : 0);
     const int e1 = r < 3 ? e0 : (r == 3 ? 1 : 2);
@@ -231,8 +229,8 @@ __device__ __forceinline__ void team_f12mul(PowTeam& tm, Slots& out,
   }
   const Fp2* P = tm.publish();
 #pragma unroll
-  for (int s = 0; s < kPowSlots; ++s) {
-    const int m = tm.slot * kPowSlots + s;
+  for (int s = 0; s < kSlots; ++s) {
+    const int m = tm.slot * kSlots + s;
     const int kk = m >> 1;
     const bool odd = m & 1;
     // c_k = t0_k + (v t1)_k, (v t1) = (XI t1_2, t1_0, t1_1); d_k = t2_k -
@@ -373,6 +371,64 @@ __global__ void __launch_bounds__(kPowThreads)
   }
 }
 
+// f12_mulreduce8: out[i] = g[i][0] g[i][1] ... g[i][7], left to right, as
+// _f12_mulreduce8_kernel (pallas_pairing.py:629). A team of kProdTeam lanes
+// computes one row, each lane holding its Fp2 slots of the accumulator in
+// registers and loading only those slots of the row's eight values, so a
+// team reads each 768-byte value as one contiguous run. The seven products
+// go through team_f12mul, the windowed power's team product, in row order:
+// with six lanes a chain of 7 x 3 Fp2 products (63 Montgomery products)
+// against 7 x 18 (378) for one thread a row.
+//
+// What bounds it: at the joint check's folds (N = 4,096 down to 1) a
+// launch is a few warps, so the chain's latency sets its time: 0.26-0.28
+// ms. At the collection's 4,500-108,000 rows (up to 21,600 warps, 2.3 KB
+// of exchange a row) the warps an SM holds: capping the registers at 168
+// (kProdWarpsPerSM, 248 B of spill stores) lets 12 warps in where 255
+// registers let 8, 5.3 ms at N = 108,000 against 7.1 uncapped and 6.0 at
+// 128 registers; 3 lanes a row (two slots each) were slower at every shape
+// (scripts/torch_team_variants.py; H100 80GB HBM3, 700 W).
+constexpr int kProdTeam = 6;                   // lanes per row
+constexpr int kProdSlots = 6 / kProdTeam;
+constexpr int kProdTeamsPerWarp = 32 / kProdTeam;
+constexpr int kProdWarpsPerSM = 12;   // at most 65536 / (12 x 32) registers
+
+__global__ void __launch_bounds__(32, kProdWarpsPerSM)
+    f12_mulreduce8_kernel(const int32_t* __restrict__ g,
+                          int32_t* __restrict__ out, int n) {
+  __shared__ Fp2 xch[kProdTeamsPerWarp][2][18];
+  const int lane = threadIdx.x;
+  const int team = lane / kProdTeam;
+  if (team == kProdTeamsPerWarp) return;   // lanes past the last team
+  const int i = blockIdx.x * kProdTeamsPerWarp + team;
+  if (i >= n) return;                      // the whole team leaves
+  const int slot = lane - kProdTeam * team;
+  F12Team<kProdTeam> tm{xch[team], team_mask<kProdTeam>(kProdTeam * team),
+                        slot, 0};
+  const int32_t* row = g + (size_t)i * 8 * kF12Words +
+                       slot * kProdSlots * kFp2Words;
+  Fp2 acc[kProdSlots];
+#pragma unroll
+  for (int s = 0; s < kProdSlots; ++s) acc[s] = load_fp2(row + s * kFp2Words);
+#pragma unroll 1
+  for (int w = 1; w < 8; ++w) {
+    Fp2 x[kProdSlots], r[kProdSlots];
+#pragma unroll
+    for (int s = 0; s < kProdSlots; ++s) {
+      x[s] = load_fp2(row + w * kF12Words + s * kFp2Words);
+    }
+    team_f12mul(tm, r, acc, &x);
+#pragma unroll
+    for (int s = 0; s < kProdSlots; ++s) acc[s] = r[s];
+  }
+#pragma unroll
+  for (int s = 0; s < kProdSlots; ++s) {
+    store_fp2(out + (size_t)i * kF12Words +
+                  (slot * kProdSlots + s) * kFp2Words,
+              acc[s]);
+  }
+}
+
 // f^k, LSB-first: acc *= base where bit w of k is set, base squared after
 // every bit, as _f12_pow_kernel (pallas_pairing.py:541-569). The product is
 // computed at every bit and kept by mask, so the time does not depend on k.
@@ -405,7 +461,10 @@ int f12_mul(const int32_t* a, const int32_t* b, int32_t* out, int n,
 }
 
 int f12_mulreduce8(const int32_t* g, int32_t* out, int n, void* stream) {
-  f12_mulreduce8_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  // n < 2^31 rows are fewer than 2^31 - 1 blocks, the grid's limit
+  const size_t blocks =
+      ((size_t)n + kProdTeamsPerWarp - 1) / kProdTeamsPerWarp;
+  f12_mulreduce8_kernel<<<(unsigned)blocks, 32, 0, (cudaStream_t)stream>>>(
       g, out, n);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // A team of lanes of one warp computing one row together, and the
 // exchange through which its lanes trade values: the layout shared by the
-// port's team kernels (miller.cu; g1_ops.cu's variable-base ladder;
-// gt_ops.cu's windowed GT power).
+// port's team kernels (miller.cu; the variable-base ladders of g1_ops.cu
+// and g2_ops.cu, through team_ladder.cuh; gt_ops.cu's windowed GT power
+// and 8-way product).
 //
 // A team's lanes are consecutive lanes of one warp, so a team never
 // straddles two warps and __syncwarp on the team's lanes is its barrier.

@@ -7,36 +7,45 @@ Each variant is one of the package's sources with one line changed by an
 exact text edit: the fixed-base team size kFixedBaseTeam (16, 32, 64) in
 csrc/g1_ops.cu; for the Miller loop (csrc/miller.cu) two warps a block or
 its registers capped; the variable-base ladder's team size kLadderTeam (4,
-6, 8) in csrc/g1_ops.cu; the windowed GT power's team size kPowTeam (6
-lanes with one Fp2 slot each, or 3 with two) in csrc/gt_ops.cu.
-`cuda_build` builds them all at once with the package's flags. Every
-variant is checked against the package's plain versions before it is
-timed: the Miller loop, the variable-base ladder and the power byte for
-byte against `miller_plain`, `scalar_mul_plain` and `f12_wpow_plain`, the
-fixed-base ladder as points (another team size sums in another order, so
-its Jacobian representative differs). Times are CUDA-event means at the
-main path's shapes: the Miller loop at 13,500 pairings; the fixed-base
-ladder at W = 64 with 900 and 270 rows and at W = 16 with 900 rows; the
-variable-base ladder at W = 64 with 90, 270 and 2,700 rows and at W = 16
-with 13,500; the power with cyclotomic squares at 63 bits on 1 row (the
-final exponentiation's power by u) and at 63 and 128 bits on 13,500.
-Prints one JSON line per variant with its ptxas registers, stack and
-spills, then the card's name and power limit. The package keeps one kernel
-per function; PERF.md records the readings and the choice.
+6, 8) in csrc/g1_ops.cu; the G2 ladder's kG2LadderTeam (4, 6, 8), or its
+registers capped at 168, in csrc/g2_ops.cu; the windowed GT power's team
+size kPowTeam (6 lanes with one Fp2 slot each, or 3 with two) and the
+8-way product's kProdTeam (6 or 3) and register cap kProdWarpsPerSM (168
+registers, none, or 128) in csrc/gt_ops.cu. `cuda_build` builds them all
+at once with the package's flags. Every variant is checked against the
+package's plain versions before it is timed: the Miller loop, the
+ladders, the power and the 8-way product byte for byte against
+`miller_plain`, `scalar_mul_plain`, `g2_scalar_mul_plain`,
+`f12_wpow_plain` and `f12_mulreduce8_plain`, the fixed-base ladder as
+points (another team size sums in another order, so its Jacobian
+representative differs). Times are
+CUDA-event means at the main path's shapes: the Miller loop at 13,500
+pairings; the fixed-base ladder at W = 64 with 900 and 270 rows and at W =
+16 with 900 rows; the variable-base ladder at W = 64 with 90, 270 and 2,700
+rows and at W = 16 with 13,500; the G2 ladder at 13,500 rows; the power
+with cyclotomic squares at 63 bits on 1 row (the final exponentiation's
+power by u) and at 63 and 128 bits on 13,500; the 8-way product at the
+collection's 108,000, 36,000, 13,500 and 4,500 rows and the joint check's
+4,096, 512, 64, 8 and 1. Prints one JSON line per variant with its ptxas
+registers, stack and spills, then the card's name and power limit. The
+package keeps one kernel per function; PERF.md records the readings and
+the choice.
 
     python3 scripts/torch_team_variants.py --against OTHER_ROOT
 
-times this checkout's variable-base ladder and windowed GT power against
-another checkout's instead (for instance a parent commit unpacked with
-`git archive` under build/, which .gitignore lists). Each tree runs in a
-process of its own (the two packages share a name), in the order this,
-other, other, this; each builds its kernels with its own `cuda_build`,
-makes the same inputs from one seed, checks its kernels against its plain
-versions on the first rows and times the main path's shapes: the ladder
-at W = 64 on 90, 270, 900, 1,080 and 2,700 rows and at W = 16 on 13,500,
-the power at 63 bits on 1 row and at 63 and 128 bits on 13,500. Prints one
-JSON line per run with each shape's time and a digest of each output (the
-two trees must agree), then the card's name and power limit.
+times this checkout's variable-base ladder, G2 ladder, windowed GT power
+and 8-way product against another checkout's instead (for instance a
+parent commit unpacked with `git archive` under build/, which .gitignore
+lists). Each tree runs in a process of its own (the two packages share a
+name), in the order this, other, other, this; each builds its kernels with
+its own `cuda_build`, makes the same inputs from one seed, checks its
+kernels against its plain versions on the first rows and times the main
+path's shapes: the ladder at W = 64 on 90, 270, 900, 1,080 and 2,700 rows
+and at W = 16 on 13,500, the G2 ladder on 13,500, the power at 63 bits on
+1 row and at 63 and 128 bits on 13,500, the 8-way product at the nine
+shapes above. Prints one JSON line per run with each shape's time and a
+digest of each output (the two trees must agree), then the card's name
+and power limit.
 
 It imports nothing of JAX and nothing of the drynx_tpu package. Without a
 card it exits with code 2.
@@ -57,12 +66,17 @@ MILLER_N = 13_500
 TEAM = "constexpr int kFixedBaseTeam = 32;"
 LADDER_TEAM = "constexpr int kLadderTeam = 4;"
 POW_TEAM = "constexpr int kPowTeam = 6;"
+G2_TEAM = "constexpr int kG2LadderTeam = 8;"
+PROD_TEAM = "constexpr int kProdTeam = 6;"
+PROD_CAP = "constexpr int kProdWarpsPerSM = 12;"
 FIXED_BASE_SHAPES = (("W=64 N=900", 900, 64), ("W=64 N=270", 270, 64),
                      ("W=16 N=900", 900, 16))
 LADDER_SHAPES = (("W=64 N=90", 90, 64), ("W=64 N=270", 270, 64),
                  ("W=64 N=2700", 2700, 64), ("W=16 N=13500", 13_500, 16))
 POW_SHAPES = (("63 bits N=1", 1, 63), ("63 bits N=13500", 13_500, 63),
               ("128 bits N=13500", 13_500, 128))
+G2_N = 13_500
+PROD_SHAPES = (108_000, 36_000, 13_500, 4_500, 4_096, 512, 64, 8, 1)
 
 # (label, kind, source, (old, new) edit or None)
 VARIANTS = [
@@ -79,7 +93,19 @@ VARIANTS = [
            (LADDER_TEAM, f"constexpr int kLadderTeam = {g};"))
           for g in (4, 6, 8)
      ] + [(f"f12_wpow lanes={g}", "wpow", "gt_ops",
-           (POW_TEAM, f"constexpr int kPowTeam = {g};")) for g in (6, 3)]
+           (POW_TEAM, f"constexpr int kPowTeam = {g};")) for g in (6, 3)
+     ] + [(f"g2_scalar_mul lanes={g}", "g2", "g2_ops",
+           (G2_TEAM, f"constexpr int kG2LadderTeam = {g};"))
+          for g in (4, 6, 8)
+     ] + [("g2_scalar_mul, at most 168 registers", "g2", "g2_ops",
+           ("__launch_bounds__(32)\n    g2_scalar_mul_kernel",
+            "__launch_bounds__(32, 12)\n    g2_scalar_mul_kernel"))
+     ] + [(f"f12_mulreduce8 lanes={g}", "prod", "gt_ops",
+           (PROD_TEAM, f"constexpr int kProdTeam = {g};")) for g in (6, 3)
+     ] + [(f"f12_mulreduce8, {what}", "prod", "gt_ops",
+           (PROD_CAP, f"constexpr int kProdWarpsPerSM = {w};"))
+          for what, w in (("registers not capped", 1),
+                          ("at most 128 registers", 16))]
 
 
 def edited(source, edit, cuda_build):
@@ -112,20 +138,25 @@ TREE_POWER = ((63, 1), (63, 13_500), (128, 13_500))
 
 
 def time_tree(root):
-    """Time the ladder and the power of the package under `root` (a
-    process of its own); prints one JSON line."""
+    """Time the ladders, the power and the 8-way product of the package
+    under `root` (a process of its own); prints one JSON line."""
     import hashlib
     sys.path.insert(0, str(root))
     from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
     from drynx_tpu_torch.crypto import curve as C
     from drynx_tpu_torch.crypto import field as F
     from drynx_tpu_torch.crypto import fp12 as F12
+    from drynx_tpu_torch.crypto import g2 as G2
     from drynx_tpu_torch.crypto import params, refimpl
+    from drynx_tpu_torch.utils import cuda_build
 
+    cuda_build.build_all()
     dev = torch.device("cuda")
     rng = np.random.default_rng(17)
     pts = C.from_ref_batch([refimpl.g1_mul(refimpl.G1, 3 + j)
                             for j in range(90)]).to(dev)
+    g2s = torch.stack([G2.from_ref(refimpl.g2_mul(refimpl.G2, 3 + j))
+                       for j in range(90)]).to(dev)
     gtb = refimpl.pair(refimpl.G1, refimpl.G2)
     vals, cur = [], gtb
     for _ in range(90):
@@ -137,22 +168,34 @@ def time_tree(root):
     scalars = lambda n, bits: F.from_int(
         [int.from_bytes(rng.bytes(32), "little") % min(params.N, 1 << bits)
          for _ in range(n)]).to(dev)
-    shapes = [(f"scalar_mul W={w} N={n}", rows(pts, n), scalars(n, 4 * w),
-               w, cuda_ops.scalar_mul_flat, cuda_ops.scalar_mul_plain)
+    eights = lambda n: gts[(torch.arange(8 * n, device=dev) * 37 + 11)
+                           % len(gts)].reshape(n, 8, 6, 2, 16)
+    # (label, operands, kernel, plain version)
+    shapes = [(f"scalar_mul W={w} N={n}", (rows(pts, n), scalars(n, 4 * w)),
+               (lambda p, k, w=w: cuda_ops.scalar_mul_flat(p, k, w)),
+               (lambda p, k, w=w: cuda_ops.scalar_mul_plain(p, k, w)))
               for w, n in TREE_LADDER]
-    shapes += [(f"f12_wpow {b} bits N={n}", rows(gts, n), scalars(n, b), b,
-                lambda f, k, b: cuda_pairing.f12_wpow_flat(f, k, b, True),
-                lambda f, k, b: cuda_pairing.f12_wpow_plain(f, k, b, True))
+    shapes += [(f"g2_scalar_mul N={G2_N}",
+                (rows(g2s, G2_N), scalars(G2_N, 256)),
+                cuda_pairing.g2_scalar_mul_flat,
+                cuda_pairing.g2_scalar_mul_plain)]
+    shapes += [(f"f12_wpow {b} bits N={n}", (rows(gts, n), scalars(n, b)),
+                (lambda f, k, b=b: cuda_pairing.f12_wpow_flat(f, k, b, True)),
+                (lambda f, k, b=b: cuda_pairing.f12_wpow_plain(f, k, b,
+                                                               True)))
                for b, n in TREE_POWER]
+    shapes += [(f"f12_mulreduce8 N={n}", (eights(n),),
+                cuda_pairing.f12_mulreduce8_flat,
+                cuda_pairing.f12_mulreduce8_plain) for n in PROD_SHAPES]
     out = {"tree": str(root)}
-    for label, x, k, arg, kern, plain in shapes:
-        got = kern(x, k, arg)
+    for label, args, kern, plain in shapes:
+        got = kern(*args)
         torch.cuda.synchronize()
-        c = min(CHECK_ROWS, len(k))
-        if not torch.equal(got[:c], plain(x[:c], k[:c], arg)):
+        c = min(CHECK_ROWS, len(args[0]))
+        if not torch.equal(got[:c], plain(*(a[:c] for a in args))):
             raise SystemExit(f"{root}: {label} differs from its plain "
                              "version")
-        out[label] = {"ms": timed(lambda: kern(x, k, arg)),
+        out[label] = {"ms": timed(lambda: kern(*args)),
                       "sha": hashlib.sha256(got.cpu().numpy().tobytes())
                       .hexdigest()[:16]}
     print(json.dumps(out), flush=True)
@@ -248,6 +291,14 @@ def main():
         k = rand(n, bits)
         power.append((label, gts[:n], k, bits,
                       cuda_pairing.f12_wpow_plain(gts[:n], k, bits, True)))
+    # the G2 ladder on Jacobian multiples of the twist's generator; the
+    # 8-way product on rows of pairing values drawn from gts
+    g2_p = cuda_pairing.g2_scalar_mul_flat(g2_gen, rand(G2_N, 256))
+    g2_k = rand(G2_N, 256)
+    g2_want = cuda_pairing.g2_scalar_mul_plain(g2_p, g2_k)
+    pick = torch.from_numpy(rng.integers(0, MILLER_N, 8 * PROD_SHAPES[0]))
+    prod_g = gts[pick.to(dev)].reshape(-1, 8, 6, 2, 16)
+    prod_want = cuda_pairing.f12_mulreduce8_plain(prod_g)
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def held(name, label, got, want, same):
@@ -295,6 +346,27 @@ def main():
                 torch.cuda.synchronize()
                 held(name, label, out, want, torch.equal)
                 row[f"ms {label}"] = timed(run)
+        elif kind == "g2":
+            row["ptxas"] = ptxas_summary(log, "g2_scalar_mul_kernel")
+            out = torch.empty_like(g2_want)
+            run = lambda: cuda_build.check(
+                lib.g2_scalar_mul(g2_p.data_ptr(), g2_k.data_ptr(),
+                                  out.data_ptr(), G2_N, stream()), name)
+            run()
+            torch.cuda.synchronize()
+            held(name, "", out, g2_want, torch.equal)
+            row[f"ms N={G2_N}"] = timed(run)
+        elif kind == "prod":
+            row["ptxas"] = ptxas_summary(log, "f12_mulreduce8_kernel")
+            for n in PROD_SHAPES:
+                out = torch.empty_like(prod_want[:n])
+                run = lambda n=n, out=out: cuda_build.check(
+                    lib.f12_mulreduce8(prod_g.data_ptr(), out.data_ptr(), n,
+                                       stream()), name)
+                run()
+                torch.cuda.synchronize()
+                held(name, f"N={n}", out, prod_want[:n], torch.equal)
+                row[f"ms N={n}"] = timed(run)
         else:
             row["ptxas"] = ptxas_summary(log, "f12_wpow_kernel")
             for label, f, k, bits, want in power:

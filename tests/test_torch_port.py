@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from chip_smoke import (WPOW_BITS, crafted_fixed_base_cases,
-                        crafted_ladder_cases, crafted_wpow_cases)
+                        crafted_g2_ladder_cases, crafted_ladder_cases,
+                        crafted_wpow_cases)
 from drynx_tpu_torch import flagship
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
@@ -422,6 +423,44 @@ def test_ladder_team_kernel_at_main_path_shapes(cuda, n, n_windows):
     got = cuda_ops.scalar_mul_flat(p, k, n_windows)
     torch.cuda.synchronize()
     assert torch.equal(got, cuda_ops.scalar_mul_plain(p, k, n_windows))
+
+
+@pytest.mark.gpu
+def test_g2_ladder_team_kernel_on_crafted_cases(cuda):
+    """The G2 team kernel on the crafted scalars (every branch of the
+    complete add) and the point at infinity."""
+    p, k = crafted_g2_ladder_cases(G2, F, refimpl, cuda)
+    got = cuda_pairing.g2_scalar_mul_flat(p, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.g2_scalar_mul_plain(p, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 21, 13500])
+def test_g2_ladder_team_kernel_at_main_path_shapes(cuda, n):
+    """V = v A[digit] on the collection's 13,500 digit proofs (full
+    256-bit scalars) and partly filled last blocks."""
+    g2p, _ = _g2_operands(130, cuda)
+    p = g2p.repeat((n + 129) // 130, 1, 1, 1)[:n].contiguous()
+    k = _fixed_base_scalars(n, 64, cuda)
+    got = cuda_pairing.g2_scalar_mul_flat(p, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.g2_scalar_mul_plain(p, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [108000, 36000, 13500, 4500, 4096, 512, 64,
+                               21, 8, 5, 1])
+def test_mulreduce8_team_kernel_at_main_path_shapes(cuda, n):
+    """The collection's fixed-base GT power passes (108,000 to 4,500 rows),
+    the joint check's folds and gtB^S passes (4,096 to 1) and partly filled
+    last blocks."""
+    gts = _gt_operands(160, cuda)
+    g = gts[(torch.arange(8 * n, device=cuda) * 37 + 11) % len(gts)]
+    g = g.reshape(n, 8, 6, 2, 16)
+    got = cuda_pairing.f12_mulreduce8_flat(g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f12_mulreduce8_plain(g))
 
 
 @pytest.mark.gpu

@@ -1,29 +1,33 @@
-"""The plain versions of the variable-base ladder and the windowed GT power
-against the reference, on the crafted cases their team kernels are held on.
+"""The plain versions of the port's ladders and windowed GT power against
+the reference, on the crafted cases their team kernels are held on.
 
-csrc/g1_ops.cu's variable-base ladder and csrc/gt_ops.cu's windowed GT power
-give each row a team of threads that splits every step's independent
-Montgomery products; they compute the plain versions' formulas on canonical
-residues, so the card holds them against `scalar_mul_plain` and
-`f12_wpow_plain` byte for byte (tests/test_torch_port.py, chip_smoke.py
-phase 2), on the cases made by chip_smoke.crafted_ladder_cases and
+csrc/g1_ops.cu's variable-base ladder, csrc/g2_ops.cu's G2 ladder (one
+body in csrc/team_ladder.cuh) and csrc/gt_ops.cu's windowed GT power give
+each row a team of threads that splits every step's independent
+Montgomery products; they compute the plain versions' formulas on
+canonical residues, so the card holds them against `scalar_mul_plain`,
+`g2_scalar_mul_plain` and `f12_wpow_plain` byte for byte
+(tests/test_torch_port.py, chip_smoke.py phase 2), on the cases made by
+chip_smoke.crafted_ladder_cases, crafted_g2_ladder_cases and
 crafted_wpow_cases. Here those plain versions meet the JAX package's host
-oracle (drynx_tpu/crypto/refimpl.py) on the same cases: the ladder as
-points, through every branch of its complete add; the power from 1 to 256
-bits (windows cut short and windows across limb edges), with and without
-cyclotomic squares, and on a value outside GPhi12, where the cyclotomic
-chain is Granger-Scott's function and not a power.
+oracle (drynx_tpu/crypto/refimpl.py) on the same cases: the ladders as
+points, through every branch of their complete add; the power from 1 to
+256 bits (windows cut short and windows across limb edges), with and
+without cyclotomic squares, and on a value outside GPhi12, where the
+cyclotomic chain is Granger-Scott's function and not a power.
 """
 import pytest
 import torch
 
-from chip_smoke import (WPOW_BITS, crafted_ladder_cases,
-                        crafted_ladder_scalars, crafted_wpow_cases)
+from chip_smoke import (WPOW_BITS, crafted_g2_ladder_cases,
+                        crafted_ladder_cases, crafted_ladder_scalars,
+                        crafted_wpow_cases)
 from drynx_tpu.crypto import refimpl as JR
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as TC
 from drynx_tpu_torch.crypto import field as TF
 from drynx_tpu_torch.crypto import fp12 as TF12
+from drynx_tpu_torch.crypto import g2 as TG2
 from drynx_tpu_torch.crypto import params, refimpl
 
 
@@ -73,6 +77,46 @@ def test_crafted_ladder_takes_every_branch_of_the_complete_add(monkeypatch):
     pts, k = crafted_ladder_cases(TC, TF, refimpl, "cpu")
     with torch.inference_mode():
         cuda_ops.scalar_mul_flat(pts, k, 64)
+    assert seen == {"double": True, "p = -q": True, "infinity": True}
+
+
+def test_g2_ladder_plain_matches_reference_on_crafted_cases():
+    """k Q for the crafted scalars on multiples of the twist's generator
+    (and the point at infinity) equals the reference's k Q, as points."""
+    pts, k = crafted_g2_ladder_cases(TG2, TF, refimpl, "cpu")
+    with torch.inference_mode():
+        got = cuda_pairing.g2_scalar_mul_flat(pts, k)
+    want = [JR.g2_mul(q, int(x)) for q, x in zip(TG2.to_ref(pts),
+                                                 TF.to_int(k))]
+    assert TG2.to_ref(got) == want
+
+
+def _g2_branches(p, q):
+    p_inf, q_inf = TG2.is_infinity(p), TG2.is_infinity(q)
+    both = ~p_inf & ~q_inf
+    return {"double": bool((both & TG2.eq(p, q)).any()),
+            "p = -q": bool((both & TG2.eq(p, TG2.neg(q))).any()),
+            "infinity": bool((p_inf | q_inf).any())}
+
+
+def test_crafted_g2_ladder_takes_every_branch_of_the_complete_add(
+        monkeypatch):
+    """The crafted G2 rows' adds meet a double (16a + 15), a point and its
+    negation (n) and infinity (0, zero digits, the infinite row), as the
+    G1 rows do."""
+    seen = dict.fromkeys(("double", "p = -q", "infinity"), False)
+    padd = cuda_pairing.g2_padd
+
+    def spy(p, q):
+        for name, hit in _g2_branches(p.to(torch.int32),
+                                      q.to(torch.int32)).items():
+            seen[name] |= hit
+        return padd(p, q)
+
+    monkeypatch.setattr(cuda_pairing, "g2_padd", spy)
+    pts, k = crafted_g2_ladder_cases(TG2, TF, refimpl, "cpu")
+    with torch.inference_mode():
+        cuda_pairing.g2_scalar_mul_flat(pts, k)
     assert seen == {"double": True, "p = -q": True, "infinity": True}
 
 
