@@ -10,9 +10,16 @@ Phases (any failed check exits non-zero; nothing is caught):
   2. Run each kernel at the shapes of the main path on the card and hold
      its output against its plain PyTorch version on the same inputs, byte
      for byte; time both with CUDA events; print each kernel's ptxas
-     registers, stack and spills. The six team kernels also run at more
-     shapes (the fixed-base ladder at W in {1, 16, 17, 64} x N in {1, 90,
-     270, 900} and on crafted tables, the Miller loop at N = 1 and 1,000,
+     registers, stack and spills. The Fp inverse runs at every row count
+     of the cluster survey's launches (CLUSTER_ROWS), the Fp12 product at
+     13,500 rows and at N = 1 (the final exponentiation's), the Fp12
+     inverse, cyclotomic square and slot maps at 13,500 rows and at N = 1.
+     These rows are summed in the JSON line. The Fp inverse also runs at
+     N in {1, 5, 21, 128, 129} and on edge inputs (0, 1, p - 1, R mod p,
+     every power of two), the Fp12 product at N in {5, 21}, and the six
+     other team kernels at more shapes (the fixed-base ladder at W in {1,
+     16, 17, 64} x N in {1, 90, 270, 900} and on crafted tables, the
+     Miller loop at N = 1 and 1,000,
      the variable-base ladder on crafted scalars at W in {1, 2, 16, 64}
      and at N in {1, 5, 21}, the G2 ladder on crafted scalars and at N in
      {1, 5, 21}, the windowed GT power on crafted values and exponents at
@@ -47,7 +54,9 @@ Phases (any failed check exits non-zero; nothing is caught):
   7. Run the proofs-on survey of bench.py:_proofs_on_cluster through
      `LocalCluster.run_survey` (3 CNs, 10 DPs, 3 VNs, seed 4, log_reg at
      the Pima width, ranges (16, 5), thresholds 1.0), counted as above: an
-     audit block of 3 VNs x 16 proofs, every entry BM_TRUE; all 90
+     audit block of 3 VNs x 16 proofs, every entry BM_TRUE; the row
+     counts of every kernel's launches printed, those of the Fp inverse and
+     the Fp12 product equal to CLUSTER_ROWS; all 90
      decrypted values exact and found; the weights within 1e-3 of GD on
      the CPU; the same transcript digest from a second run with the same
      seed (verification caches cleared); a key-switch payload from a VN's
@@ -145,6 +154,16 @@ EXPECTED_LAUNCHES_CLUSTER = {"fixed_base_mul": 15, "scalar_mul": 7,
                              "f12_mulreduce8": 16, "miller": 1, "f12_inv": 1,
                              "f12_csqr": 4, "f12_slotmul": 17, "f12_wpow": 5,
                              "f12_pow": 0}
+# the row counts of the cluster survey's B4 and B7 launches, {rows:
+# launches}, as phase 7 records them; phase 2 times both kernels at each.
+# B4: the collection's ciphertexts and D, the canonical aggregate, the
+# key-switch proof's transcript, decryption, the joint check's RLC points,
+# the VN's key-switch check; B7: the collection's a = gt1 gt2 and the
+# joint check's GPhi12 gate, then its final exponentiation (15) and total
+# (2)
+CLUSTER_ROWS = {"fp_inv": {1800: 1, 900: 1, 180: 1, 1444: 2, 90: 1,
+                           13_500: 1},
+                "f12_mul": {13_500: 2, 1: 17}}
 
 # H100 SXM: 132 SMs, 64 32-bit integer multiply-adds per SM per clock,
 # 3.35 TB/s device memory (NVIDIA data sheet and Hopper white paper)
@@ -217,6 +236,14 @@ MM_F12_SLOTMUL = 6 * 3          # 6 Fp2 products by constants
 # squares, 6 products = 24), the Fp2 inverse (383) and 3 products (9), then
 # 2 Fp6 products (36)
 MM_F12_INV = 36 + 24 + MM_F2_INV + 9 + 36
+# B4, counted from csrc/fp_inv.cuh in 32-bit integer operations a row (a
+# 32 x 32 -> 64-bit multiply-add, or a 64-bit shift, two): a divstep 27,
+# a batch's update of (d, e) 174 and of (f, g) 124, 20 batches of 30
+# divsteps, then one Montgomery product (256); the limb conversions at the
+# edges, under 1 %, are left out. In Montgomery products' worth, as the
+# bound takes them.
+OPS_FP_INV = 20 * (30 * 27 + 174 + 124) + IMAD_PER_MONT_MUL
+MM_FP_INV = OPS_FP_INV / IMAD_PER_MONT_MUL
 
 
 def mm_miller(ate_bits):
@@ -360,6 +387,15 @@ def crafted_wpow_cases(F, F12, params, refimpl, device):
     return (F12.from_ref_batch(vals).to(device), F.from_int(ks).to(device))
 
 
+def fp_inv_edge_inputs(F, params, device):
+    """Edge inputs of the Fp inverse: 0, 1, p - 1, R mod p (the Montgomery
+    one) and every power of two below p, as (260, 16) limbs. F, params:
+    the port's field and params modules."""
+    vals = [0, 1, params.P - 1, params.R % params.P] + [
+        1 << k for k in range(256) if 1 << k < params.P]
+    return F.from_int(vals).to(device)
+
+
 def cuda_ms(fn, reps):
     """Mean device time of fn() over reps runs, after one warm-up."""
     fn()
@@ -474,6 +510,7 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
     from drynx_tpu_torch.proofs.safe_pickle import safe_loads
     from drynx_tpu_torch.server.transcript import transcript_digest
     from drynx_tpu_torch.service.service import LocalCluster
+    from drynx_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
     cluster = LocalCluster(n_cns=N_SERVERS, n_dps=NUM_DPS, n_vns=N_VNS,
@@ -518,11 +555,19 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
     torch.cuda.reset_peak_memory_stats()
     first_s, res = run()
     launches7 = launch_counts()
+    rows7 = {k: dict(sorted(v.items()))
+             for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
     print(f"phase 7: first proofs-on cluster survey {first_s:.3f} s; "
           f"launches {launches7}", flush=True)
+    print(f"phase 7: launch shapes, {{kernel: {{rows: launches}}}}: {rows7}",
+          flush=True)
     if launches7 != EXPECTED_LAUNCHES_CLUSTER:
         raise SystemExit(f"cluster survey launches {launches7} differ from "
                          f"{EXPECTED_LAUNCHES_CLUSTER}")
+    for name, want in CLUSTER_ROWS.items():
+        if rows7.get(name) != want:
+            raise SystemExit(f"cluster survey {name} shapes {rows7.get(name)}"
+                             f" differ from {want}, phase 2's")
     w = torch.from_numpy(res.result)
     w_cpu = lr.train(lr.unpack(torch.from_numpy(res.decrypted.values),
                                params), params)
@@ -606,6 +651,7 @@ def main():
         for counts in (cuda_ops.LAUNCHES, cuda_pairing.LAUNCHES):
             for key in counts:
                 counts[key] = 0
+        cuda_build.reset_launch_rows()
 
     def launch_counts():
         return {**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES}
@@ -651,6 +697,11 @@ def main():
     b900[0], b900[1] = a900[0], C.neg(a900[1:2])[0]
     b900[2] = C.infinity((), dev)
     zs = cts[0, :, 1, 2].contiguous()                        # (V, 16) nonzero Z
+    # B4 at the cluster survey's row counts: canonical residues from a seed
+    inv_rng = np.random.default_rng(PROOF_SEED + 4)
+    inv_x = F.from_int([int.from_bytes(inv_rng.bytes(40), "little") % bn256.P
+                        for _ in range(max(CLUSTER_ROWS["fp_inv"]))]).to(dev)
+    inv_edge = fp_inv_edge_inputs(F, bn256, dev)
 
     # proofs-on setup: the servers' digit signatures and their GT window
     # tables (host pairings, timed as setup), then the four proof kernels'
@@ -799,9 +850,16 @@ def main():
                             (N_SERVERS * V, "key switch rQ - xK"),
                             (V, "key switch finish"), (V, "decrypt C - xK"))
         ],
+        # the survey's normalize, then the cluster survey's other shapes
         "fp_inv": [
             (f"N={V} (normalize)", lambda: cuda_pairing.fp_inv_flat(zs),
-             lambda: cuda_pairing.fp_inv_plain(zs), 255 + 124, V, 2 * V * 64),
+             lambda: cuda_pairing.fp_inv_plain(zs), MM_FP_INV, V, 2 * V * 64),
+        ] + [
+            (f"N={n} (cluster survey)",
+             (lambda n=n: cuda_pairing.fp_inv_flat(inv_x[:n])),
+             (lambda n=n: cuda_pairing.fp_inv_plain(inv_x[:n])), MM_FP_INV,
+             n, 2 * n * 64)
+            for n in sorted(CLUSTER_ROWS["fp_inv"]) if n != V
         ],
         "f2_inv": [
             (f"N={n_proofs} (normalize V)",
@@ -820,6 +878,10 @@ def main():
              lambda: cuda_pairing.f12_mul_flat(gt1, gt2),
              lambda: cuda_pairing.f12_mul_plain(gt1, gt2), MM_F12_MUL,
              n_proofs, 3 * nbytes(gt1)),
+            ("N=1 (final exp, total)",
+             lambda: cuda_pairing.f12_mul_flat(gt1[:1], gt2[:1]),
+             lambda: cuda_pairing.f12_mul_plain(gt1[:1], gt2[:1]),
+             MM_F12_MUL, 1, 3 * 768),
         ],
         "f12_mulreduce8": [
             (f"N={g.shape[0]} ({what})",
@@ -838,24 +900,28 @@ def main():
              mm_miller(cuda_pairing.ATE_BITS), n_proofs,
              nbytes(*ml_in) + f12_bytes),
         ],
+        # B8, B10, B11: the per-value check's final exponentiation at
+        # 13,500 rows, the joint check's at N = 1
         "f12_inv": [
-            (f"N={n_proofs} (per-value final exp)",
-             lambda: cuda_pairing.f12_inv_flat(ml_out),
-             lambda: cuda_pairing.f12_inv_plain(ml_out), MM_F12_INV,
-             n_proofs, 2 * f12_bytes),
+            (f"N={n} ({what} final exp)",
+             (lambda n=n: cuda_pairing.f12_inv_flat(ml_out[:n])),
+             (lambda n=n: cuda_pairing.f12_inv_plain(ml_out[:n])),
+             MM_F12_INV, n, 2 * n * 768)
+            for n, what in ((n_proofs, "per-value"), (1, "joint check"))
         ],
         "f12_csqr": [
-            (f"N={n_proofs} (per-value final exp)",
-             lambda: cuda_pairing.f12_csqr_flat(gt_a),
-             lambda: cuda_pairing.f12_csqr_plain(gt_a), MM_F12_CSQR,
-             n_proofs, 2 * f12_bytes),
+            (f"N={n} ({what} final exp)",
+             (lambda n=n: cuda_pairing.f12_csqr_flat(gt_a[:n])),
+             (lambda n=n: cuda_pairing.f12_csqr_plain(gt_a[:n])),
+             MM_F12_CSQR, n, 2 * n * 768)
+            for n, what in ((n_proofs, "per-value"), (1, "joint check"))
         ],
         "f12_slotmul": [
-            (f"N={n_proofs} ({w})",
-             (lambda w=w: cuda_pairing.f12_slotmul_flat(gt_a, w)),
-             (lambda w=w: cuda_pairing.f12_slotmul_plain(gt_a, w)),
-             MM_F12_SLOTMUL, n_proofs, 2 * f12_bytes)
-            for w in cuda_pairing.SLOT_MAPS
+            (f"N={n} ({w})",
+             (lambda w=w, n=n: cuda_pairing.f12_slotmul_flat(gt_a[:n], w)),
+             (lambda w=w, n=n: cuda_pairing.f12_slotmul_plain(gt_a[:n], w)),
+             MM_F12_SLOTMUL, n, 2 * n * 768)
+            for n in (n_proofs, 1) for w in cuda_pairing.SLOT_MAPS
         ],
         "f12_wpow": [
             (f"N={n_proofs} 128 bits cyc (order gate)",
@@ -898,6 +964,25 @@ def main():
                            for _ in range(n)]).to(dev)
 
     extra = {
+        # partly filled last blocks, whole blocks (128 rows) and the edge
+        # inputs (0 among them)
+        "fp_inv": [
+            (f"N={n}", (lambda n=n: cuda_pairing.fp_inv_flat(inv_x[:n])),
+             (lambda n=n: cuda_pairing.fp_inv_plain(inv_x[:n])), MM_FP_INV,
+             n, 2 * n * 64)
+            for n in (1, 5, 21, 128, 129)
+        ] + [
+            ("edge inputs", lambda: cuda_pairing.fp_inv_flat(inv_edge),
+             lambda: cuda_pairing.fp_inv_plain(inv_edge), MM_FP_INV,
+             len(inv_edge), 2 * nbytes(inv_edge))
+        ],
+        "f12_mul": [
+            (f"N={n} (a partly filled block)",
+             (lambda n=n: cuda_pairing.f12_mul_flat(gt1[:n], gt2[:n])),
+             (lambda n=n: cuda_pairing.f12_mul_plain(gt1[:n], gt2[:n])),
+             MM_F12_MUL, n, 3 * n * 768)
+            for n in (5, 21)
+        ],
         "fixed_base_mul": [
             (f"W={w} N={n}",
              (lambda k=k, w=w: cuda_ops.fixed_base_mul_flat(base, k, w)),

@@ -220,7 +220,7 @@ def _launch(kernel, entry, out, inputs, ints):
     if out.shape[0] == 0:
         return out
     cuda_build.launch("g1_ops", entry, out, inputs, ints)
-    cuda_build.count(LAUNCHES, kernel)
+    cuda_build.count(LAUNCHES, kernel, out.shape[0])
     return out
 
 

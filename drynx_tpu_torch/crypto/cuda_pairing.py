@@ -28,8 +28,10 @@ follows the reference's make_g2_group step for step: its formulas, its
 select order and its point at infinity (X = Y = plain 1, Z = 0), so the
 ladder kernel and its plain version agree on raw Jacobian limbs. Fp, Fp2
 and Fp12 results are canonical residues, so there any formula gives the
-same bytes. The exponent p - 2 is public: both inversions multiply only
-where one of its bits is set (the reference multiplies always and selects).
+same bytes. The exponent p - 2 is public: both plain inversions, and the
+Fp2 inversion's kernel, multiply only where one of its bits is set (the
+reference multiplies always and selects); the Fp inversion's kernel reaches
+the same residue by a constant-time safegcd (csrc/fp_inv.cuh).
 The Miller value is the exception: its line scalings and Jacobian
 coordinates are the kernel's own, so `miller_plain` follows _miller_kernel's
 formulas step for step and equals the reference's Miller value only after
@@ -393,7 +395,7 @@ def _launch(lib, kernel, shape, inputs, ints=()):
     if n == 0:
         return out
     cuda_build.launch(lib, kernel, out, inputs, (n, *ints))
-    cuda_build.count(LAUNCHES, kernel)
+    cuda_build.count(LAUNCHES, kernel, n)
     return out
 
 

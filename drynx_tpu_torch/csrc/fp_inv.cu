@@ -1,41 +1,38 @@
-// Kernel 4: per-element Fermat inversion x^(p-2) in Fp, one element per
-// thread. Replaces the Pallas TPU kernel _fp_inv_kernel / fp_inv_flat of
+// Kernel 4: per-element inversion in Fp, one element per thread. Replaces
+// the Pallas TPU kernel _fp_inv_kernel / fp_inv_flat of
 // drynx_tpu/crypto/pallas_pairing.py; drynx_tpu_torch/crypto/cuda_pairing.py
-// binds it with ctypes and holds it beside its plain PyTorch version.
+// binds it with ctypes and holds it beside its plain PyTorch version, the
+// Fermat power x^(p-2).
 //
-// The reference multiplies always and selects per bit, to keep its traced
-// loop body small. The exponent here is the public constant p - 2, so this
-// kernel multiplies only where a bit is set: 255 squarings and 124
-// products, the same residue. What bounds it: the dependent chain of 379
-// Montgomery products per element; at the 90 elements of the main path
-// one block of threads runs on one SM, so the chain's latency sets the time.
+// The kernel computes the same residue by Bernstein and Yang's
+// constant-time safegcd (fp_inv.cuh): 20 batches of 30 divsteps and their
+// matrix products on 30-bit limbs, then one Montgomery product, in place of
+// the Fermat chain's 379 dependent Montgomery products. Canonical residues
+// in and out, so its bytes are the plain version's. What bounds it: one
+// thread's chain of integer steps; the main path's launches (<= 13,500
+// rows) are one wave, so that chain's latency sets the time at every shape:
+// 0.022-0.025 ms from 90 to 13,500 rows at 32 threads a block, 11-13 % less
+// than at 64 or 128 (scripts/torch_team_variants.py; H100 80GB HBM3,
+// 700 W).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bn256_g1.cuh"
+#include "fp_inv.cuh"
 
 using namespace bn256;
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 32;
 
-__global__ void fp_inv_kernel(const int32_t* __restrict__ x,
-                              int32_t* __restrict__ out, int n) {
+__global__ void __launch_bounds__(kThreads)
+    fp_inv_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                  int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fp base = load_fp(x + (size_t)i * NL16);
-  Fp acc = base;
-  // bits of p - 2 below its top bit (bit 255), MSB first; p - 2 differs
-  // from p only in word 0
-#pragma unroll 1
-  for (int b = 254; b >= 0; --b) {
-    acc = mont_mul(acc, acc);
-    const uint32_t word = (b < 32) ? p_word(0) - 2u : p_word(b >> 5);
-    if ((word >> (b & 31)) & 1u) acc = mont_mul(acc, base);
-  }
-  store_fp(out + (size_t)i * NL16, acc);
+  store_fp(out + (size_t)i * NL16,
+           fp_inv_safegcd(load_fp(x + (size_t)i * NL16)));
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 // Fp12 (GT) kernels of range-proof creation and verification. Each
 // replaces one Pallas TPU kernel of drynx_tpu/crypto/pallas_pairing.py;
 // drynx_tpu_torch/crypto/cuda_pairing.py binds them with ctypes and holds
-// each beside its plain PyTorch version. f12_wpow and f12_mulreduce8 give
-// each row a team of threads (their notes below, one team product); the
-// others run one row per thread.
+// each beside its plain PyTorch version. f12_wpow, f12_mul and
+// f12_mulreduce8 give each row a team of threads (their notes below, one
+// team product); the others run one row per thread.
 //
 //   f12_mul         replaces _f12_mul_kernel         (f12_mul_flat)
 //   f12_mulreduce8  replaces _f12_mulreduce8_kernel  (f12_mulreduce8_flat)
@@ -53,15 +53,6 @@ constexpr int kF12Words = 6 * 2 * NL16;   // int32 words of one Fp12 value
 constexpr int kPowEntries = 8;           // f12_wpow: 3-bit windows
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-__global__ void f12_mul_kernel(const int32_t* __restrict__ a,
-                               const int32_t* __restrict__ b,
-                               int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t off = (size_t)i * kF12Words;
-  store_fp12(out + off, f12mul(load_fp12(a + off), load_fp12(b + off)));
-}
 
 __global__ void f12_inv_kernel(const int32_t* __restrict__ a,
                                int32_t* __restrict__ out, int n) {
@@ -371,62 +362,117 @@ __global__ void __launch_bounds__(kPowThreads)
   }
 }
 
-// f12_mulreduce8: out[i] = g[i][0] g[i][1] ... g[i][7], left to right, as
-// _f12_mulreduce8_kernel (pallas_pairing.py:629). A team of kProdTeam lanes
-// computes one row, each lane holding its Fp2 slots of the accumulator in
-// registers and loading only those slots of the row's eight values, so a
-// team reads each 768-byte value as one contiguous run. The seven products
-// go through team_f12mul, the windowed power's team product, in row order:
-// with six lanes a chain of 7 x 3 Fp2 products (63 Montgomery products)
-// against 7 x 18 (378) for one thread a row.
+// f12_mul and f12_mulreduce8: products of Fp12 values, each row computed
+// by a team of kProdTeam lanes of a one-warp block. A lane holds its Fp2
+// slots of the operands and the result in registers and loads only those
+// slots of each value, so a team reads each 768-byte value as one
+// contiguous run; the products go through team_f12mul, the windowed
+// power's team product (with six lanes a chain of 3 Fp2 products, 9
+// Montgomery products, against 54 for one thread). Lanes past the last
+// team, and teams past n, leave whole.
 //
-// What bounds it: at the joint check's folds (N = 4,096 down to 1) a
-// launch is a few warps, so the chain's latency sets its time: 0.26-0.28
-// ms. At the collection's 4,500-108,000 rows (up to 21,600 warps, 2.3 KB
-// of exchange a row) the warps an SM holds: capping the registers at 168
-// (kProdWarpsPerSM, 248 B of spill stores) lets 12 warps in where 255
-// registers let 8, 5.3 ms at N = 108,000 against 7.1 uncapped and 6.0 at
-// 128 registers; 3 lanes a row (two slots each) were slower at every shape
-// (scripts/torch_team_variants.py; H100 80GB HBM3, 700 W).
+// f12_mul: out[i] = a[i] b[i], as _f12_mul_kernel (pallas_pairing.py:529).
+// The cluster survey launches it on 13,500 rows twice (the collection's a
+// = gt1 gt2, the joint check's GPhi12 gate) and 17 times at N = 1 (the
+// final exponentiation and the joint check's total), where one team
+// carries the whole chain. Unlike mulreduce8 it runs without a register
+// cap: 0.140 ms at 13,500 rows against 0.161 capped at 168 (292 B of
+// spill stores), the same at N = 1 (0.035 ms); 3 lanes a row 1.4x slower
+// at N = 1 (scripts/torch_team_variants.py; H100 80GB HBM3, 700 W).
+//
+// f12_mulreduce8: out[i] = g[i][0] g[i][1] ... g[i][7], left to right, as
+// _f12_mulreduce8_kernel (pallas_pairing.py:629): seven team products in
+// row order, a chain of 63 Montgomery products against 378.
+//
+// What bounds them: at the joint check's folds (N = 4,096 down to 1) and
+// f12_mul's N = 1 a launch is a few warps, so the chain's latency sets its
+// time: 0.26-0.28 ms for mulreduce8. At the collection's 4,500-108,000
+// rows (up to 21,600 warps, 2.3 KB of exchange a row) the warps an SM
+// holds: capping the registers at 168 (kProdWarpsPerSM, 248 B of spill
+// stores) lets 12 warps in where 255 registers let 8, 5.3 ms at N =
+// 108,000 against 7.1 uncapped and 6.0 at 128 registers; 3 lanes a row
+// (two slots each) were slower at every shape (scripts/torch_team_variants.py;
+// H100 80GB HBM3, 700 W).
 constexpr int kProdTeam = 6;                   // lanes per row
 constexpr int kProdSlots = 6 / kProdTeam;
 constexpr int kProdTeamsPerWarp = 32 / kProdTeam;
 constexpr int kProdWarpsPerSM = 12;   // at most 65536 / (12 x 32) registers
 
+using ProdTeam = F12Team<kProdTeam>;
+using ProdSlots = Fp2[kProdSlots];
+
+// This lane's row and team in a one-warp block of product teams, with the
+// team's exchange in xch; false for a lane past the last team or of a
+// team past n, which leaves whole
+__device__ __forceinline__ bool prod_lane(int n, Fp2 (*xch)[2][18], int& row,
+                                          ProdTeam& tm) {
+  const int lane = threadIdx.x;
+  const int team = lane / kProdTeam;
+  if (team == kProdTeamsPerWarp) return false;
+  row = blockIdx.x * kProdTeamsPerWarp + team;
+  if (row >= n) return false;
+  const int slot = lane - kProdTeam * team;
+  tm = ProdTeam{xch[team], team_mask<kProdTeam>(kProdTeam * team), slot, 0};
+  return true;
+}
+
+// this lane's slots of the Fp12 value at v, and back
+__device__ __forceinline__ void load_slots(ProdSlots& x, const int32_t* v,
+                                           int slot) {
+#pragma unroll
+  for (int s = 0; s < kProdSlots; ++s) {
+    x[s] = load_fp2(v + (slot * kProdSlots + s) * kFp2Words);
+  }
+}
+
+__device__ __forceinline__ void store_slots(int32_t* v, int slot,
+                                            const ProdSlots& x) {
+#pragma unroll
+  for (int s = 0; s < kProdSlots; ++s) {
+    store_fp2(v + (slot * kProdSlots + s) * kFp2Words, x[s]);
+  }
+}
+
+// n < 2^31 rows are fewer than 2^31 - 1 blocks, the grid's limit
+inline unsigned prod_blocks(int n) {
+  return (unsigned)(((size_t)n + kProdTeamsPerWarp - 1) / kProdTeamsPerWarp);
+}
+
+__global__ void __launch_bounds__(32)
+    f12_mul_kernel(const int32_t* __restrict__ a,
+                   const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                   int n) {
+  __shared__ Fp2 xch[kProdTeamsPerWarp][2][18];
+  int i;
+  ProdTeam tm;
+  if (!prod_lane(n, xch, i, tm)) return;
+  const size_t off = (size_t)i * kF12Words;
+  ProdSlots x, y, r;
+  load_slots(x, a + off, tm.slot);
+  load_slots(y, b + off, tm.slot);
+  team_f12mul(tm, r, x, &y);
+  store_slots(out + off, tm.slot, r);
+}
+
 __global__ void __launch_bounds__(32, kProdWarpsPerSM)
     f12_mulreduce8_kernel(const int32_t* __restrict__ g,
                           int32_t* __restrict__ out, int n) {
   __shared__ Fp2 xch[kProdTeamsPerWarp][2][18];
-  const int lane = threadIdx.x;
-  const int team = lane / kProdTeam;
-  if (team == kProdTeamsPerWarp) return;   // lanes past the last team
-  const int i = blockIdx.x * kProdTeamsPerWarp + team;
-  if (i >= n) return;                      // the whole team leaves
-  const int slot = lane - kProdTeam * team;
-  F12Team<kProdTeam> tm{xch[team], team_mask<kProdTeam>(kProdTeam * team),
-                        slot, 0};
-  const int32_t* row = g + (size_t)i * 8 * kF12Words +
-                       slot * kProdSlots * kFp2Words;
-  Fp2 acc[kProdSlots];
-#pragma unroll
-  for (int s = 0; s < kProdSlots; ++s) acc[s] = load_fp2(row + s * kFp2Words);
+  int i;
+  ProdTeam tm;
+  if (!prod_lane(n, xch, i, tm)) return;
+  const int32_t* row = g + (size_t)i * 8 * kF12Words;
+  ProdSlots acc;
+  load_slots(acc, row, tm.slot);
 #pragma unroll 1
   for (int w = 1; w < 8; ++w) {
-    Fp2 x[kProdSlots], r[kProdSlots];
-#pragma unroll
-    for (int s = 0; s < kProdSlots; ++s) {
-      x[s] = load_fp2(row + w * kF12Words + s * kFp2Words);
-    }
+    ProdSlots x, r;
+    load_slots(x, row + w * kF12Words, tm.slot);
     team_f12mul(tm, r, acc, &x);
 #pragma unroll
     for (int s = 0; s < kProdSlots; ++s) acc[s] = r[s];
   }
-#pragma unroll
-  for (int s = 0; s < kProdSlots; ++s) {
-    store_fp2(out + (size_t)i * kF12Words +
-                  (slot * kProdSlots + s) * kFp2Words,
-              acc[s]);
-  }
+  store_slots(out + (size_t)i * kF12Words, tm.slot, acc);
 }
 
 // f^k, LSB-first: acc *= base where bit w of k is set, base squared after
@@ -455,16 +501,13 @@ extern "C" {
 
 int f12_mul(const int32_t* a, const int32_t* b, int32_t* out, int n,
             void* stream) {
-  f12_mul_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      a, b, out, n);
+  f12_mul_kernel<<<prod_blocks(n), 32, 0, (cudaStream_t)stream>>>(a, b, out,
+                                                                    n);
   return (int)cudaGetLastError();
 }
 
 int f12_mulreduce8(const int32_t* g, int32_t* out, int n, void* stream) {
-  // n < 2^31 rows are fewer than 2^31 - 1 blocks, the grid's limit
-  const size_t blocks =
-      ((size_t)n + kProdTeamsPerWarp - 1) / kProdTeamsPerWarp;
-  f12_mulreduce8_kernel<<<(unsigned)blocks, 32, 0, (cudaStream_t)stream>>>(
+  f12_mulreduce8_kernel<<<prod_blocks(n), 32, 0, (cudaStream_t)stream>>>(
       g, out, n);
   return (int)cudaGetLastError();
 }

@@ -61,6 +61,7 @@ from ..crypto.field import FN, FP
 from ..crypto.gt import GT_SHAPE, gt_mul
 from ..crypto.params import NUM_LIMBS
 from ..utils.cuda_build import is_fault
+from ..utils.device import resolve
 from . import encoding as enc
 
 log = logging.getLogger(__name__)
@@ -122,13 +123,13 @@ def _window_table(base) -> torch.Tensor:
         (CP.N_WINDOWS, CP.WINDOW_ENTRIES) + GT_SHAPE)
 
 
-def sig_gt_table(sigs: list[RangeSig], device="cpu") -> torch.Tensor:
-    """(ns, u, 6, 2, 16) on `device`: gtA[i][k] = e(B, A_i[k]), computed
-    once per signature set and kept on each RangeSig. On a CUDA device the
-    missing sets are paired in one batch by the pairing kernels (the
-    reference's route, range_proof.py:115-121); on the CPU by the host
-    oracle."""
-    dev = torch.device(device)
+def sig_gt_table(sigs: list[RangeSig], device=None) -> torch.Tensor:
+    """(ns, u, 6, 2, 16) on `device` (None: the card): gtA[i][k] = e(B,
+    A_i[k]), computed once per signature set and kept on each RangeSig. On
+    a CUDA device the missing sets are paired in one batch by the pairing
+    kernels (the reference's route, range_proof.py:115-121); on the CPU by
+    the host oracle."""
+    dev = resolve(device)
     missing = [sg for sg in sigs if sg.gt is None]
     if missing and dev.type == "cuda":
         for sg, g in zip(missing, _pair_generator_with(
@@ -149,11 +150,12 @@ def _pair_generator_with(A: torch.Tensor) -> torch.Tensor:
     return GT.pair(b[0].expand(shape), b[1].expand(shape), qx, qy)
 
 
-def sig_gt_pow_tables(sigs: list[RangeSig], device="cpu") -> torch.Tensor:
-    """(ns*u, 64, 16, 6, 2, 16) on `device`: the 4-bit window tables of
-    every base gtA[i][k], base-major (i*u + k). Built on the host from
-    sig_gt_table once per signature set; each RangeSig keeps its tables on
-    the device last asked for."""
+def sig_gt_pow_tables(sigs: list[RangeSig], device=None) -> torch.Tensor:
+    """(ns*u, 64, 16, 6, 2, 16) on `device` (None: the card): the 4-bit
+    window tables of every base gtA[i][k], base-major (i*u + k). Built on
+    the host from sig_gt_table once per signature set; each RangeSig keeps
+    its tables on the device last asked for."""
+    device = resolve(device)
     gts = sig_gt_table(sigs, device)
     for sg, gt in zip(sigs, gts):
         if sg.gt_pow is None:
@@ -234,10 +236,12 @@ class RangeProofBatch:
                                for p in parts)
 
     @classmethod
-    def from_bytes(cls, buf: bytes, device="cpu") -> "RangeProofBatch":
-        """Decode the canonical bytes onto `device`, keeping the received
-        commitment bytes as the wire cache (the challenge hashes them as
-        transmitted). Raises on a truncated or inconsistent buffer."""
+    def from_bytes(cls, buf: bytes, device=None) -> "RangeProofBatch":
+        """Decode the canonical bytes onto `device` (None: the card),
+        keeping the received commitment bytes as the wire cache (the
+        challenge hashes them as transmitted). Raises on a truncated or
+        inconsistent buffer."""
+        device = resolve(device)
         u, l, V, ns = (int(x) for x in np.frombuffer(buf[:32], dtype="<i8"))
         off = 32
 
@@ -470,7 +474,9 @@ class RangeProofList:
         return b"".join(parts)
 
     @classmethod
-    def from_bytes(cls, buf: bytes, device="cpu") -> "RangeProofList":
+    def from_bytes(cls, buf: bytes, device=None) -> "RangeProofList":
+        """Decode a DP's payload onto `device` (None: the card)."""
+        device = resolve(device)
         n_values, n_batches = np.frombuffer(buf[:16], dtype="<i8")
         off = 16
         batches = []

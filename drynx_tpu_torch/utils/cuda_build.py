@@ -20,6 +20,7 @@ exception containment lets it through.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -252,12 +253,25 @@ def is_fault(exc: Exception, device=None) -> bool:
 
 _COUNT_LOCK = threading.Lock()
 
+# Rows of every counted launch, by kernel: {kernel: Counter({rows:
+# launches})}, kept for runs that report their launches' shapes
+LAUNCH_ROWS: dict[str, collections.Counter] = collections.defaultdict(
+    collections.Counter)
 
-def count(launches: dict, kernel: str) -> None:
-    """Add one launch of `kernel` to a wrapper module's counts; proof
-    threads launch beside the main thread, so the add holds a lock."""
+
+def count(launches: dict, kernel: str, rows: int) -> None:
+    """Add one launch of `kernel` on `rows` rows to a wrapper module's
+    counts and to LAUNCH_ROWS; proof threads launch beside the main
+    thread, so the adds hold a lock."""
     with _COUNT_LOCK:
         launches[kernel] += 1
+        LAUNCH_ROWS[kernel][rows] += 1
+
+
+def reset_launch_rows() -> None:
+    """Forget the launches' shapes recorded so far."""
+    with _COUNT_LOCK:
+        LAUNCH_ROWS.clear()
 
 
 def launch(name: str, entry: str, out, inputs, ints) -> None:
@@ -277,7 +291,7 @@ def launch(name: str, entry: str, out, inputs, ints) -> None:
     check(rc, entry)
 
 
-__all__ = ["KernelError", "build_all", "build_copies", "load", "check",
-           "check_operands", "count", "is_fault",
+__all__ = ["KernelError", "LAUNCH_ROWS", "build_all", "build_copies", "load",
+           "check", "check_operands", "count", "reset_launch_rows", "is_fault",
            "check_shape", "launch", "ptxas_report", "library_path",
            "nvcc_path", "BUILD_DIR"]

@@ -10,42 +10,53 @@ its registers capped; the variable-base ladder's team size kLadderTeam (4,
 6, 8) in csrc/g1_ops.cu; the G2 ladder's kG2LadderTeam (4, 6, 8), or its
 registers capped at 168, in csrc/g2_ops.cu; the windowed GT power's team
 size kPowTeam (6 lanes with one Fp2 slot each, or 3 with two) and the
-8-way product's kProdTeam (6 or 3) and register cap kProdWarpsPerSM (168
-registers, none, or 128) in csrc/gt_ops.cu. `cuda_build` builds them all
-at once with the package's flags. Every variant is checked against the
-package's plain versions before it is timed: the Miller loop, the
-ladders, the power and the 8-way product byte for byte against
-`miller_plain`, `scalar_mul_plain`, `g2_scalar_mul_plain`,
-`f12_wpow_plain` and `f12_mulreduce8_plain`, the fixed-base ladder as
-points (another team size sums in another order, so its Jacobian
-representative differs). Times are
-CUDA-event means at the main path's shapes: the Miller loop at 13,500
-pairings; the fixed-base ladder at W = 64 with 900 and 270 rows and at W =
-16 with 900 rows; the variable-base ladder at W = 64 with 90, 270 and 2,700
-rows and at W = 16 with 13,500; the G2 ladder at 13,500 rows; the power
-with cyclotomic squares at 63 bits on 1 row (the final exponentiation's
-power by u) and at 63 and 128 bits on 13,500; the 8-way product at the
-collection's 108,000, 36,000, 13,500 and 4,500 rows and the joint check's
-4,096, 512, 64, 8 and 1. Prints one JSON line per variant with its ptxas
-registers, stack and spills, then the card's name and power limit. The
-package keeps one kernel per function; PERF.md records the readings and
-the choice.
+product teams' kProdTeam (6 or 3), which the 8-way product and the Fp12
+product share, the 8-way product's register cap kProdWarpsPerSM (168
+registers, none, or 128) and the Fp12 product's (none, or 168) in
+csrc/gt_ops.cu; the Fp inverse's block size kThreads (32, 64, 128) in
+csrc/fp_inv.cu. `cuda_build` builds them all at once with the package's
+flags. Every variant is checked against the package's plain versions
+before it is timed: the Miller loop, the ladders, the power, the products
+and the inverse byte for byte against `miller_plain`, `scalar_mul_plain`,
+`g2_scalar_mul_plain`, `f12_wpow_plain`, `f12_mulreduce8_plain`,
+`f12_mul_plain` and `fp_inv_plain`, the fixed-base ladder as points
+(another team size sums in another order, so its Jacobian representative
+differs). Times are CUDA-event means at the main path's shapes: the Miller
+loop at 13,500 pairings; the fixed-base ladder at W = 64 with 900 and 270
+rows and at W = 16 with 900 rows; the variable-base ladder at W = 64 with
+90, 270 and 2,700 rows and at W = 16 with 13,500; the G2 ladder at 13,500
+rows; the power with cyclotomic squares at 63 bits on 1 row (the final
+exponentiation's power by u) and at 63 and 128 bits on 13,500; the 8-way
+product at the collection's 108,000, 36,000, 13,500 and 4,500 rows and the
+joint check's 4,096, 512, 64, 8 and 1, and in the same builds the Fp12
+product at 1 and 13,500 rows; the Fp inverse at the cluster survey's row
+counts (chip_smoke.CLUSTER_ROWS). Prints one JSON line per variant with
+its ptxas registers, stack and spills, then the card's name and power
+limit. The package keeps one kernel per function; PERF.md records the
+readings and the choice.
+
+    python3 scripts/torch_team_variants.py --kinds fp_inv,prod
+
+builds and times only the variants of the kinds named (miller,
+fixed_base, ladder, wpow, g2, prod, fp_inv), for a change that touches
+only those kernels.
 
     python3 scripts/torch_team_variants.py --against OTHER_ROOT
 
-times this checkout's variable-base ladder, G2 ladder, windowed GT power
-and 8-way product against another checkout's instead (for instance a
-parent commit unpacked with `git archive` under build/, which .gitignore
-lists). Each tree runs in a process of its own (the two packages share a
-name), in the order this, other, other, this; each builds its kernels with
-its own `cuda_build`, makes the same inputs from one seed, checks its
-kernels against its plain versions on the first rows and times the main
-path's shapes: the ladder at W = 64 on 90, 270, 900, 1,080 and 2,700 rows
-and at W = 16 on 13,500, the G2 ladder on 13,500, the power at 63 bits on
-1 row and at 63 and 128 bits on 13,500, the 8-way product at the nine
-shapes above. Prints one JSON line per run with each shape's time and a
-digest of each output (the two trees must agree), then the card's name
-and power limit.
+times this checkout's variable-base ladder, G2 ladder, windowed GT power,
+8-way product, Fp12 product and Fp inverse against another checkout's
+instead (for instance a parent commit unpacked with `git archive` under
+build/, which .gitignore lists). Each tree runs in a process of its own
+(the two packages share a name), in the order this, other, other, this;
+each builds its kernels with its own `cuda_build`, makes the same inputs
+from one seed, checks its kernels against its plain versions on the first
+rows and times the main path's shapes: the ladder at W = 64 on 90, 270,
+900, 1,080 and 2,700 rows and at W = 16 on 13,500, the G2 ladder on
+13,500, the power at 63 bits on 1 row and at 63 and 128 bits on 13,500,
+the 8-way product at the nine shapes above, the Fp12 product at 1 and
+13,500 rows, the Fp inverse at the cluster survey's row counts. Prints one
+JSON line per run with each shape's time and a digest of each output (the
+two trees must agree), then the card's name and power limit.
 
 It imports nothing of JAX and nothing of the drynx_tpu package. Without a
 card it exits with code 2.
@@ -61,6 +72,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import CLUSTER_ROWS  # noqa: E402  (numpy and torch only)
+
 REPS = 20
 MILLER_N = 13_500
 TEAM = "constexpr int kFixedBaseTeam = 32;"
@@ -69,6 +82,7 @@ POW_TEAM = "constexpr int kPowTeam = 6;"
 G2_TEAM = "constexpr int kG2LadderTeam = 8;"
 PROD_TEAM = "constexpr int kProdTeam = 6;"
 PROD_CAP = "constexpr int kProdWarpsPerSM = 12;"
+INV_BLOCK = "constexpr int kThreads = 32;"
 FIXED_BASE_SHAPES = (("W=64 N=900", 900, 64), ("W=64 N=270", 270, 64),
                      ("W=16 N=900", 900, 16))
 LADDER_SHAPES = (("W=64 N=90", 90, 64), ("W=64 N=270", 270, 64),
@@ -77,6 +91,8 @@ POW_SHAPES = (("63 bits N=1", 1, 63), ("63 bits N=13500", 13_500, 63),
               ("128 bits N=13500", 13_500, 128))
 G2_N = 13_500
 PROD_SHAPES = (108_000, 36_000, 13_500, 4_500, 4_096, 512, 64, 8, 1)
+MUL_SHAPES = (1, 13_500)
+INV_SHAPES = tuple(sorted(CLUSTER_ROWS["fp_inv"]))
 
 # (label, kind, source, (old, new) edit or None)
 VARIANTS = [
@@ -100,12 +116,18 @@ VARIANTS = [
      ] + [("g2_scalar_mul, at most 168 registers", "g2", "g2_ops",
            ("__launch_bounds__(32)\n    g2_scalar_mul_kernel",
             "__launch_bounds__(32, 12)\n    g2_scalar_mul_kernel"))
-     ] + [(f"f12_mulreduce8 lanes={g}", "prod", "gt_ops",
+     ] + [(f"products lanes={g}", "prod", "gt_ops",
            (PROD_TEAM, f"constexpr int kProdTeam = {g};")) for g in (6, 3)
-     ] + [(f"f12_mulreduce8, {what}", "prod", "gt_ops",
+     ] + [(f"products, {what}", "prod", "gt_ops",
            (PROD_CAP, f"constexpr int kProdWarpsPerSM = {w};"))
           for what, w in (("registers not capped", 1),
-                          ("at most 128 registers", 16))]
+                          ("at most 128 registers", 16))
+     ] + [("products, f12_mul at most 168 registers", "prod", "gt_ops",
+           ("__launch_bounds__(32)\n    f12_mul_kernel",
+            "__launch_bounds__(32, kProdWarpsPerSM)\n    f12_mul_kernel"))
+     ] + [(f"fp_inv {t} threads a block", "fp_inv", "fp_inv",
+           (INV_BLOCK, f"constexpr int kThreads = {t};"))
+          for t in (32, 64, 128)]
 
 
 def edited(source, edit, cuda_build):
@@ -187,6 +209,13 @@ def time_tree(root):
     shapes += [(f"f12_mulreduce8 N={n}", (eights(n),),
                 cuda_pairing.f12_mulreduce8_flat,
                 cuda_pairing.f12_mulreduce8_plain) for n in PROD_SHAPES]
+    shapes += [(f"f12_mul N={n}", (rows(gts, n), rows(gts.flip(0), n)),
+                cuda_pairing.f12_mul_flat, cuda_pairing.f12_mul_plain)
+               for n in MUL_SHAPES]
+    inv_x = F.from_int([int.from_bytes(rng.bytes(40), "little") % params.P
+                        for _ in range(max(INV_SHAPES))]).to(dev)
+    shapes += [(f"fp_inv N={n}", (inv_x[:n],), cuda_pairing.fp_inv_flat,
+                cuda_pairing.fp_inv_plain) for n in INV_SHAPES]
     out = {"tree": str(root)}
     for label, args, kern, plain in shapes:
         got = kern(*args)
@@ -202,8 +231,8 @@ def time_tree(root):
 
 
 def against(other):
-    """This tree's ladder and power against `other`'s, in turn this,
-    other, other, this; the trees' outputs must agree."""
+    """This tree's ladders, power, products and inverse against `other`'s,
+    in turn this, other, other, this; the trees' outputs must agree."""
     if not (other / "drynx_tpu_torch").is_dir():
         raise SystemExit(f"{other} holds no drynx_tpu_torch package")
     lines = []
@@ -239,6 +268,9 @@ def main():
             timeout=60).stdout.strip())
         return 0
     from chip_smoke import ptxas_summary
+    kinds = (set(sys.argv[2].split(",")) if sys.argv[1:2] == ["--kinds"]
+             else {kind for _, kind, _, _ in VARIANTS})
+    variants = [v for v in VARIANTS if v[1] in kinds]
     from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
     from drynx_tpu_torch.crypto import curve as C
     from drynx_tpu_torch.crypto import elgamal as eg
@@ -254,7 +286,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     libs = cuda_build.build_copies(
         [(source, edited(source, edit, cuda_build))
-         for _, _, source, edit in VARIANTS])
+         for _, _, source, edit in variants])
 
     rng = np.random.default_rng(11)
     rand = lambda n, bits: F.from_int(
@@ -299,6 +331,12 @@ def main():
     pick = torch.from_numpy(rng.integers(0, MILLER_N, 8 * PROD_SHAPES[0]))
     prod_g = gts[pick.to(dev)].reshape(-1, 8, 6, 2, 16)
     prod_want = cuda_pairing.f12_mulreduce8_plain(prod_g)
+    # the Fp12 product on pairing values; the inverse on residues from the
+    # seed
+    mul_a, mul_b = gts, gts.flip(0).contiguous()
+    mul_want = cuda_pairing.f12_mul_plain(mul_a, mul_b)
+    inv_x = rand(max(INV_SHAPES), 256)
+    inv_want = cuda_pairing.fp_inv_plain(inv_x)
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def held(name, label, got, want, same):
@@ -308,7 +346,7 @@ def main():
 
     points = lambda a, b: all(torch.equal(x, y)
                               for x, y in zip(C.normalize(a), b))
-    for (name, kind, _, _), (lib, log) in zip(VARIANTS, libs):
+    for (name, kind, _, _), (lib, log) in zip(variants, libs):
         row = {"variant": name}
         if kind == "miller":
             row["ptxas"] = ptxas_summary(log, "miller_kernel")
@@ -366,6 +404,27 @@ def main():
                 run()
                 torch.cuda.synchronize()
                 held(name, f"N={n}", out, prod_want[:n], torch.equal)
+                row[f"ms N={n}"] = timed(run)
+            row["f12_mul ptxas"] = ptxas_summary(log, "f12_mul_kernel")
+            for n in MUL_SHAPES:
+                out = torch.empty_like(mul_want[:n])
+                run = lambda n=n, out=out: cuda_build.check(
+                    lib.f12_mul(mul_a.data_ptr(), mul_b.data_ptr(),
+                                out.data_ptr(), n, stream()), name)
+                run()
+                torch.cuda.synchronize()
+                held(name, f"f12_mul N={n}", out, mul_want[:n], torch.equal)
+                row[f"f12_mul ms N={n}"] = timed(run)
+        elif kind == "fp_inv":
+            row["ptxas"] = ptxas_summary(log, "fp_inv_kernel")
+            for n in INV_SHAPES:
+                out = torch.empty_like(inv_want[:n])
+                run = lambda n=n, out=out: cuda_build.check(
+                    lib.fp_inv(inv_x.data_ptr(), out.data_ptr(), n,
+                               stream()), name)
+                run()
+                torch.cuda.synchronize()
+                held(name, f"N={n}", out, inv_want[:n], torch.equal)
                 row[f"ms N={n}"] = timed(run)
         else:
             row["ptxas"] = ptxas_summary(log, "f12_wpow_kernel")

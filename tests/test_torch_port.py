@@ -21,7 +21,7 @@ import torch
 
 from chip_smoke import (WPOW_BITS, crafted_fixed_base_cases,
                         crafted_g2_ladder_cases, crafted_ladder_cases,
-                        crafted_wpow_cases)
+                        crafted_wpow_cases, fp_inv_edge_inputs)
 from drynx_tpu_torch import flagship
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
@@ -31,6 +31,7 @@ from drynx_tpu_torch.crypto import fp2 as F2
 from drynx_tpu_torch.crypto import fp12 as F12
 from drynx_tpu_torch.crypto import g2 as G2
 from drynx_tpu_torch.crypto import params, refimpl
+from drynx_tpu_torch.proofs import range_proof as rp
 from drynx_tpu_torch.proofs import requests as rq
 from drynx_tpu_torch.service import api
 from drynx_tpu_torch.service import service as svc
@@ -90,6 +91,41 @@ def test_entry_points_need_cuda_unless_the_cpu_is_named(monkeypatch, call):
         call()
 
 
+@pytest.fixture(scope="module")
+def small_range_sigs():
+    """One digit-signature set of base 2 with its GT tables, on the CPU."""
+    sigs = [rp.init_range_sig(2, np.random.default_rng(3))]
+    rp.sig_gt_pow_tables(sigs, "cpu")
+    return sigs
+
+
+@pytest.mark.parametrize("name", ["sig_gt_table", "sig_gt_pow_tables",
+                                  "batch_from_bytes", "list_from_bytes"])
+def test_range_proof_tables_and_decoders_need_cuda_unless_the_cpu_is_named(
+        monkeypatch, small_range_sigs, name):
+    """Without a device they take the card; named, the CPU."""
+    batch = np.asarray([2, 1, 0, 0], "<i8").tobytes()    # u, l, V, ns
+    payload = rp.RangeProofList(n_values=0, batches=[
+        (np.arange(0), rp.RangeProofBatch.from_bytes(batch, "cpu"))
+    ]).to_bytes()
+    call = {"sig_gt_table": lambda *d: rp.sig_gt_table(small_range_sigs, *d),
+            "sig_gt_pow_tables": lambda *d: rp.sig_gt_pow_tables(
+                small_range_sigs, *d),
+            "batch_from_bytes": lambda *d: rp.RangeProofBatch.from_bytes(
+                batch, *d).to_bytes(),
+            "list_from_bytes": lambda *d: rp.RangeProofList.from_bytes(
+                payload, *d).to_bytes()}[name]
+    want = call("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    got = call("cpu")
+    assert (torch.equal(got, want) if isinstance(got, torch.Tensor)
+            else got == want)
+    if name.endswith("bytes"):
+        assert got == (batch if name == "batch_from_bytes" else payload)
+
+
 def _gt(k):
     """gtB^k on the host: (6, 2, 16) limbs."""
     return F12.from_ref(refimpl.fp12_pow(refimpl.pair(refimpl.G1, refimpl.G2),
@@ -136,16 +172,18 @@ def test_cpu_tensors_take_the_plain_versions_without_counting(kernel):
 
 def test_launch_counts_lose_no_update_across_threads():
     """Proof threads count launches beside the main thread: with a very
-    short switch interval, 8 threads x 2,000 adds give exactly 16,000."""
+    short switch interval, 8 threads x 2,000 adds give exactly 16,000, and
+    the launches' row counts as many."""
     import threading
 
     counts = {"k": 0}
+    cuda_build.reset_launch_rows()
     saved = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=lambda: [
-            cuda_build.count(counts, "k") for _ in range(2000)])
-            for _ in range(8)]
+        threads = [threading.Thread(target=lambda r=r: [
+            cuda_build.count(counts, "k", r) for _ in range(2000)])
+            for r in (1, 90, 1, 13500, 1, 90, 1, 1)]
         for t in threads:
             t.start()
         for t in threads:
@@ -154,6 +192,9 @@ def test_launch_counts_lose_no_update_across_threads():
     finally:
         sys.setswitchinterval(saved)
     assert counts["k"] == 16000
+    assert cuda_build.LAUNCH_ROWS["k"] == {1: 10000, 90: 4000, 13500: 2000}
+    cuda_build.reset_launch_rows()
+    assert not cuda_build.LAUNCH_ROWS
 
 
 def test_kernel_build_targets_hopper_and_names_every_source():
@@ -461,6 +502,46 @@ def test_mulreduce8_team_kernel_at_main_path_shapes(cuda, n):
     got = cuda_pairing.f12_mulreduce8_flat(g)
     torch.cuda.synchronize()
     assert torch.equal(got, cuda_pairing.f12_mulreduce8_plain(g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 21, 13500])
+def test_f12_mul_team_kernel_at_main_path_shapes(cuda, n):
+    """The final exponentiation's and the joint check's products (N = 1),
+    the collection's a = gt1 gt2 (13,500 rows) and partly filled last
+    blocks."""
+    gts = _gt_operands(160, cuda)
+    a = gts.repeat((n + 159) // 160, 1, 1, 1)[:n].contiguous()
+    b = a.flip(0).contiguous()
+    got = cuda_pairing.f12_mul_flat(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f12_mul_plain(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 21, 90, 128, 129, 13500])
+def test_fp_inv_kernel_at_main_path_shapes(cuda, n):
+    """The safegcd inverse (one row a thread, 32 a block) with a partly
+    filled last block (1, 5, 21, 129), whole blocks (128), the
+    decryption's 90 rows and the joint check's 13,500, on residues from a
+    seed."""
+    rng = np.random.default_rng(n)
+    x = F.from_int([int.from_bytes(rng.bytes(40), "little") % params.P
+                    for _ in range(n)]).to(cuda)
+    got = cuda_pairing.fp_inv_flat(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.fp_inv_plain(x))
+
+
+@pytest.mark.gpu
+def test_fp_inv_kernel_on_edge_inputs(cuda):
+    """0 (which x^(p-2) maps to 0), 1, p - 1, R mod p and every power of
+    two."""
+    x = fp_inv_edge_inputs(F, params, cuda)
+    got = cuda_pairing.fp_inv_flat(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.fp_inv_plain(x))
+    assert not got[0].any()
 
 
 @pytest.mark.gpu

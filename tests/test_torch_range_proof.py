@@ -181,9 +181,9 @@ def test_signature_tables_are_the_references(collection):
     for j, t in zip(jsigs, tsigs):
         assert j.secret == t.secret and j.public == t.public
         assert np.array_equal(t.A.numpy(), j.A.astype(np.int32))
-    assert np.array_equal(TRP.sig_gt_table(tsigs).numpy(),
+    assert np.array_equal(TRP.sig_gt_table(tsigs, "cpu").numpy(),
                           np.asarray(JRP.sig_gt_table(jsigs)).astype(np.int32))
-    assert np.array_equal(TRP.sig_gt_pow_tables(tsigs).numpy(),
+    assert np.array_equal(TRP.sig_gt_pow_tables(tsigs, "cpu").numpy(),
                           JRP.sig_gt_pow_tables(jsigs).astype(np.int32))
     assert np.array_equal(TRP.gt_base_table().numpy(),
                           np.asarray(JRP.gt_base_table()).astype(np.int32))

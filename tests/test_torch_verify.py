@@ -314,7 +314,7 @@ def test_rlc_total_equals_reference_under_a_shared_draw(payloads):
     p = payloads
     buf = _tampered(p["bytes"][1])
     jpb = p["JRP"].RangeProofList.from_bytes(buf).batches[0][1]
-    tpb = TRP.RangeProofList.from_bytes(buf).batches[0][1]
+    tpb = TRP.RangeProofList.from_bytes(buf, "cpu").batches[0][1]
     j_ok, j_r, j_s = p["JRP"].rlc_prelude(jpb, p["pubs"], p["ca_tbl"],
                                           rng=np.random.default_rng(5))
     t_ok, t_r, t_s = TRP.rlc_prelude(tpb, p["pubs"], p["ca_t"],
@@ -331,7 +331,8 @@ def test_per_value_check_rejects_only_the_tampered_value(payloads,
                                                          monkeypatch):
     """Its launches are chip_smoke.py's per-value constant."""
     p = payloads
-    pb = TRP.RangeProofList.from_bytes(_tampered(p["bytes"][1])).batches[0][1]
+    pb = TRP.RangeProofList.from_bytes(_tampered(p["bytes"][1]),
+                                       "cpu").batches[0][1]
     counts = _count_wrapper_calls(monkeypatch)
     assert TRP.verify_range_proofs(pb, p["pubs"], p["ca_t"]).tolist() == [
         False, True]
@@ -343,7 +344,8 @@ def test_per_value_check_rejects_only_the_tampered_value(payloads,
 # ---------------------------------------------------------------------------
 
 def _joint_batch(payloads):
-    lists = [TRP.RangeProofList.from_bytes(b) for b in payloads["bytes"]]
+    lists = [TRP.RangeProofList.from_bytes(b, "cpu")
+             for b in payloads["bytes"]]
     return TRP._concat_batches([lst.batches[0][1] for lst in lists])
 
 
@@ -457,7 +459,7 @@ def test_decoding_round_trips_the_port_encoding(payloads):
     """from_bytes then to_bytes gives the payload back, infinity included
     (the wire's all-zero points)."""
     for buf in payloads["bytes"]:
-        assert TRP.RangeProofList.from_bytes(buf).to_bytes() == buf
+        assert TRP.RangeProofList.from_bytes(buf, "cpu").to_bytes() == buf
     g1 = np.zeros((2, 64), np.uint8)
     g1[1] = TRP._g1_bytes_host(refimpl.G1)
     pts = TRP._g1_from_bytes(g1, "cpu")
