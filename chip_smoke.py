@@ -11,22 +11,26 @@ Phases (any failed check exits non-zero; nothing is caught):
      its output against its plain PyTorch version on the same inputs, byte
      for byte; time both with CUDA events; print each kernel's ptxas
      registers, stack and spills. The Fp inverse runs at every row count
-     of the cluster survey's launches (CLUSTER_ROWS), the Fp12 product at
-     13,500 rows and at N = 1 (the final exponentiation's), the Fp12
-     inverse, cyclotomic square and slot maps at 13,500 rows and at N = 1.
+     of the cluster survey's launches (CLUSTER_ROWS), the reduce at R = 10
+     over 180 columns and R = 3 over 90, the Fp12 product at 13,500 rows
+     and at N = 1 (the final exponentiation's), the Fp12 inverse,
+     cyclotomic square and slot maps at 13,500 rows and at N = 1.
      These rows are summed in the JSON line. The Fp inverse also runs at
      N in {1, 5, 21, 128, 129} and on edge inputs (0, 1, p - 1, R mod p,
-     every power of two), the Fp12 product at N in {5, 21}, and the six
-     other team kernels at more shapes (the fixed-base ladder at W in {1,
-     16, 17, 64} x N in {1, 90, 270, 900} and on crafted tables, the
-     Miller loop at N = 1 and 1,000,
-     the variable-base ladder on crafted scalars at W in {1, 2, 16, 64}
-     and at N in {1, 5, 21}, the G2 ladder on crafted scalars and at N in
-     {1, 5, 21}, the windowed GT power on crafted values and exponents at
-     n_bits in {1, 2, 3, 4, 63, 64, 128, 256} with and without cyc and at
-     N in {1, 5, 21}, the 8-way product at the joint check's fold shapes
-     and at N in {5, 21}), checked and timed the same way but left out of
-     the JSON line's sums.
+     every power of two), the Fp12 product at N in {5, 21}, and more
+     kernels at more shapes: the fixed-base ladder at W in {1, 16, 17, 64}
+     x N in {1, 90, 270, 900} and on crafted tables; the reduce on crafted
+     chains (every branch of the complete add) at R in {1, 2, 3, 10} and
+     at (R, N) in {(1, 90), (10, 13)}; the batched add at the cluster
+     survey's other shapes (810 and 13,500 rows); the slot maps on crafted
+     rows at N in {1, 5, 7}; the Miller loop at N = 1 and 1,000; the
+     variable-base ladder on crafted scalars at W in {1, 2, 16, 64} and at
+     N in {1, 5, 21}; the G2 ladder on crafted scalars and at N in {1, 5,
+     21}; the windowed GT power on crafted values and exponents at n_bits
+     in {1, 2, 3, 4, 63, 64, 128, 256} with and without cyc and at N in
+     {1, 5, 21}; the 8-way product at the joint check's fold shapes and at
+     N in {5, 21}. These are checked and timed the same way but left out
+     of the JSON line's sums.
   3. Run the flagship encrypted logistic-regression survey at the full
      Pima width (10 DPs x 768 records, d=8, K=2, 450 GD steps, 3 servers,
      discrete-log table of +-10000): with every launch count set to 0 just
@@ -55,8 +59,9 @@ Phases (any failed check exits non-zero; nothing is caught):
      `LocalCluster.run_survey` (3 CNs, 10 DPs, 3 VNs, seed 4, log_reg at
      the Pima width, ranges (16, 5), thresholds 1.0), counted as above: an
      audit block of 3 VNs x 16 proofs, every entry BM_TRUE; the row
-     counts of every kernel's launches printed, those of the Fp inverse and
-     the Fp12 product equal to CLUSTER_ROWS; all 90
+     counts of every kernel's launches printed (the reduce's as (R, N)),
+     those of the reduce, the Fp inverse, the Fp12 product and the slot
+     maps equal to CLUSTER_ROWS; all 90
      decrypted values exact and found; the weights within 1e-3 of GD on
      the CPU; the same transcript digest from a second run with the same
      seed (verification caches cleared); a key-switch payload from a VN's
@@ -69,6 +74,7 @@ Phases (any failed check exits non-zero; nothing is caught):
 
 It imports nothing of JAX and nothing of the drynx_tpu package.
 """
+import functools
 import json
 import re
 import statistics
@@ -154,16 +160,22 @@ EXPECTED_LAUNCHES_CLUSTER = {"fixed_base_mul": 15, "scalar_mul": 7,
                              "f12_mulreduce8": 16, "miller": 1, "f12_inv": 1,
                              "f12_csqr": 4, "f12_slotmul": 17, "f12_wpow": 5,
                              "f12_pow": 0}
-# the row counts of the cluster survey's B4 and B7 launches, {rows:
-# launches}, as phase 7 records them; phase 2 times both kernels at each.
-# B4: the collection's ciphertexts and D, the canonical aggregate, the
-# key-switch proof's transcript, decryption, the joint check's RLC points,
-# the VN's key-switch check; B7: the collection's a = gt1 gt2 and the
-# joint check's GPhi12 gate, then its final exponentiation (15) and total
-# (2)
-CLUSTER_ROWS = {"fp_inv": {1800: 1, 900: 1, 180: 1, 1444: 2, 90: 1,
+# the row counts of the cluster survey's B3, B4, B7 and B11 launches,
+# {rows: launches} (B3's rows (R, N)), as phase 7 records them; phase 2
+# times the kernels at each. B3: the canonical aggregate of the 10 DPs'
+# ciphertexts and the VN's aggregation-proof check (R = 10 over 2 x 90
+# points), the key switch's two sums over the 3 CNs; B4: the collection's
+# ciphertexts and D, the canonical aggregate, the key-switch proof's
+# transcript, decryption, the joint check's RLC points, the VN's
+# key-switch check; B7: the collection's a = gt1 gt2 and the joint check's
+# GPhi12 gate, then its final exponentiation (15) and total (2); B11: the
+# joint check's GPhi12 gate (two frob2) and order gate (frob1), then its
+# final exponentiation (14)
+CLUSTER_ROWS = {"point_reduce": {(10, 180): 2, (3, 90): 2},
+                "fp_inv": {1800: 1, 900: 1, 180: 1, 1444: 2, 90: 1,
                            13_500: 1},
-                "f12_mul": {13_500: 2, 1: 17}}
+                "f12_mul": {13_500: 2, 1: 17},
+                "f12_slotmul": {13_500: 3, 1: 14}}
 
 # H100 SXM: 132 SMs, 64 32-bit integer multiply-adds per SM per clock,
 # 3.35 TB/s device memory (NVIDIA data sheet and Hopper white paper)
@@ -385,6 +397,76 @@ def crafted_wpow_cases(F, F12, params, refimpl, device):
     edges = sum(7 << b for b in (15, 47, 127))
     ks = [0, 1, (1 << 256) - 1, params.U, edges, edges ^ ((1 << 256) - 1)]
     return (F12.from_ref_batch(vals).to(device), F.from_int(ks).to(device))
+
+
+REDUCE_RS = (1, 2, 3, 10)
+
+
+def crafted_reduce_cases(C, params, refimpl, r, device):
+    """(r, 7, 3, 16) summands of the reduce, one column a case; for r >= 2
+    their chains send the complete add through every branch
+    (tests/test_torch_reduce_slotmul.py checks that they do):
+      0. distinct multiples of the generator;
+      1. row 0 at infinity;
+      2. row r // 2 at infinity;
+      3. the last row the sum of the rows before it (the last add doubles);
+      4. row 1 the negation of row 0 (the sum meets infinity, then goes on);
+      5. the last row the negation of the sum before it (the sum ends at
+         infinity);
+      6. every row at infinity.
+    Finite summands are Jacobian with Z = 2 + j + c at row j, column c
+    (not affine, as the main path's are not). Seven columns are not a
+    multiple of the columns a block of the kernel holds. C, params,
+    refimpl: the port's curve, params and refimpl modules."""
+    P = params.P
+    mont = lambda v: params.to_limbs(v * params.R % P)
+    cols = [[refimpl.g1_mul(refimpl.G1, 5 + 7 * j + 100 * c)
+             for j in range(r)] for c in range(7)]
+    cols[1][0] = None
+    cols[2][r // 2] = None
+    if r >= 2:
+        head = lambda col: functools.reduce(refimpl.g1_add, col[:-1], None)
+        cols[3][-1] = head(cols[3])
+        cols[4][1] = refimpl.g1_neg(cols[4][0])
+        cols[5][-1] = refimpl.g1_neg(head(cols[5]))
+    cols[6] = [None] * r
+
+    def jac(pt, z):
+        if pt is None:
+            return C.from_ref(None)
+        x, y = pt
+        return torch.tensor([mont(x * z * z % P), mont(y * z ** 3 % P),
+                             mont(z)], dtype=torch.int32)
+
+    return torch.stack([torch.stack([jac(cols[c][j], 2 + j + c)
+                                     for c in range(7)])
+                        for j in range(r)]).to(device)
+
+
+SLOTMUL_NS = (1, 5, 7)
+
+
+def crafted_slotmul_cases(params, device):
+    """(7, 6, 2, 16) Fp12 rows for the slot maps: every slot 0; every limb
+    the canonical maximum p - 1 (stored residues, so the value (p - 1) /
+    R); every slot -1 (Montgomery p - 1); two rows that mix 0, p - 1, -1
+    and seeded values slot by slot and part by part; two seeded rows.
+    Their first 1, 5 and 7 rows are the shapes the CPU tests and the card
+    hold them at. params: the port's params module."""
+    P = params.P
+    rng = np.random.default_rng(31)
+    rand = lambda: params.to_limbs(
+        int.from_bytes(rng.bytes(40), "little") % P * params.R % P)
+    zero, top = params.to_limbs(0), params.to_limbs(P - 1)
+    minus1 = params.to_limbs((P - 1) * params.R % P)
+    rows = [[(zero, zero)] * 6, [(top, top)] * 6, [(minus1, minus1)] * 6,
+            [(zero, top), (top, zero), (minus1, zero), (zero, minus1),
+             (rand(), zero), (top, rand())],
+            [(rand(), top), (zero, rand()), (minus1, rand()),
+             (rand(), minus1), (top, minus1), (zero, zero)],
+            [(rand(), rand()) for _ in range(6)],
+            [(rand(), rand()) for _ in range(6)]]
+    return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
 def fp_inv_edge_inputs(F, params, device):
@@ -697,6 +779,10 @@ def main():
     b900[0], b900[1] = a900[0], C.neg(a900[1:2])[0]
     b900[2] = C.infinity((), dev)
     zs = cts[0, :, 1, 2].contiguous()                        # (V, 16) nonzero Z
+    # the key switch's sums over the servers: its callers hand the reduce
+    # contiguous (R, N, 3, 16) tensors, as these are
+    ks_k = cts[:N_SERVERS, :, 0].contiguous()
+    ks_c = cts[:N_SERVERS, :, 1].contiguous()
     # B4 at the cluster survey's row counts: canonical residues from a seed
     inv_rng = np.random.default_rng(PROOF_SEED + 4)
     inv_x = F.from_int([int.from_bytes(inv_rng.bytes(40), "little") % bn256.P
@@ -833,12 +919,12 @@ def main():
              lambda: cuda_ops.point_reduce_plain(cts.reshape(NUM_DPS, -1, 3, 16)),
              MM_G1_ADD * (NUM_DPS - 1), 2 * V, (NUM_DPS + 1) * 2 * V * 192),
             (f"R={N_SERVERS} N={V} (key switch K sum)",
-             lambda: cuda_ops.point_reduce_flat(cts[:N_SERVERS, :, 0]),
-             lambda: cuda_ops.point_reduce_plain(cts[:N_SERVERS, :, 0]),
+             lambda: cuda_ops.point_reduce_flat(ks_k),
+             lambda: cuda_ops.point_reduce_plain(ks_k),
              MM_G1_ADD * (N_SERVERS - 1), V, (N_SERVERS + 1) * V * 192),
             (f"R={N_SERVERS} N={V} (key switch C sum)",
-             lambda: cuda_ops.point_reduce_flat(cts[:N_SERVERS, :, 1]),
-             lambda: cuda_ops.point_reduce_plain(cts[:N_SERVERS, :, 1]),
+             lambda: cuda_ops.point_reduce_flat(ks_c),
+             lambda: cuda_ops.point_reduce_plain(ks_c),
              MM_G1_ADD * (N_SERVERS - 1), V, (N_SERVERS + 1) * V * 192),
         ],
         "point_add": [
@@ -948,15 +1034,21 @@ def main():
             for n in (48, 256)
         ],
     }
-    # the six team kernels at more shapes than the main path's and on
-    # crafted inputs (the 8-way product at the joint check's small
-    # shapes): checked and timed like the rows above, not summed.
-    # The crafted sums repeat one point, which doubles compute in far fewer
-    # products than adds of distinct points: their bound counts only bytes
+    # the team kernels and the slot map at more shapes than the main
+    # path's and on crafted inputs (the 8-way product at the joint check's
+    # small shapes, the add at the cluster survey's other shapes): checked
+    # and timed like the rows above, not summed. The crafted sums repeat
+    # one point or meet infinity, which compute in far fewer products than
+    # adds of distinct points: their bound counts only bytes
     rng_x = np.random.default_rng(PROOF_SEED + 2)
     ladder_crafted = crafted_ladder_cases(C, F, refimpl, dev)
     g2_crafted = crafted_g2_ladder_cases(G2, F, refimpl, dev)
     wpow_crafted = crafted_wpow_cases(F, F12, bn256, refimpl, dev)
+    reduce_crafted = [crafted_reduce_cases(C, bn256, refimpl, r, dev)
+                      for r in REDUCE_RS]
+    slot_crafted = crafted_slotmul_cases(bn256, dev)
+    # B5's other cluster shapes: the survey's operands, repeated
+    a13500, b13500 = a900.repeat(15, 1, 1), b900.repeat(15, 1, 1)
 
     def scalars(n, n_windows):
         lim = min(refimpl.N, 16 ** n_windows)
@@ -964,6 +1056,40 @@ def main():
                            for _ in range(n)]).to(dev)
 
     extra = {
+        # the crafted chains (every branch of the complete add), a reduce
+        # of one row, and a partly filled block
+        "point_reduce": [
+            (f"crafted R={len(t)} N={t.shape[1]}",
+             (lambda t=t: cuda_ops.point_reduce_flat(t)),
+             (lambda t=t: cuda_ops.point_reduce_plain(t)), 0, t.shape[1],
+             (len(t) + 1) * t.shape[1] * 192)
+            for t in reduce_crafted
+        ] + [
+            (f"R={r} N={n}",
+             (lambda r=r, n=n: cuda_ops.point_reduce_flat(
+                 a900[:r * n].reshape(r, n, 3, 16))),
+             (lambda r=r, n=n: cuda_ops.point_reduce_plain(
+                 a900[:r * n].reshape(r, n, 3, 16))),
+             MM_G1_ADD * (r - 1), n, (r + 1) * n * 192)
+            for r, n in ((1, V), (10, 13))
+        ],
+        "point_add": [
+            (f"N={n} (cluster survey)",
+             (lambda n=n: cuda_ops.point_add_flat(a13500[:n], b13500[:n])),
+             (lambda n=n: cuda_ops.point_add_plain(a13500[:n], b13500[:n])),
+             MM_G1_ADD, n, 3 * n * 192)
+            for n in (810, 13_500)
+        ],
+        # the crafted rows (zero slots, limbs at p - 1, -1, mixed)
+        "f12_slotmul": [
+            (f"crafted N={n} ({w})",
+             (lambda w=w, n=n: cuda_pairing.f12_slotmul_flat(
+                 slot_crafted[:n], w)),
+             (lambda w=w, n=n: cuda_pairing.f12_slotmul_plain(
+                 slot_crafted[:n], w)),
+             MM_F12_SLOTMUL, n, 2 * n * 768)
+            for n in SLOTMUL_NS for w in cuda_pairing.SLOT_MAPS
+        ],
         # partly filled last blocks, whole blocks (128 rows) and the edge
         # inputs (0 among them)
         "fp_inv": [

@@ -214,13 +214,15 @@ def point_add_plain(p, q):
 # Wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
-def _launch(kernel, entry, out, inputs, ints):
+def _launch(kernel, entry, out, inputs, ints, shape=None):
     """Launch csrc/g1_ops.cu's `entry` on the current stream into `out`
-    and count it; raises if CUDA refused the launch."""
+    and count it, recording the launch's shape (its rows, out.shape[0],
+    unless given); raises if CUDA refused the launch."""
     if out.shape[0] == 0:
         return out
     cuda_build.launch("g1_ops", entry, out, inputs, ints)
-    cuda_build.count(LAUNCHES, kernel, out.shape[0])
+    cuda_build.count(LAUNCHES, kernel,
+                     out.shape[0] if shape is None else shape)
     return out
 
 
@@ -261,7 +263,8 @@ def scalar_mul_flat(p, k, n_windows: int = 64):
 
 
 def point_reduce_flat(pts):
-    """Group-add reduce over axis 0: (R, N, 3, 16) -> (N, 3, 16)."""
+    """Group-add reduce over axis 0: (R, N, 3, 16) -> (N, 3, 16). A launch
+    is recorded in LAUNCH_ROWS as (R, N)."""
     device = cuda_build.check_operands(("pts", pts))
     R, n = pts.shape[0], pts.shape[1]
     cuda_build.check_shape("pts", pts, (R, n, 3, NUM_LIMBS))
@@ -270,7 +273,7 @@ def point_reduce_flat(pts):
     if device.type == "cpu":
         return point_reduce_plain(pts)
     return _launch("point_reduce", "g1_point_reduce", _empty_points(n, device),
-                   (pts,), (R, n))
+                   (pts,), (R, n), shape=(R, n))
 
 
 def point_add_flat(p, q):

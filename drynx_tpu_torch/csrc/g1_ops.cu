@@ -1,9 +1,9 @@
 // bn256 G1 kernels of the encrypted survey's main path. Each replaces one
 // Pallas TPU kernel of drynx_tpu/crypto/pallas_ops.py;
 // drynx_tpu_torch/crypto/cuda_ops.py binds them with ctypes and holds each
-// beside its plain PyTorch version. The two ladders give each row a team
-// of threads (their notes below); the others run one curve element per
-// thread.
+// beside its plain PyTorch version. The two ladders and the reduce give
+// each row a team of threads (their notes below); the batched add runs one
+// curve element per thread.
 //
 // What bounds them: integer multiply-adds (a Montgomery product is 64
 // 32x32->64-bit products plus as many for the reduction, on the IMAD
@@ -11,7 +11,9 @@
 // path's 90-900 elements the launches fill only a few of the 132 SMs, so
 // the latency of the dependent multiply chains, not the card's multiply
 // rate, sets their time: a Montgomery product's carry chain is one long
-// dependency, ~1-2 us for one warp alone on its scheduler.
+// dependency, ~1-2 us for one warp alone on its scheduler. The teams cut
+// that chain: each splits a group-law step's independent products over
+// its lanes.
 //
 // Plain C entry points: each launches on the caller's stream and returns
 // cudaGetLastError(), so a refused launch reaches the wrapper, which raises.
@@ -153,16 +155,51 @@ __global__ void __launch_bounds__(kLadderThreads)
 
 // Kernel 3 (pallas_ops._point_reduce_kernel): complete-add sum over axis 0
 // of (R, N, 3, 16), rows in order 0..R-1.
-__global__ void point_reduce_kernel(const int32_t* __restrict__ pts,
-                                    int32_t* __restrict__ out, int r, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  G1 acc = load_g1(pts + (size_t)i * kPointWords);
+//
+// The sum is a chain: each add needs the one before. So a team of
+// kReduceTeam lanes computes one column, and each complete add is
+// team_ladder.cuh's team_add, the body the two ladders share: its 5
+// levels of 4, 8, 6, 3 and 2 independent products spread over the lanes,
+// then the reference's selects. The team adds the rows in the reference's
+// order, 0 to R - 1, with the plain formulas on canonical residues, so its
+// limbs equal point_reduce_plain's byte for byte (a tree over R would give
+// another Jacobian representative). Every lane reads each summand itself,
+// a broadcast 16-byte load of the same 192 bytes, and every lane holds the
+// running sum; lane 0 writes it.
+//
+// What bounds it: the chain's latency. With 8 lanes an add is 5 products
+// of chain (one a level) against the ~23 of one thread's padd (the add's
+// 16 and the double it may select, 7), and the main path's 90-180 columns
+// (23-45 warps, one a block) leave most SMs idle whatever the team size.
+// On an H100 80GB HBM3 at 700 W: 0.063 ms at R = 10 over 180 columns and
+// 0.023-0.027 at R = 3 over 90 through the wrapper, against 0.389 and
+// 0.088 for one thread a column (an add ~6.5 us of device time); 4 lanes
+// measured 10-22 % slower, lane 0 staging each summand in shared memory
+// no faster (scripts/torch_team_variants.py). ptxas: 166 registers, no
+// stack.
+constexpr int kReduceTeam = 8;   // lanes per column
+constexpr int kReduceTeamsPerWarp = 32 / kReduceTeam;   // a block is a warp
+static_assert(32 % kReduceTeam == 0, "the teams tile a warp");
+
+using ReduceTeam = Team<Fp, kReduceTeam, kLadderWidth>;
+
+__global__ void __launch_bounds__(32)
+    point_reduce_kernel(const int32_t* __restrict__ pts,
+                        int32_t* __restrict__ out, int r, int n) {
+  __shared__ Fp xch[kReduceTeamsPerWarp][2][kLadderWidth];
+  const int team = threadIdx.x / kReduceTeam;
+  const int i = blockIdx.x * kReduceTeamsPerWarp + team;
+  if (i >= n) return;                    // the whole team leaves
+  const int slot = threadIdx.x - kReduceTeam * team;
+  ReduceTeam tm{xch[team], team_mask<kReduceTeam>(kReduceTeam * team), slot,
+                0};
+  G1 acc = load_g1_v(pts + (size_t)i * kPointWords);
 #pragma unroll 1
   for (int j = 1; j < r; ++j) {
-    acc = padd(acc, load_g1(pts + ((size_t)j * n + i) * kPointWords));
+    const G1 q = load_g1_v(pts + ((size_t)j * n + i) * kPointWords);
+    acc = team_add(tm, acc, q);
   }
-  store_g1(out + (size_t)i * kPointWords, acc);
+  if (slot == 0) store_g1(out + (size_t)i * kPointWords, acc);
 }
 
 // Kernel 5 (pallas_ops._point_add_kernel): batched complete add.
@@ -198,8 +235,9 @@ int g1_scalar_mul(const int32_t* p, const int32_t* k, int32_t* out, int n,
 
 int g1_point_reduce(const int32_t* pts, int32_t* out, int r, int n,
                     void* stream) {
-  point_reduce_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      pts, out, r, n);
+  const int blocks = (n + kReduceTeamsPerWarp - 1) / kReduceTeamsPerWarp;
+  point_reduce_kernel<<<blocks, 32, 0, (cudaStream_t)stream>>>(pts, out, r,
+                                                                 n);
   return (int)cudaGetLastError();
 }
 

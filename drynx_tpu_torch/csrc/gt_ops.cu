@@ -3,7 +3,8 @@
 // drynx_tpu_torch/crypto/cuda_pairing.py binds them with ctypes and holds
 // each beside its plain PyTorch version. f12_wpow, f12_mul and
 // f12_mulreduce8 give each row a team of threads (their notes below, one
-// team product); the others run one row per thread.
+// team product), f12_slotmul each Fp2 slot a thread; the others run one
+// row per thread.
 //
 //   f12_mul         replaces _f12_mul_kernel         (f12_mul_flat)
 //   f12_mulreduce8  replaces _f12_mulreduce8_kernel  (f12_mulreduce8_flat)
@@ -28,10 +29,10 @@
 //
 // The verification kernels are the same kind of chain. f12_inv is 488
 // Montgomery products per row, 379 of them the Fermat inverse's dependent
-// chain; f12_csqr 18 and f12_slotmul 18 (six Fp2 products by constants that
-// every thread reads from one small array). At the verifier's 13,500 rows a
-// launch is one wave, so the per-thread chain's latency, not the card's
-// multiply rate, sets the time.
+// chain; f12_csqr 18. At the verifier's 13,500 rows a launch is one wave,
+// so the per-thread chain's latency, not the card's multiply rate, sets
+// the time. f12_slotmul's 18 products a row (six Fp2 products by
+// constants) are independent, one Fp2 product a thread (its note below).
 //
 // f12_pow is the reference's first power, square-and-multiply-always
 // LSB-first over n_bits bits: per bit one product (kept by mask where the
@@ -70,23 +71,50 @@ __global__ void f12_csqr_kernel(const int32_t* __restrict__ a,
   store_fp12(out + off, f12csqr(load_fp12(a + off)));
 }
 
-// out[k] = (conj(a[k]) if conj else a[k]) * c[k]: the Frobenius maps of the
+// f12_slotmul: out[k] = (conj(a[k]) if conj else a[k]) * c[k], as
+// _f12_slotmul_kernel (pallas_pairing.py:645): the Frobenius maps of the
 // flat tower (c = powers of XI^((p^e - 1)/6), conj for odd e) and conj6
-// (c = +-1); c is one (6, 2, 16) Montgomery array shared by every row
-__global__ void f12_slotmul_kernel(const int32_t* __restrict__ a,
-                                   const int32_t* __restrict__ c,
-                                   int32_t* __restrict__ out, int n, int conj) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t off = (size_t)i * kF12Words;
-  const Fp12 f = load_fp12(a + off);
-  Fp12 r;
+// (c = +-1); c is one (6, 2, 16) Montgomery array shared by every row.
+//
+// The six slots of a row do not depend on each other, so each Fp2 slot has
+// a thread of its own: thread t takes slot t % 6 of row t / 6, which is the
+// t-th Fp2 of the flat (6N, 2, 16) input, 128 contiguous bytes read and
+// written with 16-byte vector accesses; it conjugates where the map does
+// and runs one Fp2 product (3 Montgomery products) by c[t % 6], which each
+// block copies into shared memory first. The same tower functions as the
+// plain version, so the output is its bytes. No exchange, no barrier past
+// the copy of c.
+//
+// What bounds it: bytes at the verifier's 13,500 rows (81,000 threads, one
+// wave; 768 bytes in and out a row against 18 Montgomery products), the
+// launch at N = 1 (the final exponentiation's, 6 threads). The one thread
+// a row it replaces ran all six slots' 18 products as one thread's chain.
+// kSlotmulSlots is the slots a thread takes: 1 here; 6 is one thread a row
+// (scripts/torch_team_variants.py times both). On an H100 80GB HBM3 at
+// 700 W, device time from a CUDA graph: 0.019 ms at 13,500 rows and
+// 0.0045 at N = 1, against 0.038 and 0.030 for one thread a row; through
+// the wrapper every launch takes 0.024-0.058 ms, the host's launch path.
+// ptxas: 62 registers, no stack.
+constexpr int kSlotmulSlots = 1;
+static_assert(6 % kSlotmulSlots == 0, "a thread's slots lie in one row");
+
+__global__ void __launch_bounds__(kThreads)
+    f12_slotmul_kernel(const int32_t* __restrict__ a,
+                       const int32_t* __restrict__ c,
+                       int32_t* __restrict__ out, int n_threads, int conj) {
+  __shared__ __align__(16) int32_t cs[kF12Words];
+  for (int j = threadIdx.x; j < kF12Words; j += kThreads) cs[j] = c[j];
+  __syncthreads();
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n_threads) return;
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const Fp2 x = conj ? f2conj(f.c[k]) : f.c[k];
-    r.c[k] = f2mul(x, load_fp2(c + 2 * NL16 * k));
+  for (int s = 0; s < kSlotmulSlots; ++s) {
+    const int slot = t * kSlotmulSlots + s;
+    const size_t off = (size_t)slot * 2 * NL16;
+    const Fp2 x = load_fp2(a + off);
+    store_fp2(out + off, f2mul(conj ? f2conj(x) : x,
+                               load_fp2(cs + 2 * NL16 * (slot % 6))));
   }
-  store_fp12(out + off, r);
 }
 
 // 3-bit window w (bits 3w..3w+2) of a scalar held as 16 x 16-bit limbs; a
@@ -526,8 +554,9 @@ int f12_csqr(const int32_t* a, int32_t* out, int n, void* stream) {
 
 int f12_slotmul(const int32_t* a, const int32_t* c, int32_t* out, int n,
                 int conj, void* stream) {
-  f12_slotmul_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      a, c, out, n, conj);
+  const int threads = 6 / kSlotmulSlots * n;
+  f12_slotmul_kernel<<<blocks_for(threads), kThreads, 0,
+                       (cudaStream_t)stream>>>(a, c, out, threads, conj);
   return (int)cudaGetLastError();
 }
 

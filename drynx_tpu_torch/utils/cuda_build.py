@@ -254,15 +254,16 @@ def is_fault(exc: Exception, device=None) -> bool:
 _COUNT_LOCK = threading.Lock()
 
 # Rows of every counted launch, by kernel: {kernel: Counter({rows:
-# launches})}, kept for runs that report their launches' shapes
+# launches})}, kept for runs that report their launches' shapes; a reduce
+# records (R, N), its summands and columns
 LAUNCH_ROWS: dict[str, collections.Counter] = collections.defaultdict(
     collections.Counter)
 
 
-def count(launches: dict, kernel: str, rows: int) -> None:
-    """Add one launch of `kernel` on `rows` rows to a wrapper module's
-    counts and to LAUNCH_ROWS; proof threads launch beside the main
-    thread, so the adds hold a lock."""
+def count(launches: dict, kernel: str, rows) -> None:
+    """Add one launch of `kernel` on `rows` rows (an int, or a shape
+    tuple) to a wrapper module's counts and to LAUNCH_ROWS; proof threads
+    launch beside the main thread, so the adds hold a lock."""
     with _COUNT_LOCK:
         launches[kernel] += 1
         LAUNCH_ROWS[kernel][rows] += 1

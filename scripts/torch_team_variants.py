@@ -14,12 +14,18 @@ product teams' kProdTeam (6 or 3), which the 8-way product and the Fp12
 product share, the 8-way product's register cap kProdWarpsPerSM (168
 registers, none, or 128) and the Fp12 product's (none, or 168) in
 csrc/gt_ops.cu; the Fp inverse's block size kThreads (32, 64, 128) in
-csrc/fp_inv.cu. `cuda_build` builds them all at once with the package's
-flags. Every variant is checked against the package's plain versions
-before it is timed: the Miller loop, the ladders, the power, the products
-and the inverse byte for byte against `miller_plain`, `scalar_mul_plain`,
+csrc/fp_inv.cu; the reduce's team size kReduceTeam (4, 8) in
+csrc/g1_ops.cu, or its summands staged in shared memory by lane 0 where
+every lane loads them itself; the slot map's kSlotmulSlots in
+csrc/gt_ops.cu (1, one thread a slot, or 6, one thread a row). `cuda_build`
+builds them all at once with the package's flags. Every variant is checked
+against the package's plain versions before it is timed: the Miller loop,
+the ladders, the power, the products, the inverse, the reduce and the slot
+map byte for byte against `miller_plain`, `scalar_mul_plain`,
 `g2_scalar_mul_plain`, `f12_wpow_plain`, `f12_mulreduce8_plain`,
-`f12_mul_plain` and `fp_inv_plain`, the fixed-base ladder as points
+`f12_mul_plain`, `fp_inv_plain`, `point_reduce_plain` (on
+chip_smoke.crafted_reduce_cases too) and `f12_slotmul_plain` (on
+chip_smoke.crafted_slotmul_cases too), the fixed-base ladder as points
 (another team size sums in another order, so its Jacobian representative
 differs). Times are CUDA-event means at the main path's shapes: the Miller
 loop at 13,500 pairings; the fixed-base ladder at W = 64 with 900 and 270
@@ -29,22 +35,28 @@ rows; the power with cyclotomic squares at 63 bits on 1 row (the final
 exponentiation's power by u) and at 63 and 128 bits on 13,500; the 8-way
 product at the collection's 108,000, 36,000, 13,500 and 4,500 rows and the
 joint check's 4,096, 512, 64, 8 and 1, and in the same builds the Fp12
-product at 1 and 13,500 rows; the Fp inverse at the cluster survey's row
-counts (chip_smoke.CLUSTER_ROWS). Prints one JSON line per variant with
-its ptxas registers, stack and spills, then the card's name and power
-limit. The package keeps one kernel per function; PERF.md records the
-readings and the choice.
+product at 1 and 13,500 rows; the Fp inverse, the reduce and the slot
+maps at the cluster survey's shapes (chip_smoke.CLUSTER_ROWS: the reduce
+at R = 10 over 180 columns and R = 3 over 90, each slot map at 1 and
+13,500 rows). Variants are called through their C entry points, without
+the package's wrappers; the reduce's and the slot map's are also timed
+from a CUDA graph of the same calls ("graph ms": the kernel's own device
+time, without the host's launch path). Prints one JSON line per variant with its ptxas
+registers, stack and spills, then the card's name and power limit. The
+package keeps one kernel per function; PERF.md records the readings and
+the choice.
 
     python3 scripts/torch_team_variants.py --kinds fp_inv,prod
 
 builds and times only the variants of the kinds named (miller,
-fixed_base, ladder, wpow, g2, prod, fp_inv), for a change that touches
-only those kernels.
+fixed_base, ladder, wpow, g2, prod, fp_inv, reduce, slotmul), for a
+change that touches only those kernels.
 
     python3 scripts/torch_team_variants.py --against OTHER_ROOT
 
 times this checkout's variable-base ladder, G2 ladder, windowed GT power,
-8-way product, Fp12 product and Fp inverse against another checkout's
+8-way product, Fp12 product, Fp inverse, reduce and slot maps against
+another checkout's
 instead (for instance a parent commit unpacked with `git archive` under
 build/, which .gitignore lists). Each tree runs in a process of its own
 (the two packages share a name), in the order this, other, other, this;
@@ -54,7 +66,8 @@ rows and times the main path's shapes: the ladder at W = 64 on 90, 270,
 900, 1,080 and 2,700 rows and at W = 16 on 13,500, the G2 ladder on
 13,500, the power at 63 bits on 1 row and at 63 and 128 bits on 13,500,
 the 8-way product at the nine shapes above, the Fp12 product at 1 and
-13,500 rows, the Fp inverse at the cluster survey's row counts. Prints one
+13,500 rows, the Fp inverse, the reduce and the four slot maps at the
+cluster survey's shapes, all through the package's wrappers. Prints one
 JSON line per run with each shape's time and a digest of each output (the
 two trees must agree), then the card's name and power limit.
 
@@ -83,6 +96,19 @@ G2_TEAM = "constexpr int kG2LadderTeam = 8;"
 PROD_TEAM = "constexpr int kProdTeam = 6;"
 PROD_CAP = "constexpr int kProdWarpsPerSM = 12;"
 INV_BLOCK = "constexpr int kThreads = 32;"
+REDUCE_TEAM = "constexpr int kReduceTeam = 8;"
+REDUCE_LOAD = ("    const G1 q = load_g1_v(pts + ((size_t)j * n + i) * "
+               "kPointWords);\n")
+# lane 0 loads each summand into shared memory and the team reads it there;
+# the buffer is written again only after the add's exchanges, which every
+# lane passes after its read
+REDUCE_STAGED = (
+    "    __shared__ G1 staged[kReduceTeamsPerWarp];\n"
+    "    if (slot == 0) staged[team] = load_g1_v(pts + ((size_t)j * n + i) "
+    "* kPointWords);\n"
+    "    __syncwarp(tm.mask);\n"
+    "    const G1 q = staged[team];\n")
+SLOT_THREADS = "constexpr int kSlotmulSlots = 1;"
 FIXED_BASE_SHAPES = (("W=64 N=900", 900, 64), ("W=64 N=270", 270, 64),
                      ("W=16 N=900", 900, 16))
 LADDER_SHAPES = (("W=64 N=90", 90, 64), ("W=64 N=270", 270, 64),
@@ -93,6 +119,8 @@ G2_N = 13_500
 PROD_SHAPES = (108_000, 36_000, 13_500, 4_500, 4_096, 512, 64, 8, 1)
 MUL_SHAPES = (1, 13_500)
 INV_SHAPES = tuple(sorted(CLUSTER_ROWS["fp_inv"]))
+REDUCE_SHAPES = tuple(sorted(CLUSTER_ROWS["point_reduce"]))   # (R, N)
+SLOT_SHAPES = tuple(sorted(CLUSTER_ROWS["f12_slotmul"]))
 
 # (label, kind, source, (old, new) edit or None)
 VARIANTS = [
@@ -127,7 +155,15 @@ VARIANTS = [
             "__launch_bounds__(32, kProdWarpsPerSM)\n    f12_mul_kernel"))
      ] + [(f"fp_inv {t} threads a block", "fp_inv", "fp_inv",
            (INV_BLOCK, f"constexpr int kThreads = {t};"))
-          for t in (32, 64, 128)]
+          for t in (32, 64, 128)
+     ] + [(f"point_reduce lanes={g}", "reduce", "g1_ops",
+           (REDUCE_TEAM, f"constexpr int kReduceTeam = {g};"))
+          for g in (4, 8)
+     ] + [("point_reduce, summands staged by lane 0", "reduce", "g1_ops",
+           (REDUCE_LOAD, REDUCE_STAGED))
+     ] + [(f"f12_slotmul {k} slots a thread", "slotmul", "gt_ops",
+           (SLOT_THREADS, f"constexpr int kSlotmulSlots = {k};"))
+          for k in (1, 6)]
 
 
 def edited(source, edit, cuda_build):
@@ -153,6 +189,26 @@ def timed(fn):
     return a.elapsed_time(b) / REPS
 
 
+def graph_timed(fn):
+    """Device time per call of fn: REPS calls captured in one CUDA graph
+    and replayed, so the host's launch path (ctypes, the checks) is not in
+    it."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(REPS):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / REPS
+
+
 CHECK_ROWS = 32
 TREE_LADDER = ((64, 90), (64, 270), (64, 900), (64, 1080), (64, 2700),
                (16, 13_500))
@@ -160,8 +216,9 @@ TREE_POWER = ((63, 1), (63, 13_500), (128, 13_500))
 
 
 def time_tree(root):
-    """Time the ladders, the power and the 8-way product of the package
-    under `root` (a process of its own); prints one JSON line."""
+    """Time the ladders, the power, the products, the inverse, the reduce
+    and the slot maps of the package under `root` (a process of its own);
+    prints one JSON line."""
     import hashlib
     sys.path.insert(0, str(root))
     from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
@@ -216,12 +273,25 @@ def time_tree(root):
                         for _ in range(max(INV_SHAPES))]).to(dev)
     shapes += [(f"fp_inv N={n}", (inv_x[:n],), cuda_pairing.fp_inv_flat,
                 cuda_pairing.fp_inv_plain) for n in INV_SHAPES]
+    shapes += [(f"point_reduce R={r} N={n}",
+                (pts[torch.from_numpy(rng.integers(0, len(pts), (r, n)))
+                     .to(dev)],),
+                cuda_ops.point_reduce_flat, cuda_ops.point_reduce_plain)
+               for r, n in REDUCE_SHAPES]
+    shapes += [(f"f12_slotmul {w} N={n}", (rows(gts, n),),
+                (lambda a, w=w: cuda_pairing.f12_slotmul_flat(a, w)),
+                (lambda a, w=w: cuda_pairing.f12_slotmul_plain(a, w)))
+               for n in SLOT_SHAPES for w in cuda_pairing.SLOT_MAPS]
     out = {"tree": str(root)}
     for label, args, kern, plain in shapes:
         got = kern(*args)
         torch.cuda.synchronize()
-        c = min(CHECK_ROWS, len(args[0]))
-        if not torch.equal(got[:c], plain(*(a[:c] for a in args))):
+        c = min(CHECK_ROWS, len(got))
+        # the first rows of the output, from the first rows of the inputs
+        # (a reduce's columns)
+        head = [a[:, :c] if label.startswith("point_reduce") else a[:c]
+                for a in args]
+        if not torch.equal(got[:c], plain(*head)):
             raise SystemExit(f"{root}: {label} differs from its plain "
                              "version")
         out[label] = {"ms": timed(lambda: kern(*args)),
@@ -231,8 +301,9 @@ def time_tree(root):
 
 
 def against(other):
-    """This tree's ladders, power, products and inverse against `other`'s,
-    in turn this, other, other, this; the trees' outputs must agree."""
+    """This tree's ladders, power, products, inverse, reduce and slot maps
+    against `other`'s, in turn this, other, other, this; the trees' outputs
+    must agree."""
     if not (other / "drynx_tpu_torch").is_dir():
         raise SystemExit(f"{other} holds no drynx_tpu_torch package")
     lines = []
@@ -337,6 +408,16 @@ def main():
     mul_want = cuda_pairing.f12_mul_plain(mul_a, mul_b)
     inv_x = rand(max(INV_SHAPES), 256)
     inv_want = cuda_pairing.fp_inv_plain(inv_x)
+    # the reduce on the crafted chains, then on Jacobian multiples of B at
+    # the cluster survey's (R, N); the slot maps on the crafted rows, then
+    # on pairing values
+    from chip_smoke import crafted_reduce_cases, crafted_slotmul_cases
+    reduce_cases = [(f"crafted R={r}", crafted_reduce_cases(
+        C, params, refimpl, r, dev), False) for r in (2, 3, 10)] + [
+        (f"R={r} N={n}", pts[:r * n].reshape(r, n, 3, 16), True)
+        for r, n in REDUCE_SHAPES]
+    slot_cases = [("crafted N=7", crafted_slotmul_cases(params, dev),
+                   False)] + [(f"N={n}", gts[:n], True) for n in SLOT_SHAPES]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def held(name, label, got, want, same):
@@ -415,6 +496,38 @@ def main():
                 torch.cuda.synchronize()
                 held(name, f"f12_mul N={n}", out, mul_want[:n], torch.equal)
                 row[f"f12_mul ms N={n}"] = timed(run)
+        elif kind == "reduce":
+            row["ptxas"] = ptxas_summary(log, "point_reduce_kernel")
+            for label, t, timed_here in reduce_cases:
+                want = cuda_ops.point_reduce_plain(t)
+                out = torch.empty_like(want)
+                run = lambda t=t, out=out: cuda_build.check(
+                    lib.g1_point_reduce(t.data_ptr(), out.data_ptr(), len(t),
+                                        t.shape[1], stream()), name)
+                run()
+                torch.cuda.synchronize()
+                held(name, label, out, want, torch.equal)
+                if timed_here:
+                    row[f"ms {label}"] = timed(run)
+                    row[f"graph ms {label}"] = graph_timed(run)
+        elif kind == "slotmul":
+            row["ptxas"] = ptxas_summary(log, "f12_slotmul_kernel")
+            for label, a, timed_here in slot_cases:
+                for w in cuda_pairing.SLOT_MAPS:
+                    want = cuda_pairing.f12_slotmul_plain(a, w)
+                    c = cuda_pairing._slot_constants(w, str(dev))
+                    out = torch.empty_like(want)
+                    run = lambda a=a, c=c, w=w, out=out: cuda_build.check(
+                        lib.f12_slotmul(a.data_ptr(), c.data_ptr(),
+                                        out.data_ptr(), len(a),
+                                        int(cuda_pairing._conjugates(w)),
+                                        stream()), name)
+                    run()
+                    torch.cuda.synchronize()
+                    held(name, f"{label} {w}", out, want, torch.equal)
+                    if timed_here:
+                        row[f"ms {label} {w}"] = timed(run)
+                        row[f"graph ms {label} {w}"] = graph_timed(run)
         elif kind == "fp_inv":
             row["ptxas"] = ptxas_summary(log, "fp_inv_kernel")
             for n in INV_SHAPES:

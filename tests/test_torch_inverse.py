@@ -277,8 +277,15 @@ def test_product_team_constants_are_the_kernels():
 
 
 def test_cluster_row_counts_sum_to_the_launch_constants():
-    """Phase 2 times B4 and B7 at the cluster survey's row counts, which
-    phase 7 checks against the launches it records."""
+    """Phase 2 times B3, B4, B7 and B11 at the cluster survey's row counts
+    (B3's as (R, N)), which phase 7 checks against the launches it
+    records."""
     for name, rows in CLUSTER_ROWS.items():
         assert sum(rows.values()) == EXPECTED_LAUNCHES_CLUSTER[name]
-        assert all(isinstance(n, int) and n > 0 for n in rows)
+        shapes = [n if name == "point_reduce" else (n,) for n in rows]
+        assert all(len(sh) == (2 if name == "point_reduce" else 1)
+                   for sh in shapes)
+        assert all(isinstance(d, int) and d > 0 for sh in shapes
+                   for d in sh)
+    assert set(CLUSTER_ROWS) == {"point_reduce", "fp_inv", "f12_mul",
+                                 "f12_slotmul"}

@@ -19,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (WPOW_BITS, crafted_fixed_base_cases,
-                        crafted_g2_ladder_cases, crafted_ladder_cases,
-                        crafted_wpow_cases, fp_inv_edge_inputs)
+from chip_smoke import (REDUCE_RS, SLOTMUL_NS, WPOW_BITS,
+                        crafted_fixed_base_cases, crafted_g2_ladder_cases,
+                        crafted_ladder_cases, crafted_reduce_cases,
+                        crafted_slotmul_cases, crafted_wpow_cases,
+                        fp_inv_edge_inputs)
 from drynx_tpu_torch import flagship
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
@@ -569,6 +571,60 @@ def test_wpow_team_kernel_at_main_path_shapes(cuda, n, n_bits):
     got = cuda_pairing.f12_wpow_flat(f, k, n_bits, cyc=True)
     torch.cuda.synchronize()
     assert torch.equal(got, cuda_pairing.f12_wpow_plain(f, k, n_bits, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", REDUCE_RS)
+def test_reduce_team_kernel_on_crafted_cases(cuda, r):
+    """The reduce's team kernel on the crafted chains (every branch of the
+    complete add), seven columns: not a multiple of a block's."""
+    pts = crafted_reduce_cases(C, params, refimpl, r, cuda)
+    got = cuda_ops.point_reduce_flat(pts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_ops.point_reduce_plain(pts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r, n", [(1, 90), (1, 5), (3, 90), (3, 13),
+                                  (10, 180), (10, 21)])
+def test_reduce_team_kernel_at_main_path_shapes(cuda, r, n):
+    """The canonical aggregate and the VN's check (R = 10 over 180
+    columns), the key switch's sums (R = 3 over 90), a reduce of one row,
+    and partly filled last blocks, on Jacobian multiples of B."""
+    base = eg.BASE_TABLE.table.to(cuda)
+    pts = cuda_ops.fixed_base_mul_flat(
+        base, _fixed_base_scalars(r * n, 64, cuda)).reshape(r, n, 3, 16)
+    got = cuda_ops.point_reduce_flat(pts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_ops.point_reduce_plain(pts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", cuda_pairing.SLOT_MAPS)
+def test_slotmul_kernel_on_crafted_rows(cuda, which):
+    """One thread a slot on rows of zero slots, limbs at p - 1, -1 and
+    mixed slots, at N in SLOTMUL_NS."""
+    a = crafted_slotmul_cases(params, cuda)
+    for n in SLOTMUL_NS:
+        got = cuda_pairing.f12_slotmul_flat(a[:n], which)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_pairing.f12_slotmul_plain(a[:n],
+                                                               which)), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 13500])
+def test_slotmul_kernel_at_main_path_shapes(cuda, n):
+    """The final exponentiation's maps (N = 1), the joint check's gates
+    (N = 13,500) and a partly filled block, every map, on GPhi12
+    members."""
+    gts = _gt_operands(160, cuda)
+    a = gts.repeat((n + 159) // 160, 1, 1, 1)[:n].contiguous()
+    for which in cuda_pairing.SLOT_MAPS:
+        got = cuda_pairing.f12_slotmul_flat(a, which)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_pairing.f12_slotmul_plain(a, which)), \
+            which
 
 
 @pytest.mark.gpu
