@@ -22,15 +22,17 @@ Phases (any failed check exits non-zero; nothing is caught):
      x N in {1, 90, 270, 900} and on crafted tables; the reduce on crafted
      chains (every branch of the complete add) at R in {1, 2, 3, 10} and
      at (R, N) in {(1, 90), (10, 13)}; the batched add at the cluster
-     survey's other shapes (810 and 13,500 rows); the slot maps on crafted
-     rows at N in {1, 5, 7}; the Miller loop at N = 1 and 1,000; the
-     variable-base ladder on crafted scalars at W in {1, 2, 16, 64} and at
-     N in {1, 5, 21}; the G2 ladder on crafted scalars and at N in {1, 5,
-     21}; the windowed GT power on crafted values and exponents at n_bits
-     in {1, 2, 3, 4, 63, 64, 128, 256} with and without cyc and at N in
-     {1, 5, 21}; the 8-way product at the joint check's fold shapes and at
-     N in {5, 21}. These are checked and timed the same way but left out
-     of the JSON line's sums.
+     survey's other shapes (810 and 13,500 rows) and on the reduce's
+     crafted pairs at R = 2; the Fp12 inverse on crafted rows (0, 1, a
+     Miller output, a seeded value, b = 0, a = 0), each alone and tiled to
+     13,500 rows; the slot maps on crafted rows at N in {1, 5, 7}; the
+     Miller loop at N = 1 and 1,000; the variable-base ladder on crafted
+     scalars at W in {1, 2, 16, 64} and at N in {1, 5, 21}; the G2 ladder
+     on crafted scalars and at N in {1, 5, 21}; the windowed GT power on
+     crafted values and exponents at n_bits in {1, 2, 3, 4, 63, 64, 128,
+     256} with and without cyc and at N in {1, 5, 21}; the 8-way product
+     at the joint check's fold shapes and at N in {5, 21}. These are
+     checked and timed the same way but left out of the JSON line's sums.
   3. Run the flagship encrypted logistic-regression survey at the full
      Pima width (10 DPs x 768 records, d=8, K=2, 450 GD steps, 3 servers,
      discrete-log table of +-10000): with every launch count set to 0 just
@@ -244,10 +246,6 @@ MM_F12_MUL = 18 * 3             # 18 Fp2 products
 MM_F12_SQR = 12 * 3             # complex method: 12 Fp2 products
 MM_F12_CSQR = 9 * 2             # Granger-Scott: 9 Fp2 squares
 MM_F12_SLOTMUL = 6 * 3          # 6 Fp2 products by constants
-# the tower inverse: the norm (2 Fp6 products = 36), the Fp6 adjugate (3
-# squares, 6 products = 24), the Fp2 inverse (383) and 3 products (9), then
-# 2 Fp6 products (36)
-MM_F12_INV = 36 + 24 + MM_F2_INV + 9 + 36
 # B4, counted from csrc/fp_inv.cuh in 32-bit integer operations a row (a
 # 32 x 32 -> 64-bit multiply-add, or a 64-bit shift, two): a divstep 27,
 # a batch's update of (d, e) 174 and of (f, g) 124, 20 batches of 30
@@ -256,6 +254,10 @@ MM_F12_INV = 36 + 24 + MM_F2_INV + 9 + 36
 # bound takes them.
 OPS_FP_INV = 20 * (30 * 27 + 174 + 124) + IMAD_PER_MONT_MUL
 MM_FP_INV = OPS_FP_INV / IMAD_PER_MONT_MUL
+# B8, the tower inverse: the norm (2 Fp6 products = 36), the Fp6 adjugate
+# (3 squares, 6 products = 24), the Fp2 inverse (its norm 2, the Fp inverse
+# by safegcd, 2 products) and 3 products (9), then 2 Fp6 products (36)
+MM_F12_INV = 36 + 24 + (2 + MM_FP_INV + 2) + 9 + 36
 
 
 def mm_miller(ate_bits):
@@ -467,6 +469,25 @@ def crafted_slotmul_cases(params, device):
             [(rand(), rand()) for _ in range(6)],
             [(rand(), rand()) for _ in range(6)]]
     return torch.tensor(rows, dtype=torch.int32).to(device)
+
+
+def crafted_inv_cases(F12, refimpl, device):
+    """(6, 6, 2, 16) Fp12 rows for the inverse: 0 (which maps to 0); 1;
+    the Miller loop's output for the generators (outside GPhi12, as the
+    final exponentiation's input is); a seeded value (not in GPhi12); a
+    seeded value with b = 0 (its odd slots zero, so the norm is a^2) and
+    one with a = 0 (its even slots zero, so the norm is -v b^2). F12,
+    refimpl: the port's fp12 and refimpl modules."""
+    rng = np.random.default_rng(37)
+    rand = lambda: [tuple(int.from_bytes(rng.bytes(40), "little")
+                          % refimpl.P for _ in range(2)) for _ in range(6)]
+    zero = refimpl.FP2_ZERO
+    a_only = [c if k % 2 == 0 else zero for k, c in enumerate(rand())]
+    b_only = [zero if k % 2 == 0 else c for k, c in enumerate(rand())]
+    rows = [refimpl.FP12_ZERO, refimpl.FP12_ONE,
+            refimpl.ate_miller_loop(refimpl.G1, refimpl.G2), rand(), a_only,
+            b_only]
+    return F12.from_ref_batch(rows).to(device)
 
 
 def fp_inv_edge_inputs(F, params, device):
@@ -1047,8 +1068,15 @@ def main():
     reduce_crafted = [crafted_reduce_cases(C, bn256, refimpl, r, dev)
                       for r in REDUCE_RS]
     slot_crafted = crafted_slotmul_cases(bn256, dev)
-    # B5's other cluster shapes: the survey's operands, repeated
+    # B5's other cluster shapes: the survey's operands, repeated; its
+    # crafted pairs, the reduce's R = 2 chains (every branch of the
+    # complete add)
     a13500, b13500 = a900.repeat(15, 1, 1), b900.repeat(15, 1, 1)
+    add_p, add_q = reduce_crafted[REDUCE_RS.index(2)]
+    # B8's crafted rows, alone and tiled to the per-value check's 13,500
+    inv_crafted = crafted_inv_cases(F12, refimpl, dev)
+    inv_tiled = inv_crafted.repeat(n_proofs // len(inv_crafted) + 1, 1, 1,
+                                   1)[:n_proofs].contiguous()
 
     def scalars(n, n_windows):
         lim = min(refimpl.N, 16 ** n_windows)
@@ -1079,6 +1107,25 @@ def main():
              (lambda n=n: cuda_ops.point_add_plain(a13500[:n], b13500[:n])),
              MM_G1_ADD, n, 3 * n * 192)
             for n in (810, 13_500)
+        ] + [
+            (f"crafted pairs N={len(add_p)}",
+             lambda: cuda_ops.point_add_flat(add_p, add_q),
+             lambda: cuda_ops.point_add_plain(add_p, add_q), 0, len(add_p),
+             3 * len(add_p) * 192)
+        ],
+        # the crafted rows (0, 1, a Miller output, b = 0, a = 0), each alone
+        # and tiled to 13,500 rows
+        "f12_inv": [
+            (f"crafted row {k} N=1",
+             (lambda k=k: cuda_pairing.f12_inv_flat(inv_crafted[k:k + 1])),
+             (lambda k=k: cuda_pairing.f12_inv_plain(inv_crafted[k:k + 1])),
+             MM_F12_INV, 1, 2 * 768)
+            for k in range(len(inv_crafted))
+        ] + [
+            (f"crafted rows tiled N={n_proofs}",
+             lambda: cuda_pairing.f12_inv_flat(inv_tiled),
+             lambda: cuda_pairing.f12_inv_plain(inv_tiled), MM_F12_INV,
+             n_proofs, 2 * nbytes(inv_tiled))
         ],
         # the crafted rows (zero slots, limbs at p - 1, -1, mixed)
         "f12_slotmul": [

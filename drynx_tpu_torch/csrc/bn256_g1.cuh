@@ -79,14 +79,6 @@ __device__ __forceinline__ Fp load_fp_v(const int32_t* src) {
   return r;
 }
 
-__device__ __forceinline__ G1 load_g1(const int32_t* src) {
-  G1 p;
-  p.X = load_fp(src);
-  p.Y = load_fp(src + NL16);
-  p.Z = load_fp(src + 2 * NL16);
-  return p;
-}
-
 __device__ __forceinline__ G1 load_g1_v(const int32_t* src) {
   G1 p;
   p.X = load_fp_v(src);

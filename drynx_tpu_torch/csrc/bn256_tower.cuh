@@ -12,9 +12,10 @@
 // reference's bytes; the formulas are the reference's all the same: Karatsuba
 // Fp2 products (3 Fp products), 3-way Karatsuba Fp6 products (6 Fp2) and
 // Karatsuba over Fp6 for Fp12 (18 Fp2 products), the complex-method Fp12
-// square (12), the Granger-Scott cyclotomic square (9 Fp2 squares), the
-// sparse line product (18) and the tower inverse. The big tower functions
-// are not inlined: one body each, their temporaries in their own frame.
+// square (12), the Granger-Scott cyclotomic square (9 Fp2 squares) and the
+// sparse line product (18); the tower inverse is gt_ops.cu's team kernel.
+// The big tower functions are not inlined: one body each, their
+// temporaries in their own frame.
 #pragma once
 
 #include <stdint.h>
@@ -174,12 +175,6 @@ __device__ __forceinline__ Fp fp_inv_fermat(const Fp& x) {
   return acc;
 }
 
-// 1/(a0 + a1 i) = (a0, -a1) / (a0^2 + a1^2); 0 maps to 0, as x^(p-2) does
-__device__ __forceinline__ Fp2 f2inv(const Fp2& a) {
-  const Fp ni = fp_inv_fermat(fadd(mont_mul(a.c0, a.c0), mont_mul(a.c1, a.c1)));
-  return Fp2{mont_mul(a.c0, ni), mont_mul(fsub(fp_zero(), a.c1), ni)};
-}
-
 // ---------------------------------------------------------------------------
 // Fp6 and Fp12 (make_fp12); Fp12 f = A(v) + w B(v), A = (f0, f2, f4),
 // B = (f1, f3, f5), v = w^2
@@ -332,32 +327,6 @@ static __device__ __noinline__ Fp12 sparse013(const Fp12& f, const Fp2& l0,
   for (int k = 0; k < 6; ++k) r.c[k] = acc[k];
 #pragma unroll
   for (int k = 6; k < 9; ++k) r.c[k - 6] = f2add(r.c[k - 6], f2mul_xi(acc[k]));
-  return r;
-}
-
-static __device__ __noinline__ Fp6 fp6_inv(const Fp6& a) {
-  const Fp2 c0 = f2sub(f2sqr(a.c[0]), f2mul_xi(f2mul(a.c[1], a.c[2])));
-  const Fp2 c1 = f2sub(f2mul_xi(f2sqr(a.c[2])), f2mul(a.c[0], a.c[1]));
-  const Fp2 c2 = f2sub(f2sqr(a.c[1]), f2mul(a.c[0], a.c[2]));
-  const Fp2 t = f2add(f2mul(a.c[0], c0),
-                      f2mul_xi(f2add(f2mul(a.c[1], c2), f2mul(a.c[2], c1))));
-  const Fp2 ti = f2inv(t);
-  return Fp6{{f2mul(c0, ti), f2mul(c1, ti), f2mul(c2, ti)}};
-}
-
-// tower inverse: f = a(v) + w b(v) -> (a - w b) / (a^2 - v b^2), the norm
-// inverted in Fp6, then Fp2, then by one Fermat inverse in Fp (0 maps to 0)
-static __device__ __noinline__ Fp12 f12inv(const Fp12& f) {
-  const Fp6 a{{f.c[0], f.c[2], f.c[4]}}, b{{f.c[1], f.c[3], f.c[5]}};
-  const Fp6 ninv = fp6_inv(fp6_sub(fp6_mul(a, a), fp6_mul_v(fp6_mul(b, b))));
-  const Fp6 ra = fp6_mul(a, ninv);
-  const Fp6 rb = fp6_mul(b, ninv);
-  Fp12 r;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    r.c[2 * k] = ra.c[k];
-    r.c[2 * k + 1] = f2neg(rb.c[k]);
-  }
   return r;
 }
 

@@ -1,9 +1,8 @@
 // bn256 G1 kernels of the encrypted survey's main path. Each replaces one
 // Pallas TPU kernel of drynx_tpu/crypto/pallas_ops.py;
 // drynx_tpu_torch/crypto/cuda_ops.py binds them with ctypes and holds each
-// beside its plain PyTorch version. The two ladders and the reduce give
-// each row a team of threads (their notes below); the batched add runs one
-// curve element per thread.
+// beside its plain PyTorch version. Each gives a row a team of threads
+// (their notes below); the reduce and the batched add share one body.
 //
 // What bounds them: integer multiply-adds (a Montgomery product is 64
 // 32x32->64-bit products plus as many for the reduction, on the IMAD
@@ -30,8 +29,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kPointWords = 3 * NL16;   // int32 words of one point
 constexpr int kWindowEntries = 16;      // 4-bit windows
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // Kernel 1 (pallas_ops._fixed_base_kernel): k*P from a shared window table
 // table[w][v] = v * 16^w * P, W add-only windows, little-endian digits.
@@ -153,8 +150,10 @@ __global__ void __launch_bounds__(kLadderThreads)
   if (slot == 0) store_g1(out + (size_t)i * kPointWords, acc);
 }
 
-// Kernel 3 (pallas_ops._point_reduce_kernel): complete-add sum over axis 0
-// of (R, N, 3, 16), rows in order 0..R-1.
+// Kernels 3 (pallas_ops._point_reduce_kernel) and 5
+// (pallas_ops._point_add_kernel): the complete-add sum of a column's rows
+// in order 0..R-1. The reduce sums axis 0 of (R, N, 3, 16); the batched
+// add is that sum at R = 2, its two rows in two (N, 3, 16) tensors.
 //
 // The sum is a chain: each add needs the one before. So a team of
 // kReduceTeam lanes computes one column, and each complete add is
@@ -162,30 +161,58 @@ __global__ void __launch_bounds__(kLadderThreads)
 // levels of 4, 8, 6, 3 and 2 independent products spread over the lanes,
 // then the reference's selects. The team adds the rows in the reference's
 // order, 0 to R - 1, with the plain formulas on canonical residues, so its
-// limbs equal point_reduce_plain's byte for byte (a tree over R would give
-// another Jacobian representative). Every lane reads each summand itself,
-// a broadcast 16-byte load of the same 192 bytes, and every lane holds the
-// running sum; lane 0 writes it.
+// limbs equal point_reduce_plain's and point_add_plain's byte for byte (a
+// tree over R would give another Jacobian representative). Every lane
+// reads each summand itself, a broadcast 16-byte load of the same 192
+// bytes, and every lane holds the running sum; lane 0 writes it. The two
+// kernels differ only in where row j of column i lies (ReduceRows,
+// AddRows), the template argument of their one body, team_column_sum.
 //
-// What bounds it: the chain's latency. With 8 lanes an add is 5 products
-// of chain (one a level) against the ~23 of one thread's padd (the add's
-// 16 and the double it may select, 7), and the main path's 90-180 columns
-// (23-45 warps, one a block) leave most SMs idle whatever the team size.
-// On an H100 80GB HBM3 at 700 W: 0.063 ms at R = 10 over 180 columns and
-// 0.023-0.027 at R = 3 over 90 through the wrapper, against 0.389 and
-// 0.088 for one thread a column (an add ~6.5 us of device time); 4 lanes
-// measured 10-22 % slower, lane 0 staging each summand in shared memory
-// no faster (scripts/torch_team_variants.py). ptxas: 166 registers, no
-// stack.
+// What bounds them: the chain's latency. With 8 lanes an add is 5
+// products of chain (one a level) against the ~23 of one thread's padd
+// (the add's 16 and the double it may select, 7); the main path's 90-900
+// columns (23-225 warps, one a block) leave most SMs idle, its 13,500
+// fill them about twice. On an H100 80GB HBM3 at 700 W, the reduce: 0.063
+// ms at R = 10 over 180 columns and 0.022-0.027 at R = 3 over 90 through
+// the wrapper, against 0.389 and 0.088 for one thread a column (an add
+// ~6.5 us of device time); 4 lanes measured 10-22 % slower, lane 0
+// staging each summand in shared memory no faster. The add: 0.022-0.034
+// ms through the wrapper at 90-900 rows and 0.037-0.038 at 13,500,
+// against 0.044-0.056 and 0.054 for one thread a row; device time from a
+// CUDA graph 0.008 ms at 90-900 rows and 0.035 at 13,500 (one thread a
+// row 0.042-0.046 and 0.051). 4 lanes take 0.009-0.010 ms at 90-900 rows
+// and 0.027 at 13,500 (half the warps): 6 % more over the cluster
+// survey's adds (scripts/torch_team_variants.py). ptxas: 166 registers
+// (the add 164), no stack.
 constexpr int kReduceTeam = 8;   // lanes per column
 constexpr int kReduceTeamsPerWarp = 32 / kReduceTeam;   // a block is a warp
 static_assert(32 % kReduceTeam == 0, "the teams tile a warp");
 
 using ReduceTeam = Team<Fp, kReduceTeam, kLadderWidth>;
 
-__global__ void __launch_bounds__(32)
-    point_reduce_kernel(const int32_t* __restrict__ pts,
-                        int32_t* __restrict__ out, int r, int n) {
+// row j of column i: the reduce's (R, N) points
+struct ReduceRows {
+  const int32_t* pts;
+  int n;
+  __device__ __forceinline__ const int32_t* operator()(int j, int i) const {
+    return pts + ((size_t)j * n + i) * kPointWords;
+  }
+};
+
+// row j of column i: the add's p (j = 0) and q (j = 1)
+struct AddRows {
+  const int32_t* p;
+  const int32_t* q;
+  __device__ __forceinline__ const int32_t* operator()(int j, int i) const {
+    return (j == 0 ? p : q) + (size_t)i * kPointWords;
+  }
+};
+
+// out[i] = row 0 + row 1 + ... + row r - 1 of column i, one team a column
+template <typename Rows>
+__device__ __forceinline__ void team_column_sum(const Rows& rows, int r,
+                                                int32_t* __restrict__ out,
+                                                int n) {
   __shared__ Fp xch[kReduceTeamsPerWarp][2][kLadderWidth];
   const int team = threadIdx.x / kReduceTeam;
   const int i = blockIdx.x * kReduceTeamsPerWarp + team;
@@ -193,24 +220,30 @@ __global__ void __launch_bounds__(32)
   const int slot = threadIdx.x - kReduceTeam * team;
   ReduceTeam tm{xch[team], team_mask<kReduceTeam>(kReduceTeam * team), slot,
                 0};
-  G1 acc = load_g1_v(pts + (size_t)i * kPointWords);
+  G1 acc = load_g1_v(rows(0, i));
 #pragma unroll 1
   for (int j = 1; j < r; ++j) {
-    const G1 q = load_g1_v(pts + ((size_t)j * n + i) * kPointWords);
+    const G1 q = load_g1_v(rows(j, i));
     acc = team_add(tm, acc, q);
   }
   if (slot == 0) store_g1(out + (size_t)i * kPointWords, acc);
 }
 
-// Kernel 5 (pallas_ops._point_add_kernel): batched complete add.
-__global__ void point_add_kernel(const int32_t* __restrict__ p,
-                                 const int32_t* __restrict__ q,
-                                 int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  G1 r = padd(load_g1(p + (size_t)i * kPointWords),
-              load_g1(q + (size_t)i * kPointWords));
-  store_g1(out + (size_t)i * kPointWords, r);
+__global__ void __launch_bounds__(32)
+    point_reduce_kernel(const int32_t* __restrict__ pts,
+                        int32_t* __restrict__ out, int r, int n) {
+  team_column_sum(ReduceRows{pts, n}, r, out, n);
+}
+
+__global__ void __launch_bounds__(32)
+    point_add_kernel(const int32_t* __restrict__ p,
+                     const int32_t* __restrict__ q,
+                     int32_t* __restrict__ out, int n) {
+  team_column_sum(AddRows{p, q}, 2, out, n);
+}
+
+inline int column_blocks(int n) {
+  return (n + kReduceTeamsPerWarp - 1) / kReduceTeamsPerWarp;
 }
 
 }  // namespace
@@ -235,15 +268,14 @@ int g1_scalar_mul(const int32_t* p, const int32_t* k, int32_t* out, int n,
 
 int g1_point_reduce(const int32_t* pts, int32_t* out, int r, int n,
                     void* stream) {
-  const int blocks = (n + kReduceTeamsPerWarp - 1) / kReduceTeamsPerWarp;
-  point_reduce_kernel<<<blocks, 32, 0, (cudaStream_t)stream>>>(pts, out, r,
-                                                                 n);
+  point_reduce_kernel<<<column_blocks(n), 32, 0, (cudaStream_t)stream>>>(
+      pts, out, r, n);
   return (int)cudaGetLastError();
 }
 
 int g1_point_add(const int32_t* p, const int32_t* q, int32_t* out, int n,
                  void* stream) {
-  point_add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  point_add_kernel<<<column_blocks(n), 32, 0, (cudaStream_t)stream>>>(
       p, q, out, n);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,10 @@
 // Fp12 (GT) kernels of range-proof creation and verification. Each
 // replaces one Pallas TPU kernel of drynx_tpu/crypto/pallas_pairing.py;
 // drynx_tpu_torch/crypto/cuda_pairing.py binds them with ctypes and holds
-// each beside its plain PyTorch version. f12_wpow, f12_mul and
-// f12_mulreduce8 give each row a team of threads (their notes below, one
-// team product), f12_slotmul each Fp2 slot a thread; the others run one
-// row per thread.
+// each beside its plain PyTorch version. f12_wpow, f12_mul,
+// f12_mulreduce8 and f12_inv give each row a team of threads (their notes
+// below; the first three one team product), f12_slotmul each Fp2 slot a
+// thread; the others run one row per thread.
 //
 //   f12_mul         replaces _f12_mul_kernel         (f12_mul_flat)
 //   f12_mulreduce8  replaces _f12_mulreduce8_kernel  (f12_mulreduce8_flat)
@@ -27,12 +27,12 @@
 // intermediate of 64 entries x 768 bytes per power); fusing it here is
 // later work.
 //
-// The verification kernels are the same kind of chain. f12_inv is 488
-// Montgomery products per row, 379 of them the Fermat inverse's dependent
-// chain; f12_csqr 18. At the verifier's 13,500 rows a launch is one wave,
-// so the per-thread chain's latency, not the card's multiply rate, sets
-// the time. f12_slotmul's 18 products a row (six Fp2 products by
-// constants) are independent, one Fp2 product a thread (its note below).
+// The verification kernels are the same kind of chain. f12_csqr is 18
+// Montgomery products a row; at the verifier's 13,500 rows a launch is one
+// wave, so the per-thread chain's latency, not the card's multiply rate,
+// sets the time. f12_inv's tower inverse is spread over a team (its note
+// below). f12_slotmul's 18 products a row (six Fp2 products by constants)
+// are independent, one Fp2 product a thread (its note below).
 //
 // f12_pow is the reference's first power, square-and-multiply-always
 // LSB-first over n_bits bits: per bit one product (kept by mask where the
@@ -43,6 +43,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fp_inv.cuh"
 #include "team.cuh"
 
 using namespace bn256;
@@ -54,14 +55,6 @@ constexpr int kF12Words = 6 * 2 * NL16;   // int32 words of one Fp12 value
 constexpr int kPowEntries = 8;           // f12_wpow: 3-bit windows
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-__global__ void f12_inv_kernel(const int32_t* __restrict__ a,
-                               int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t off = (size_t)i * kF12Words;
-  store_fp12(out + off, f12inv(load_fp12(a + off)));
-}
 
 __global__ void f12_csqr_kernel(const int32_t* __restrict__ a,
                                 int32_t* __restrict__ out, int n) {
@@ -429,41 +422,50 @@ constexpr int kProdWarpsPerSM = 12;   // at most 65536 / (12 x 32) registers
 using ProdTeam = F12Team<kProdTeam>;
 using ProdSlots = Fp2[kProdSlots];
 
-// This lane's row and team in a one-warp block of product teams, with the
-// team's exchange in xch; false for a lane past the last team or of a
-// team past n, which leaves whole
-__device__ __forceinline__ bool prod_lane(int n, Fp2 (*xch)[2][18], int& row,
-                                          ProdTeam& tm) {
+// This lane's row and team in a one-warp block of teams of kSize lanes
+// (the products', the inverse's), with the team's exchange in xch; false
+// for a lane past the last team or of a team past n, which leaves whole
+template <int kSize, int kWidth>
+__device__ __forceinline__ bool prod_lane(int n, Fp2 (*xch)[2][kWidth],
+                                          int& row,
+                                          Team<Fp2, kSize, kWidth>& tm) {
+  constexpr int kTeams = 32 / kSize;
   const int lane = threadIdx.x;
-  const int team = lane / kProdTeam;
-  if (team == kProdTeamsPerWarp) return false;
-  row = blockIdx.x * kProdTeamsPerWarp + team;
+  const int team = lane / kSize;
+  if (team == kTeams) return false;
+  row = blockIdx.x * kTeams + team;
   if (row >= n) return false;
-  const int slot = lane - kProdTeam * team;
-  tm = ProdTeam{xch[team], team_mask<kProdTeam>(kProdTeam * team), slot, 0};
+  const int slot = lane - kSize * team;
+  tm = Team<Fp2, kSize, kWidth>{xch[team], team_mask<kSize>(kSize * team),
+                                slot, 0};
   return true;
 }
 
-// this lane's slots of the Fp12 value at v, and back
-__device__ __forceinline__ void load_slots(ProdSlots& x, const int32_t* v,
+// this lane's kSlots slots of the Fp12 value at v, and back
+template <int kSlots>
+__device__ __forceinline__ void load_slots(Fp2 (&x)[kSlots], const int32_t* v,
                                            int slot) {
 #pragma unroll
-  for (int s = 0; s < kProdSlots; ++s) {
-    x[s] = load_fp2(v + (slot * kProdSlots + s) * kFp2Words);
+  for (int s = 0; s < kSlots; ++s) {
+    x[s] = load_fp2(v + (slot * kSlots + s) * kFp2Words);
   }
 }
 
+template <int kSlots>
 __device__ __forceinline__ void store_slots(int32_t* v, int slot,
-                                            const ProdSlots& x) {
+                                            const Fp2 (&x)[kSlots]) {
 #pragma unroll
-  for (int s = 0; s < kProdSlots; ++s) {
-    store_fp2(v + (slot * kProdSlots + s) * kFp2Words, x[s]);
+  for (int s = 0; s < kSlots; ++s) {
+    store_fp2(v + (slot * kSlots + s) * kFp2Words, x[s]);
   }
 }
 
-// n < 2^31 rows are fewer than 2^31 - 1 blocks, the grid's limit
+// one-warp blocks of teams of kSize lanes for n rows; n < 2^31 rows are
+// fewer than 2^31 - 1 blocks, the grid's limit
+template <int kSize>
 inline unsigned prod_blocks(int n) {
-  return (unsigned)(((size_t)n + kProdTeamsPerWarp - 1) / kProdTeamsPerWarp);
+  constexpr int kTeams = 32 / kSize;
+  return (unsigned)(((size_t)n + kTeams - 1) / kTeams);
 }
 
 __global__ void __launch_bounds__(32)
@@ -503,6 +505,163 @@ __global__ void __launch_bounds__(32, kProdWarpsPerSM)
   store_slots(out + (size_t)i * kF12Words, tm.slot, acc);
 }
 
+// f12_inv: 1/f, as _f12_inv_kernel (pallas_pairing.py:535): the tower
+// inverse, f = A + w B -> (A - w B) / N with N = A^2 - v B^2 in Fp6, N
+// inverted by its adjugate C over the Fp2 value t = N0 C0 + XI (N1 C2 +
+// N2 C1), and t by its conjugate over its norm in Fp.
+//
+// A team of kInvTeam lanes computes one row, on the product teams' lane
+// setup and slot loads; a lane owns 6 / kInvTeam Fp2 slots of f and of the
+// result. The tower's products are spread over the lanes level by level,
+// each level's products independent, every lane reading them all back
+// (inv_level), so every lane holds N, C and t with no further exchange:
+//   1. A^2 and B^2, fp6_mul's six products each (12)
+//   2. C: N0^2, N1 N2, N2^2, N0 N1, N1^2, N0 N2 (6)
+//   3. N0 C0, N1 C2, N2 C1, making t (3)
+//   4. t^-1 = conj(t) / (t0^2 + t1^2), on every lane alone: two products,
+//      Bernstein and Yang's safegcd (fp_inv.cuh) for the Fp inverse, two
+//      products
+//   5. N^-1 = C t^-1 (3)
+//   6. A N^-1 and B N^-1, fp6_mul's six products each (12), the odd slots
+//      negated.
+// Every level returns canonical residues, the inverse of a non-zero value
+// is unique, and safegcd maps 0 to 0 as x^(p-2) does, so the output is
+// f12_inv_plain's bytes, 0 included.
+//
+// What bounds it: at N = 1 (the final exponentiation's, one team) one
+// row's chain: 2 + 1 + 1 + 1 + 2 Fp2 products and 4 Montgomery products
+// (25 Montgomery products) and one safegcd (20 batches of dependent
+// integer steps), against 488 Montgomery products for one thread a row
+// through the tower with a Fermat inverse, 379 of them the Fermat chain.
+// Every lane runs the safegcd itself: a warp issues its steps once
+// whichever of its lanes are active, and no exchange is spent publishing
+// it. At the per-value check's 13,500 rows (2,700 warps) the warps'
+// instruction issue: each warp runs a safegcd for its five rows, where
+// one thread a row runs one for 32. On an H100 80GB HBM3 at 700 W through
+// the wrapper: 0.077-0.078 ms at N = 1 and 0.313 at 13,500, against
+// 0.517-0.519 and 0.655-0.665 for one thread a row with Fermat; one lane
+// a row with safegcd 0.160 and 0.190-0.198 (faster at 13,500), 2 and 3
+// lanes 0.129 and 0.100 at N = 1, six lanes with Fermat 0.330 and 1.47;
+// capping the registers at 168 or 128 slower at both
+// (scripts/torch_team_variants.py). ptxas: 255 registers, 272-byte stack,
+// 16 bytes of spills.
+constexpr int kInvTeam = 6;                  // lanes per row
+constexpr int kInvSlots = 6 / kInvTeam;      // Fp2 slots a lane owns
+constexpr int kInvWidth = 12;                // the most values a level trades
+static_assert(6 % kInvTeam == 0, "a lane owns whole slots");
+
+using InvTeam = Team<Fp2, kInvTeam, kInvWidth>;
+
+// Karatsuba's product r of two Fp6 values (r < 3: component r; r = 3, 4,
+// 5: components 0 + 1, 0 + 2, 1 + 2) multiplies the same sum of each
+// operand's components: that sum, for the operand whose component e is
+// at v[stride e]
+__device__ __forceinline__ Fp2 fp6_sum(const Fp2* v, int stride, int r) {
+  const int e0 = r < 3 ? r : (r == 5 ? 1 : 0);
+  const int e1 = r < 3 ? e0 : (r == 3 ? 1 : 2);
+  return f2add(v[stride * e0],
+               f2select(mask_of(r >= 3), v[stride * e1], f2zero()));
+}
+
+// the one of a, b, c that k in {0, 1, 2} names
+__device__ __forceinline__ Fp2 pick3(uint32_t k, const Fp2& a, const Fp2& b,
+                                     const Fp2& c) {
+  return f2select(mask_of(k == 0), a, f2select(mask_of(k == 1), b, c));
+}
+
+// One level of the inverse: its K products, product j = x y with x, y set
+// by ops(j, x, y), computed by lane j % kInvTeam; every lane gets all K
+// back. Unlike team_products, a lane forms only its own products'
+// operands. A lane with no product in a round repeats the round's first
+// one and stores nothing.
+template <int K, typename Ops>
+__device__ __forceinline__ const Fp2* inv_level(InvTeam& tm, const Ops& ops) {
+  static_assert(K <= kInvWidth, "a level's products fit in one buffer");
+  Fp2* w = tm.out();
+#pragma unroll
+  for (int j0 = 0; j0 < K; j0 += kInvTeam) {
+    const int j = j0 + tm.slot;
+    Fp2 x, y;
+    ops(j < K ? j : j0, x, y);
+    const Fp2 p = mul2(x, y);
+    if (j < K) w[j] = p;
+  }
+  return tm.publish();
+}
+
+// this lane's slots of 1/f, f's slots being x across the team
+__device__ __forceinline__ void team_f12inv(InvTeam& tm,
+                                            Fp2 (&x)[kInvSlots]) {
+  Fp2* w = tm.out();
+#pragma unroll
+  for (int s = 0; s < kInvSlots; ++s) w[tm.slot * kInvSlots + s] = x[s];
+  const Fp2* f = tm.publish();
+  // 1. product j = 6h + r of A^2 (h = 0; A's component e is slot 2e) and
+  // of B^2 (h = 1; slot 2e + 1)
+  const Fp2* P = inv_level<12>(tm, [&](int j, Fp2& a, Fp2& b) {
+    a = b = fp6_sum(f + j / 6, 2, j % 6);
+  });
+  // N = A^2 - v B^2, v (b0, b1, b2) = (XI b2, b0, b1)
+  const Fp2 n0 = f2sub(fp6_part(P, 0), f2mul_xi(fp6_part(P + 6, 2)));
+  const Fp2 n1 = f2sub(fp6_part(P, 1), fp6_part(P + 6, 0));
+  const Fp2 n2 = f2sub(fp6_part(P, 2), fp6_part(P + 6, 1));
+  // 2. product j of C is N_x N_y, (x, y) = (0, 0), (1, 2), (2, 2), (0, 1),
+  // (1, 1), (0, 2): the 2-bit fields j of kAdjX and kAdjY
+  constexpr uint32_t kAdjX = 0x124u, kAdjY = 0x968u;
+  const Fp2* Q = inv_level<6>(tm, [&](int j, Fp2& a, Fp2& b) {
+    a = pick3((kAdjX >> 2 * j) & 3u, n0, n1, n2);
+    b = pick3((kAdjY >> 2 * j) & 3u, n0, n1, n2);
+  });
+  const Fp2 c0 = f2sub(Q[0], f2mul_xi(Q[1]));
+  const Fp2 c1 = f2sub(f2mul_xi(Q[2]), Q[3]);
+  const Fp2 c2 = f2sub(Q[4], Q[5]);
+  // 3. N0 C0, N1 C2, N2 C1
+  const Fp2* T = inv_level<3>(tm, [&](int j, Fp2& a, Fp2& b) {
+    a = pick3(j, n0, n1, n2);
+    b = pick3((3 - j) % 3, c0, c1, c2);
+  });
+  const Fp2 t = f2add(T[0], f2mul_xi(f2add(T[1], T[2])));
+  // 4. t^-1 = conj(t) / (t0^2 + t1^2)
+  const Fp ni =
+      fp_inv_safegcd(fadd(mont_mul(t.c0, t.c0), mont_mul(t.c1, t.c1)));
+  const Fp2 ti{mont_mul(t.c0, ni), mont_mul(fsub(fp_zero(), t.c1), ni)};
+  // 5. N^-1 = C t^-1, and f's slots again beside it for level 6
+  w = tm.out();
+#pragma unroll
+  for (int s = 0; s < kInvSlots; ++s) w[3 + tm.slot * kInvSlots + s] = x[s];
+  const Fp2* R = inv_level<3>(tm, [&](int j, Fp2& a, Fp2& b) {
+    a = pick3(j, c0, c1, c2);
+    b = ti;
+  });
+  // 6. product j = 6h + r of A N^-1 (h = 0) and B N^-1 (h = 1)
+  const Fp2* S = inv_level<12>(tm, [&](int j, Fp2& a, Fp2& b) {
+    a = fp6_sum(R + 3 + j / 6, 2, j % 6);
+    b = fp6_sum(R, 1, j % 6);
+  });
+  // slot 2k is (A N^-1)_k, slot 2k + 1 is -(B N^-1)_k
+#pragma unroll
+  for (int s = 0; s < kInvSlots; ++s) {
+    const int m = tm.slot * kInvSlots + s;
+    const bool odd = m & 1;
+    const Fp2 v = fp6_part(S + (odd ? 6 : 0), m >> 1);
+    x[s] = f2select(mask_of(odd), f2neg(v), v);
+  }
+}
+
+__global__ void __launch_bounds__(32)
+    f12_inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                   int n) {
+  __shared__ Fp2 xch[32 / kInvTeam][2][kInvWidth];
+  int i;
+  InvTeam tm;
+  if (!prod_lane(n, xch, i, tm)) return;
+  const size_t off = (size_t)i * kF12Words;
+  Fp2 x[kInvSlots];
+  load_slots(x, a + off, tm.slot);
+  team_f12inv(tm, x);
+  store_slots(out + off, tm.slot, x);
+}
+
 // f^k, LSB-first: acc *= base where bit w of k is set, base squared after
 // every bit, as _f12_pow_kernel (pallas_pairing.py:541-569). The product is
 // computed at every bit and kept by mask, so the time does not depend on k.
@@ -529,20 +688,20 @@ extern "C" {
 
 int f12_mul(const int32_t* a, const int32_t* b, int32_t* out, int n,
             void* stream) {
-  f12_mul_kernel<<<prod_blocks(n), 32, 0, (cudaStream_t)stream>>>(a, b, out,
-                                                                    n);
+  f12_mul_kernel<<<prod_blocks<kProdTeam>(n), 32, 0,
+                   (cudaStream_t)stream>>>(a, b, out, n);
   return (int)cudaGetLastError();
 }
 
 int f12_mulreduce8(const int32_t* g, int32_t* out, int n, void* stream) {
-  f12_mulreduce8_kernel<<<prod_blocks(n), 32, 0, (cudaStream_t)stream>>>(
-      g, out, n);
+  f12_mulreduce8_kernel<<<prod_blocks<kProdTeam>(n), 32, 0,
+                          (cudaStream_t)stream>>>(g, out, n);
   return (int)cudaGetLastError();
 }
 
 int f12_inv(const int32_t* a, int32_t* out, int n, void* stream) {
-  f12_inv_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(a, out,
-                                                                        n);
+  f12_inv_kernel<<<prod_blocks<kInvTeam>(n), 32, 0,
+                   (cudaStream_t)stream>>>(a, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -16,47 +16,55 @@ registers, none, or 128) and the Fp12 product's (none, or 168) in
 csrc/gt_ops.cu; the Fp inverse's block size kThreads (32, 64, 128) in
 csrc/fp_inv.cu; the reduce's team size kReduceTeam (4, 8) in
 csrc/g1_ops.cu, or its summands staged in shared memory by lane 0 where
-every lane loads them itself; the slot map's kSlotmulSlots in
-csrc/gt_ops.cu (1, one thread a slot, or 6, one thread a row). `cuda_build`
-builds them all at once with the package's flags. Every variant is checked
-against the package's plain versions before it is timed: the Miller loop,
-the ladders, the power, the products, the inverse, the reduce and the slot
-map byte for byte against `miller_plain`, `scalar_mul_plain`,
-`g2_scalar_mul_plain`, `f12_wpow_plain`, `f12_mulreduce8_plain`,
-`f12_mul_plain`, `fp_inv_plain`, `point_reduce_plain` (on
-chip_smoke.crafted_reduce_cases too) and `f12_slotmul_plain` (on
-chip_smoke.crafted_slotmul_cases too), the fixed-base ladder as points
-(another team size sums in another order, so its Jacobian representative
-differs). Times are CUDA-event means at the main path's shapes: the Miller
-loop at 13,500 pairings; the fixed-base ladder at W = 64 with 900 and 270
-rows and at W = 16 with 900 rows; the variable-base ladder at W = 64 with
-90, 270 and 2,700 rows and at W = 16 with 13,500; the G2 ladder at 13,500
-rows; the power with cyclotomic squares at 63 bits on 1 row (the final
-exponentiation's power by u) and at 63 and 128 bits on 13,500; the 8-way
-product at the collection's 108,000, 36,000, 13,500 and 4,500 rows and the
-joint check's 4,096, 512, 64, 8 and 1, and in the same builds the Fp12
-product at 1 and 13,500 rows; the Fp inverse, the reduce and the slot
-maps at the cluster survey's shapes (chip_smoke.CLUSTER_ROWS: the reduce
-at R = 10 over 180 columns and R = 3 over 90, each slot map at 1 and
-13,500 rows). Variants are called through their C entry points, without
-the package's wrappers; the reduce's and the slot map's are also timed
+every lane loads them itself; the batched add's team size, the same
+kReduceTeam (1, one thread a row, 4, 8: the add is the reduce's body at R =
+2); the slot map's kSlotmulSlots in csrc/gt_ops.cu (1, one thread a slot,
+or 6, one thread a row); the Fp12 inverse's kInvTeam in csrc/gt_ops.cu (1,
+one thread a row, 2, 3 or 6), its Fp inverse (safegcd, or Fermat's x^(p-2)
+at 6 lanes) and its register cap (none, 168 or 128 at 6 lanes).
+`cuda_build` builds them all at once with the package's flags. Every
+variant is checked against the package's plain versions before it is timed:
+the Miller loop, the ladders, the power, the products, the inverses, the
+reduce, the add and the slot map byte for byte against `miller_plain`,
+`scalar_mul_plain`, `g2_scalar_mul_plain`, `f12_wpow_plain`,
+`f12_mulreduce8_plain`, `f12_mul_plain`, `fp_inv_plain`,
+`point_reduce_plain` (on chip_smoke.crafted_reduce_cases too),
+`point_add_plain` (on the crafted reduce's R = 2 pairs too),
+`f12_slotmul_plain` (on chip_smoke.crafted_slotmul_cases too) and
+`f12_inv_plain` (on chip_smoke.crafted_inv_cases too), the fixed-base
+ladder as points (another team size sums in another order, so its Jacobian
+representative differs). Times are CUDA-event means at the main path's
+shapes: the Miller loop at 13,500 pairings; the fixed-base ladder at W = 64
+with 900 and 270 rows and at W = 16 with 900 rows; the variable-base ladder
+at W = 64 with 90, 270 and 2,700 rows and at W = 16 with 13,500; the G2
+ladder at 13,500 rows; the power with cyclotomic squares at 63 bits on 1
+row (the final exponentiation's power by u) and at 63 and 128 bits on
+13,500; the 8-way product at the collection's 108,000, 36,000, 13,500 and
+4,500 rows and the joint check's 4,096, 512, 64, 8 and 1, and in the same
+builds the Fp12 product at 1 and 13,500 rows; the Fp inverse, the reduce
+and the slot maps at the cluster survey's shapes (chip_smoke.CLUSTER_ROWS:
+the reduce at R = 10 over 180 columns and R = 3 over 90, each slot map at 1
+and 13,500 rows), the add at its cluster shapes (90, 270, 810, 900, 13,500
+rows) and the Fp12 inverse on Miller outputs at 1 and 13,500 rows. Variants
+are called through their C entry points, without the package's wrappers;
+the reduce's, the add's, the slot map's and the inverse's are also timed
 from a CUDA graph of the same calls ("graph ms": the kernel's own device
-time, without the host's launch path). Prints one JSON line per variant with its ptxas
-registers, stack and spills, then the card's name and power limit. The
-package keeps one kernel per function; PERF.md records the readings and
-the choice.
+time, without the host's launch path). Prints one JSON line per variant
+with its ptxas registers, stack and spills, then the card's name and power
+limit. The package keeps one kernel per function; PERF.md records the
+readings and the choice.
 
     python3 scripts/torch_team_variants.py --kinds fp_inv,prod
 
 builds and times only the variants of the kinds named (miller,
-fixed_base, ladder, wpow, g2, prod, fp_inv, reduce, slotmul), for a
-change that touches only those kernels.
+fixed_base, ladder, wpow, g2, prod, fp_inv, reduce, slotmul, add,
+f12inv), for a change that touches only those kernels.
 
     python3 scripts/torch_team_variants.py --against OTHER_ROOT
 
 times this checkout's variable-base ladder, G2 ladder, windowed GT power,
-8-way product, Fp12 product, Fp inverse, reduce and slot maps against
-another checkout's
+8-way product, Fp12 product, Fp inverse, reduce, slot maps, add and Fp12
+inverse against another checkout's
 instead (for instance a parent commit unpacked with `git archive` under
 build/, which .gitignore lists). Each tree runs in a process of its own
 (the two packages share a name), in the order this, other, other, this;
@@ -67,9 +75,12 @@ rows and times the main path's shapes: the ladder at W = 64 on 90, 270,
 13,500, the power at 63 bits on 1 row and at 63 and 128 bits on 13,500,
 the 8-way product at the nine shapes above, the Fp12 product at 1 and
 13,500 rows, the Fp inverse, the reduce and the four slot maps at the
-cluster survey's shapes, all through the package's wrappers. Prints one
-JSON line per run with each shape's time and a digest of each output (the
-two trees must agree), then the card's name and power limit.
+cluster survey's shapes, the add at its cluster shapes and the Fp12
+inverse at 1 and 13,500 rows, all through the package's wrappers (the add
+and the Fp12 inverse also from a CUDA graph of the wrapper's calls).
+Prints one JSON line per run with each shape's time and a digest of each
+output (the two trees must agree), then the card's name and power
+limit.
 
 It imports nothing of JAX and nothing of the drynx_tpu package. Without a
 card it exits with code 2.
@@ -97,17 +108,17 @@ PROD_TEAM = "constexpr int kProdTeam = 6;"
 PROD_CAP = "constexpr int kProdWarpsPerSM = 12;"
 INV_BLOCK = "constexpr int kThreads = 32;"
 REDUCE_TEAM = "constexpr int kReduceTeam = 8;"
-REDUCE_LOAD = ("    const G1 q = load_g1_v(pts + ((size_t)j * n + i) * "
-               "kPointWords);\n")
+REDUCE_LOAD = "    const G1 q = load_g1_v(rows(j, i));\n"
 # lane 0 loads each summand into shared memory and the team reads it there;
 # the buffer is written again only after the add's exchanges, which every
 # lane passes after its read
 REDUCE_STAGED = (
     "    __shared__ G1 staged[kReduceTeamsPerWarp];\n"
-    "    if (slot == 0) staged[team] = load_g1_v(pts + ((size_t)j * n + i) "
-    "* kPointWords);\n"
+    "    if (slot == 0) staged[team] = load_g1_v(rows(j, i));\n"
     "    __syncwarp(tm.mask);\n"
     "    const G1 q = staged[team];\n")
+INV_TEAM = "constexpr int kInvTeam = 6;"
+INV_SAFEGCD = "fp_inv_safegcd(fadd("
 SLOT_THREADS = "constexpr int kSlotmulSlots = 1;"
 FIXED_BASE_SHAPES = (("W=64 N=900", 900, 64), ("W=64 N=270", 270, 64),
                      ("W=16 N=900", 900, 16))
@@ -121,6 +132,11 @@ MUL_SHAPES = (1, 13_500)
 INV_SHAPES = tuple(sorted(CLUSTER_ROWS["fp_inv"]))
 REDUCE_SHAPES = tuple(sorted(CLUSTER_ROWS["point_reduce"]))   # (R, N)
 SLOT_SHAPES = tuple(sorted(CLUSTER_ROWS["f12_slotmul"]))
+# the batched add's cluster launches (90 x 3, 270 x 3, 810, 900 x 4,
+# 13,500) and the Fp12 inverse's (the final exponentiation's N = 1; the
+# per-value check's 13,500)
+ADD_SHAPES = (90, 270, 810, 900, 13_500)
+F12_INV_SHAPES = (1, 13_500)
 
 # (label, kind, source, (old, new) edit or None)
 VARIANTS = [
@@ -163,7 +179,19 @@ VARIANTS = [
            (REDUCE_LOAD, REDUCE_STAGED))
      ] + [(f"f12_slotmul {k} slots a thread", "slotmul", "gt_ops",
            (SLOT_THREADS, f"constexpr int kSlotmulSlots = {k};"))
-          for k in (1, 6)]
+          for k in (1, 6)
+     ] + [(f"point_add lanes={g}", "add", "g1_ops",
+           (REDUCE_TEAM, f"constexpr int kReduceTeam = {g};"))
+          for g in (1, 4, 8)
+     ] + [(f"f12_inv lanes={g}, safegcd", "f12inv", "gt_ops",
+           (INV_TEAM, f"constexpr int kInvTeam = {g};")) for g in (1, 2, 3)
+     ] + [("f12_inv lanes=6, Fermat", "f12inv", "gt_ops",
+           (INV_SAFEGCD, "fp_inv_fermat(fadd(")),
+          ("f12_inv lanes=6, safegcd", "f12inv", "gt_ops", None)
+     ] + [(f"f12_inv lanes=6, at most {r} registers", "f12inv", "gt_ops",
+           ("__launch_bounds__(32)\n    f12_inv_kernel",
+            f"__launch_bounds__(32, {65536 // (32 * r)})\n    f12_inv_kernel"))
+          for r in (168, 128)]
 
 
 def edited(source, edit, cuda_build):
@@ -282,6 +310,11 @@ def time_tree(root):
                 (lambda a, w=w: cuda_pairing.f12_slotmul_flat(a, w)),
                 (lambda a, w=w: cuda_pairing.f12_slotmul_plain(a, w)))
                for n in SLOT_SHAPES for w in cuda_pairing.SLOT_MAPS]
+    shapes += [(f"point_add N={n}", (rows(pts, n), rows(pts.flip(0), n)),
+                cuda_ops.point_add_flat, cuda_ops.point_add_plain)
+               for n in ADD_SHAPES]
+    shapes += [(f"f12_inv N={n}", (rows(gts, n),), cuda_pairing.f12_inv_flat,
+                cuda_pairing.f12_inv_plain) for n in F12_INV_SHAPES]
     out = {"tree": str(root)}
     for label, args, kern, plain in shapes:
         got = kern(*args)
@@ -297,6 +330,8 @@ def time_tree(root):
         out[label] = {"ms": timed(lambda: kern(*args)),
                       "sha": hashlib.sha256(got.cpu().numpy().tobytes())
                       .hexdigest()[:16]}
+        if label.startswith(("point_add", "f12_inv")):
+            out[label]["graph ms"] = graph_timed(lambda: kern(*args))
     print(json.dumps(out), flush=True)
 
 
@@ -411,13 +446,25 @@ def main():
     # the reduce on the crafted chains, then on Jacobian multiples of B at
     # the cluster survey's (R, N); the slot maps on the crafted rows, then
     # on pairing values
-    from chip_smoke import crafted_reduce_cases, crafted_slotmul_cases
+    from chip_smoke import (crafted_inv_cases, crafted_reduce_cases,
+                            crafted_slotmul_cases)
+    from drynx_tpu_torch.crypto import fp12 as F12
     reduce_cases = [(f"crafted R={r}", crafted_reduce_cases(
         C, params, refimpl, r, dev), False) for r in (2, 3, 10)] + [
         (f"R={r} N={n}", pts[:r * n].reshape(r, n, 3, 16), True)
         for r, n in REDUCE_SHAPES]
     slot_cases = [("crafted N=7", crafted_slotmul_cases(params, dev),
                    False)] + [(f"N={n}", gts[:n], True) for n in SLOT_SHAPES]
+    # the add on the crafted reduce's R = 2 pairs, then on Jacobian
+    # multiples of B (q the rows reversed); the Fp12 inverse on the crafted
+    # rows, then on Miller outputs (the final exponentiation's input)
+    add_q = pts.flip(0).contiguous()
+    add_cases = [("crafted N=7", *crafted_reduce_cases(
+        C, params, refimpl, 2, dev), False)] + [
+        (f"N={n}", pts[:n], add_q[:n], True) for n in ADD_SHAPES]
+    ml = cuda_pairing.miller_flat(px, py, qx, qy)
+    inv_cases = [("crafted N=6", crafted_inv_cases(F12, refimpl, dev),
+                  False)] + [(f"N={n}", ml[:n], True) for n in F12_INV_SHAPES]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def held(name, label, got, want, same):
@@ -528,6 +575,34 @@ def main():
                     if timed_here:
                         row[f"ms {label} {w}"] = timed(run)
                         row[f"graph ms {label} {w}"] = graph_timed(run)
+        elif kind == "add":
+            row["ptxas"] = ptxas_summary(log, "point_add_kernel")
+            for label, p, q, timed_here in add_cases:
+                want = cuda_ops.point_add_plain(p, q)
+                out = torch.empty_like(want)
+                run = lambda p=p, q=q, out=out: cuda_build.check(
+                    lib.g1_point_add(p.data_ptr(), q.data_ptr(),
+                                     out.data_ptr(), len(p), stream()), name)
+                run()
+                torch.cuda.synchronize()
+                held(name, label, out, want, torch.equal)
+                if timed_here:
+                    row[f"ms {label}"] = timed(run)
+                    row[f"graph ms {label}"] = graph_timed(run)
+        elif kind == "f12inv":
+            row["ptxas"] = ptxas_summary(log, "f12_inv_kernel")
+            for label, a, timed_here in inv_cases:
+                want = cuda_pairing.f12_inv_plain(a)
+                out = torch.empty_like(want)
+                run = lambda a=a, out=out: cuda_build.check(
+                    lib.f12_inv(a.data_ptr(), out.data_ptr(), len(a),
+                                stream()), name)
+                run()
+                torch.cuda.synchronize()
+                held(name, label, out, want, torch.equal)
+                if timed_here:
+                    row[f"ms {label}"] = timed(run)
+                    row[f"graph ms {label}"] = graph_timed(run)
         elif kind == "fp_inv":
             row["ptxas"] = ptxas_summary(log, "fp_inv_kernel")
             for n in INV_SHAPES:

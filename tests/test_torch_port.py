@@ -21,9 +21,9 @@ import torch
 
 from chip_smoke import (REDUCE_RS, SLOTMUL_NS, WPOW_BITS,
                         crafted_fixed_base_cases, crafted_g2_ladder_cases,
-                        crafted_ladder_cases, crafted_reduce_cases,
-                        crafted_slotmul_cases, crafted_wpow_cases,
-                        fp_inv_edge_inputs)
+                        crafted_inv_cases, crafted_ladder_cases,
+                        crafted_reduce_cases, crafted_slotmul_cases,
+                        crafted_wpow_cases, fp_inv_edge_inputs)
 from drynx_tpu_torch import flagship
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
@@ -625,6 +625,58 @@ def test_slotmul_kernel_at_main_path_shapes(cuda, n):
         torch.cuda.synchronize()
         assert torch.equal(got, cuda_pairing.f12_slotmul_plain(a, which)), \
             which
+
+
+@pytest.mark.gpu
+def test_add_team_kernel_on_crafted_pairs(cuda):
+    """The add's team kernel on the reduce's R = 2 pairs (every branch of
+    the complete add), seven rows: not a multiple of a block's."""
+    p, q = crafted_reduce_cases(C, params, refimpl, 2, cuda)
+    got = cuda_ops.point_add_flat(p, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_ops.point_add_plain(p, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5, 90, 270, 810, 900, 13500])
+def test_add_team_kernel_at_main_path_shapes(cuda, n):
+    """The cluster survey's adds (90 ... 13,500 rows) and a partly filled
+    block, on Jacobian multiples of B, with P + P, P + (-P) and infinity
+    among the rows."""
+    base = eg.BASE_TABLE.table.to(cuda)
+    p = cuda_ops.fixed_base_mul_flat(base, _fixed_base_scalars(n, 64, cuda))
+    q = p.flip(0).clone()
+    q[0], q[1], q[2] = p[0], C.neg(p[1:2])[0], C.infinity((), cuda)
+    got = cuda_ops.point_add_flat(p, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_ops.point_add_plain(p, q))
+
+
+@pytest.mark.gpu
+def test_f12_inv_team_kernel_on_crafted_rows(cuda):
+    """The inverse's team kernel on 0, 1, a Miller output, a seeded value,
+    b = 0 and a = 0, each alone (one team) and all six in one launch."""
+    a = crafted_inv_cases(F12, refimpl, cuda)
+    for k in range(len(a)):
+        got = cuda_pairing.f12_inv_flat(a[k:k + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_pairing.f12_inv_plain(a[k:k + 1])), k
+    got = cuda_pairing.f12_inv_flat(a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f12_inv_plain(a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 13500])
+def test_f12_inv_team_kernel_at_main_path_shapes(cuda, n):
+    """The final exponentiation's N = 1, the per-value check's 13,500 rows
+    and a partly filled block, on the crafted rows and GPhi12 members."""
+    a = torch.cat([crafted_inv_cases(F12, refimpl, cuda),
+                   _gt_operands(160, cuda)])
+    a = a.repeat((n + len(a) - 1) // len(a), 1, 1, 1)[:n].contiguous()
+    got = cuda_pairing.f12_inv_flat(a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f12_inv_plain(a))
 
 
 @pytest.mark.gpu

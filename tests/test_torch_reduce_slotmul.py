@@ -171,6 +171,9 @@ def test_reduce_and_slot_map_kernels_are_the_designs():
                          g1).group(1))
     assert team in (4, 8)
     body = _kernel_body(g1, "point_reduce_kernel")
+    assert "team_column_sum(ReduceRows{pts, n}, r, out, n);" in body
+    body = g1[g1.index("void team_column_sum("):]
+    body = body[:body.index("\n}\n")]
     assert "for (int j = 1; j < r; ++j)" in body
     assert "acc = team_add(tm, acc, q);" in body
     assert "if (slot == 0) store_g1(" in body
