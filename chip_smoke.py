@@ -25,7 +25,12 @@ Phases (any failed check exits non-zero; nothing is caught):
      survey's other shapes (810 and 13,500 rows) and on the reduce's
      crafted pairs at R = 2; the Fp12 inverse on crafted rows (0, 1, a
      Miller output, a seeded value, b = 0, a = 0), each alone and tiled to
-     13,500 rows; the slot maps on crafted rows at N in {1, 5, 7}; the
+     13,500 rows; the Fp2 inverse on crafted rows (0, 1, (a, 0), (0, b),
+     -1 - i, the stored limbs (p - 1, p - 1), seeded values), all in one
+     launch and tiled to 13,500 rows; the cyclotomic square on crafted rows
+     (0, 1, the six unit slots w^k, a GPhi12 member, seeded values outside
+     GPhi12), each alone and tiled to 13,500 rows; the slot maps on
+     crafted rows at N in {1, 5, 7}; the
      Miller loop at N = 1 and 1,000; the variable-base ladder on crafted
      scalars at W in {1, 2, 16, 64} and at N in {1, 5, 21}; the G2 ladder
      on crafted scalars and at N in {1, 5, 21}; the windowed GT power on
@@ -62,8 +67,8 @@ Phases (any failed check exits non-zero; nothing is caught):
      the Pima width, ranges (16, 5), thresholds 1.0), counted as above: an
      audit block of 3 VNs x 16 proofs, every entry BM_TRUE; the row
      counts of every kernel's launches printed (the reduce's as (R, N)),
-     those of the reduce, the Fp inverse, the Fp12 product and the slot
-     maps equal to CLUSTER_ROWS; all 90
+     those of the reduce, the Fp and Fp2 inverses, the Fp12 product, the
+     cyclotomic square and the slot maps equal to CLUSTER_ROWS; all 90
      decrypted values exact and found; the weights within 1e-3 of GD on
      the CPU; the same transcript digest from a second run with the same
      seed (verification caches cleared); a key-switch payload from a VN's
@@ -162,9 +167,9 @@ EXPECTED_LAUNCHES_CLUSTER = {"fixed_base_mul": 15, "scalar_mul": 7,
                              "f12_mulreduce8": 16, "miller": 1, "f12_inv": 1,
                              "f12_csqr": 4, "f12_slotmul": 17, "f12_wpow": 5,
                              "f12_pow": 0}
-# the row counts of the cluster survey's B3, B4, B7 and B11 launches,
-# {rows: launches} (B3's rows (R, N)), as phase 7 records them; phase 2
-# times the kernels at each. B3: the canonical aggregate of the 10 DPs'
+# the row counts of the cluster survey's B3, B4, B7, B10, B11 and B14
+# launches, {rows: launches} (B3's rows (R, N)), as phase 7 records them;
+# phase 2 times the kernels at each. B3: the canonical aggregate of the 10 DPs'
 # ciphertexts and the VN's aggregation-proof check (R = 10 over 2 x 90
 # points), the key switch's two sums over the 3 CNs; B4: the collection's
 # ciphertexts and D, the canonical aggregate, the key-switch proof's
@@ -172,11 +177,15 @@ EXPECTED_LAUNCHES_CLUSTER = {"fixed_base_mul": 15, "scalar_mul": 7,
 # key-switch check; B7: the collection's a = gt1 gt2 and the joint check's
 # GPhi12 gate, then its final exponentiation (15) and total (2); B11: the
 # joint check's GPhi12 gate (two frob2) and order gate (frob1), then its
-# final exponentiation (14)
+# final exponentiation (14); B10: the final exponentiation's four
+# cyclotomic squares; B14: the normalizations of the blinded signatures V,
+# in the collection and in the joint check
 CLUSTER_ROWS = {"point_reduce": {(10, 180): 2, (3, 90): 2},
                 "fp_inv": {1800: 1, 900: 1, 180: 1, 1444: 2, 90: 1,
                            13_500: 1},
+                "f2_inv": {13_500: 2},
                 "f12_mul": {13_500: 2, 1: 17},
+                "f12_csqr": {1: 4},
                 "f12_slotmul": {13_500: 3, 1: 14}}
 
 # H100 SXM: 132 SMs, 64 32-bit integer multiply-adds per SM per clock,
@@ -241,7 +250,6 @@ def mm_g2_ladder(k):
     scalars k."""
     return _mm_ladder(k, 64, MM_G2_DBL, MM_G2_ADD)
 
-MM_F2_INV = 2 + 255 + 124 + 2   # norm, Fermat over p - 2, two products
 MM_F12_MUL = 18 * 3             # 18 Fp2 products
 MM_F12_SQR = 12 * 3             # complex method: 12 Fp2 products
 MM_F12_CSQR = 9 * 2             # Granger-Scott: 9 Fp2 squares
@@ -254,6 +262,8 @@ MM_F12_SLOTMUL = 6 * 3          # 6 Fp2 products by constants
 # bound takes them.
 OPS_FP_INV = 20 * (30 * 27 + 174 + 124) + IMAD_PER_MONT_MUL
 MM_FP_INV = OPS_FP_INV / IMAD_PER_MONT_MUL
+# B14: the norm (2), the Fp inverse by safegcd, two products
+MM_F2_INV = 2 + MM_FP_INV + 2
 # B8, the tower inverse: the norm (2 Fp6 products = 36), the Fp6 adjugate
 # (3 squares, 6 products = 24), the Fp2 inverse (its norm 2, the Fp inverse
 # by safegcd, 2 products) and 3 products (9), then 2 Fp6 products (36)
@@ -487,6 +497,39 @@ def crafted_inv_cases(F12, refimpl, device):
     rows = [refimpl.FP12_ZERO, refimpl.FP12_ONE,
             refimpl.ate_miller_loop(refimpl.G1, refimpl.G2), rand(), a_only,
             b_only]
+    return F12.from_ref_batch(rows).to(device)
+
+
+def crafted_f2_inv_cases(F2, params, device):
+    """(9, 2, 16) Fp2 rows for the Fp2 inverse: 0 (which maps to 0); 1;
+    (a, 0) and (0, b) for seeded a, b (a norm of one square); -1 - i (the
+    value (p - 1, p - 1)); the stored limbs (p - 1, p - 1), the largest
+    canonical residues; three seeded values. F2, params: the port's fp2 and
+    params modules."""
+    rng = np.random.default_rng(43)
+    rand = lambda: int.from_bytes(rng.bytes(40), "little") % params.P
+    top = params.to_limbs(params.P - 1)
+    rows = [F2.from_ref(v) for v in ((0, 0), (1, 0), (rand(), 0),
+                                     (0, rand()),
+                                     (params.P - 1, params.P - 1))]
+    rows.append(torch.tensor([top, top], dtype=torch.int32))
+    rows += [F2.from_ref((rand(), rand())) for _ in range(3)]
+    return torch.stack(rows).to(device)
+
+
+def crafted_csqr_cases(F12, refimpl, device):
+    """(11, 6, 2, 16) Fp12 rows for the cyclotomic square: 0; 1; the six
+    unit slots w^k, k = 0 ... 5 (a single non-zero slot, which a wrong slot
+    map moves); a GPhi12 member, the pairing of the generators; two seeded
+    values outside GPhi12, where the function is not the square. F12,
+    refimpl: the port's fp12 and refimpl modules."""
+    rng = np.random.default_rng(47)
+    rand = lambda: [tuple(int.from_bytes(rng.bytes(40), "little")
+                          % refimpl.P for _ in range(2)) for _ in range(6)]
+    zero, one = refimpl.FP2_ZERO, refimpl.FP2_ONE
+    units = [[one if m == k else zero for m in range(6)] for k in range(6)]
+    rows = [refimpl.FP12_ZERO, refimpl.FP12_ONE, *units,
+            refimpl.pair(refimpl.G1, refimpl.G2), rand(), rand()]
     return F12.from_ref_batch(rows).to(device)
 
 
@@ -740,6 +783,7 @@ def main():
     from drynx_tpu_torch.crypto import curve as C
     from drynx_tpu_torch.crypto import elgamal as eg
     from drynx_tpu_torch.crypto import field as F
+    from drynx_tpu_torch.crypto import fp2 as F2
     from drynx_tpu_torch.crypto import fp12 as F12
     from drynx_tpu_torch.crypto import g2 as G2
     from drynx_tpu_torch.crypto import gt as GT
@@ -1077,6 +1121,13 @@ def main():
     inv_crafted = crafted_inv_cases(F12, refimpl, dev)
     inv_tiled = inv_crafted.repeat(n_proofs // len(inv_crafted) + 1, 1, 1,
                                    1)[:n_proofs].contiguous()
+    # B14's and B10's crafted rows, and tiled to their 13,500-row launches
+    f2_crafted = crafted_f2_inv_cases(F2, bn256, dev)
+    f2_tiled = f2_crafted.repeat(n_proofs // len(f2_crafted) + 1, 1,
+                                 1)[:n_proofs].contiguous()
+    csqr_crafted = crafted_csqr_cases(F12, refimpl, dev)
+    csqr_tiled = csqr_crafted.repeat(n_proofs // len(csqr_crafted) + 1, 1, 1,
+                                     1)[:n_proofs].contiguous()
 
     def scalars(n, n_windows):
         lim = min(refimpl.N, 16 ** n_windows)
@@ -1126,6 +1177,33 @@ def main():
              lambda: cuda_pairing.f12_inv_flat(inv_tiled),
              lambda: cuda_pairing.f12_inv_plain(inv_tiled), MM_F12_INV,
              n_proofs, 2 * nbytes(inv_tiled))
+        ],
+        # the crafted rows (0, 1, (a, 0), (0, b), -1 - i, limbs at p - 1,
+        # seeded) in one launch and tiled to 13,500 rows
+        "f2_inv": [
+            (f"crafted N={len(f2_crafted)}",
+             lambda: cuda_pairing.f2_inv_flat(f2_crafted),
+             lambda: cuda_pairing.f2_inv_plain(f2_crafted), MM_F2_INV,
+             len(f2_crafted), 2 * nbytes(f2_crafted)),
+            (f"crafted rows tiled N={n_proofs}",
+             lambda: cuda_pairing.f2_inv_flat(f2_tiled),
+             lambda: cuda_pairing.f2_inv_plain(f2_tiled), MM_F2_INV,
+             n_proofs, 2 * nbytes(f2_tiled)),
+        ],
+        # the crafted rows (0, 1, the unit slots, GPhi12, outside it), each
+        # alone (one team) and tiled to 13,500 rows
+        "f12_csqr": [
+            (f"crafted row {k} N=1",
+             (lambda k=k: cuda_pairing.f12_csqr_flat(csqr_crafted[k:k + 1])),
+             (lambda k=k: cuda_pairing.f12_csqr_plain(
+                 csqr_crafted[k:k + 1])),
+             MM_F12_CSQR, 1, 2 * 768)
+            for k in range(len(csqr_crafted))
+        ] + [
+            (f"crafted rows tiled N={n_proofs}",
+             lambda: cuda_pairing.f12_csqr_flat(csqr_tiled),
+             lambda: cuda_pairing.f12_csqr_plain(csqr_tiled), MM_F12_CSQR,
+             n_proofs, 2 * nbytes(csqr_tiled))
         ],
         # the crafted rows (zero slots, limbs at p - 1, -1, mixed)
         "f12_slotmul": [

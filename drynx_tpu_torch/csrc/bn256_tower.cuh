@@ -12,8 +12,8 @@
 // reference's bytes; the formulas are the reference's all the same: Karatsuba
 // Fp2 products (3 Fp products), 3-way Karatsuba Fp6 products (6 Fp2) and
 // Karatsuba over Fp6 for Fp12 (18 Fp2 products), the complex-method Fp12
-// square (12), the Granger-Scott cyclotomic square (9 Fp2 squares) and the
-// sparse line product (18); the tower inverse is gt_ops.cu's team kernel.
+// square (12) and the sparse line product (18); the tower inverse and the
+// Granger-Scott cyclotomic square are gt_ops.cu's team kernels.
 // The big tower functions are not inlined: one body each, their
 // temporaries in their own frame.
 #pragma once
@@ -161,20 +161,6 @@ __device__ __forceinline__ Fp2 f2select(uint32_t mask, const Fp2& a, const Fp2& 
   return Fp2{fp_select(mask, a.c0, b.c0), fp_select(mask, a.c1, b.c1)};
 }
 
-// x^(p-2) for the public exponent p - 2: 255 squarings and a product only
-// where a bit is set (pallas_pairing._fermat_inv_rolled reaches the same
-// residue by multiplying always and selecting)
-__device__ __forceinline__ Fp fp_inv_fermat(const Fp& x) {
-  Fp acc = x;
-#pragma unroll 1
-  for (int b = 254; b >= 0; --b) {
-    acc = mont_mul(acc, acc);
-    const uint32_t word = (b < 32) ? p_word(0) - 2u : p_word(b >> 5);
-    if ((word >> (b & 31)) & 1u) acc = mont_mul(acc, x);
-  }
-  return acc;
-}
-
 // ---------------------------------------------------------------------------
 // Fp6 and Fp12 (make_fp12); Fp12 f = A(v) + w B(v), A = (f0, f2, f4),
 // B = (f1, f3, f5), v = w^2
@@ -272,41 +258,6 @@ static __device__ __noinline__ Fp12 f12sqr(const Fp12& a) {
     r.c[2 * k] = c.c[k];
     r.c[2 * k + 1] = d.c[k];
   }
-  return r;
-}
-
-// Granger-Scott cyclotomic square (eprint 2009/565, section 3.2): 9 Fp2
-// squares. It is the square only for f in the cyclotomic subgroup GPhi12(p);
-// elsewhere it computes an unrelated function of f.
-static __device__ __noinline__ Fp12 f12csqr(const Fp12& f) {
-  const Fp2 s0 = f2sqr(f.c[3]);
-  const Fp2 s1 = f2sqr(f.c[0]);
-  const Fp2 t6 = f2sub(f2sub(f2sqr(f2add(f.c[3], f.c[0])), s0), s1);
-  const Fp2 s2 = f2sqr(f.c[4]);
-  const Fp2 s3 = f2sqr(f.c[1]);
-  const Fp2 t7 = f2sub(f2sub(f2sqr(f2add(f.c[4], f.c[1])), s2), s3);
-  const Fp2 s4 = f2sqr(f.c[5]);
-  const Fp2 s5 = f2sqr(f.c[2]);
-  const Fp2 t8 =
-      f2mul_xi(f2sub(f2sub(f2sqr(f2add(f.c[5], f.c[2])), s4), s5));
-  const Fp2 t0 = f2add(f2mul_xi(s0), s1);
-  const Fp2 t2 = f2add(f2mul_xi(s2), s3);
-  const Fp2 t4 = f2add(f2mul_xi(s4), s5);
-  auto out_sub = [](const Fp2& t, const Fp2& x) {   // 3t - 2x
-    const Fp2 d = f2sub(t, x);
-    return f2add(f2add(d, d), t);
-  };
-  auto out_add = [](const Fp2& t, const Fp2& x) {   // 3t + 2x
-    const Fp2 s = f2add(t, x);
-    return f2add(f2add(s, s), t);
-  };
-  Fp12 r;
-  r.c[0] = out_sub(t0, f.c[0]);
-  r.c[1] = out_add(t8, f.c[1]);
-  r.c[2] = out_sub(t2, f.c[2]);
-  r.c[3] = out_add(t6, f.c[3]);
-  r.c[4] = out_sub(t4, f.c[4]);
-  r.c[5] = out_add(t7, f.c[5]);
   return r;
 }
 

@@ -6,9 +6,24 @@
 //   g2_scalar_mul  replaces _g2_scalar_mul_kernel (g2_scalar_mul_flat)
 //   f2_inv         replaces _f2_inv_kernel        (f2_inv_flat)
 //
-// What bounds them: 32-bit integer multiply-adds. The inversion is 381
-// Montgomery products a row, one row a thread; memory traffic is a few
-// hundred bytes a row.
+// f2_inv: 1/(a0 + a1 i) = (a0, -a1) / (a0^2 + a1^2), one row a thread, 32
+// threads a block, as fp_inv.cu: the norm (two Montgomery products and an
+// add), its Fp inverse by Bernstein and Yang's constant-time safegcd
+// (fp_inv.cuh: 20 batches of 30 branch-free divsteps on 30-bit limbs, then
+// one product), then the two products by the inverse: the expression of
+// gt_ops.cu's team_f12inv, step 4. Every field value the G2 ladder emits
+// is a canonical residue, and mont_mul and fadd return canonical residues
+// for inputs below p, so the norm handed to safegcd is below p; safegcd
+// maps 0 to 0 as x^(p-2) does, so the output is f2_inv_plain's bytes (a
+// Fermat power), 0 included. No branch depends on the data. What bounds
+// it: instruction issue. The main path's 13,500 rows are 422 warps, about
+// 3 an SM, so one thread's chain of ~22,000 integer steps sets the time.
+// No team: for the same safegcd at 13,500 rows one lane a row was
+// measured faster than six (gt_ops.cu's f12_inv note). On an H100 80GB
+// HBM3 at 700 W, at 13,500 rows: 0.028 ms of device time (CUDA graph)
+// and 0.033-0.044 through the wrapper, against 0.276 and 0.278 for the
+// Fermat chain it replaced; 64 and 128 threads a block within 1.5 % of
+// 32 (scripts/torch_team_variants.py). ptxas: 78 registers, no stack.
 //
 // g2_scalar_mul: k*Q on the twist, 4-bit windows MSB-first over the table
 // T[d] = d*Q, 4 doublings and a complete add a window, as
@@ -41,17 +56,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fp_inv.cuh"
 #include "team_ladder.cuh"
 
 using namespace bn256;
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kF2InvThreads = 32;   // f2_inv's block
 constexpr int kPointWords = 3 * 2 * NL16;   // int32 words of one G2 point
 constexpr int kWindows = 64;
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 constexpr int kG2LadderTeam = 8;   // lanes per row
 constexpr int kG2TeamsPerWarp = 32 / kG2LadderTeam;   // a block is a warp
@@ -77,14 +91,14 @@ __global__ void __launch_bounds__(32)
   if (slot == 0) store_g2(out + (size_t)i * kPointWords, acc);
 }
 
-// f2_inv: 1/(a0 + a1 i) = (a0, -a1) / (a0^2 + a1^2), the norm inverted by
-// Fermat over the bits of p - 2
-__global__ void f2_inv_kernel(const int32_t* __restrict__ a,
-                              int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kF2InvThreads)
+    f2_inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                  int n) {
+  const int i = blockIdx.x * kF2InvThreads + threadIdx.x;
   if (i >= n) return;
   const Fp2 x = load_fp2(a + (size_t)i * 2 * NL16);
-  const Fp ni = fp_inv_fermat(fadd(mont_mul(x.c0, x.c0), mont_mul(x.c1, x.c1)));
+  const Fp ni =
+      fp_inv_safegcd(fadd(mont_mul(x.c0, x.c0), mont_mul(x.c1, x.c1)));
   const Fp2 r{mont_mul(x.c0, ni), mont_mul(fsub(fp_zero(), x.c1), ni)};
   store_fp2(out + (size_t)i * 2 * NL16, r);
 }
@@ -102,8 +116,8 @@ int g2_scalar_mul(const int32_t* p, const int32_t* k, int32_t* out, int n,
 }
 
 int f2_inv(const int32_t* a, int32_t* out, int n, void* stream) {
-  f2_inv_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(a, out,
-                                                                       n);
+  f2_inv_kernel<<<(n + kF2InvThreads - 1) / kF2InvThreads, kF2InvThreads, 0,
+                  (cudaStream_t)stream>>>(a, out, n);
   return (int)cudaGetLastError();
 }
 

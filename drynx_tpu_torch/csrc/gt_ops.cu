@@ -2,9 +2,10 @@
 // replaces one Pallas TPU kernel of drynx_tpu/crypto/pallas_pairing.py;
 // drynx_tpu_torch/crypto/cuda_pairing.py binds them with ctypes and holds
 // each beside its plain PyTorch version. f12_wpow, f12_mul,
-// f12_mulreduce8 and f12_inv give each row a team of threads (their notes
-// below; the first three one team product), f12_slotmul each Fp2 slot a
-// thread; the others run one row per thread.
+// f12_mulreduce8, f12_inv and f12_csqr give each row a team of threads
+// (their notes below; the first three one team product, f12_wpow and
+// f12_csqr one team cyclotomic square), f12_slotmul each Fp2 slot a
+// thread; f12_pow runs one row per thread.
 //
 //   f12_mul         replaces _f12_mul_kernel         (f12_mul_flat)
 //   f12_mulreduce8  replaces _f12_mulreduce8_kernel  (f12_mulreduce8_flat)
@@ -27,10 +28,8 @@
 // intermediate of 64 entries x 768 bytes per power); fusing it here is
 // later work.
 //
-// The verification kernels are the same kind of chain. f12_csqr is 18
-// Montgomery products a row; at the verifier's 13,500 rows a launch is one
-// wave, so the per-thread chain's latency, not the card's multiply rate,
-// sets the time. f12_inv's tower inverse is spread over a team (its note
+// The verification kernels are the same kind of chain. f12_csqr's 9 Fp2
+// squares and f12_inv's tower inverse are spread over a team (their notes
 // below). f12_slotmul's 18 products a row (six Fp2 products by constants)
 // are independent, one Fp2 product a thread (its note below).
 //
@@ -55,14 +54,6 @@ constexpr int kF12Words = 6 * 2 * NL16;   // int32 words of one Fp12 value
 constexpr int kPowEntries = 8;           // f12_wpow: 3-bit windows
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-__global__ void f12_csqr_kernel(const int32_t* __restrict__ a,
-                                int32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t off = (size_t)i * kF12Words;
-  store_fp12(out + off, f12csqr(load_fp12(a + off)));
-}
 
 // f12_slotmul: out[k] = (conj(a[k]) if conj else a[k]) * c[k], as
 // _f12_slotmul_kernel (pallas_pairing.py:645): the Frobenius maps of the
@@ -256,8 +247,10 @@ __device__ __forceinline__ void team_f12mul(F12Team<kSize>& tm,
   }
 }
 
-// this lane's slots of Granger-Scott's cyclotomic square of f, f's slots
-// being c across the team (bn256_tower.cuh f12csqr)
+// this lane's slots of Granger-Scott's cyclotomic square of f (eprint
+// 2009/565, section 3.2, with the reference's formulas), f's slots being
+// c across the team. It is the square only for f in the cyclotomic
+// subgroup GPhi12(p); elsewhere it computes an unrelated function of f.
 __device__ __forceinline__ void team_f12csqr(PowTeam& tm, Slots& c) {
   Fp2* w = tm.out();
 #pragma unroll
@@ -662,6 +655,44 @@ __global__ void __launch_bounds__(32)
   store_slots(out + off, tm.slot, x);
 }
 
+// f12_csqr: the cyclotomic square of every row, as _f12_csqr_kernel
+// (pallas_pairing.py:851). The kernel computes Granger-Scott's function
+// on any input, so its bytes are f12_csqr_plain's on rows outside GPhi12
+// too. A team of kPowTeam lanes computes one row, in one-warp blocks of
+// five teams, on the product teams' lane setup and slot loads, through
+// the windowed power's team_f12csqr: each lane loads its Fp2 slot, the
+// team publishes them, lane t squares the sums t and t + 6 (below 9) of
+// the 9 Fp2 squares, the team publishes those, and each lane forms its
+// own output slot (3t -+ 2f) and stores it. A lane's chain is 2 Fp2
+// squares (4 Montgomery products) and two exchanges, against the 18
+// products of one thread a row, the kernel this one replaced.
+//
+// What bounds it: at N = 1 (the final exponentiation's four squares) the
+// host's launch path, then one team's chain; at the per-value check's
+// 13,500 rows (2,700 warps, one wave at 96 registers) not the bytes (768
+// in and 768 out a row take a fifth of its time) but, likely, the lanes'
+// integer work: each lane forms both slot formulas and keeps one, and
+// lanes 3-5 square a sum they discard (not measured apart). On an H100
+// 80GB HBM3 at 700 W, device time from a CUDA graph: 0.007 ms at N = 1 and
+// 0.032-0.033 at 13,500, against 0.047 and 0.076 for one thread a row;
+// through the wrapper 0.030-0.044 (the host's floor) and 0.036-0.039;
+// 3 lanes a row (two slots each) 0.009 and 0.035 of device time
+// (scripts/torch_team_variants.py). ptxas: 96 registers, a 64-byte stack
+// (the call frame of sqr2), no spills.
+__global__ void __launch_bounds__(32)
+    f12_csqr_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
+                    int n) {
+  __shared__ Fp2 xch[kPowTeamsPerWarp][2][18];
+  int i;
+  PowTeam tm;
+  if (!prod_lane(n, xch, i, tm)) return;
+  const size_t off = (size_t)i * kF12Words;
+  Slots c;
+  load_slots(c, a + off, tm.slot);
+  team_f12csqr(tm, c);
+  store_slots(out + off, tm.slot, c);
+}
+
 // f^k, LSB-first: acc *= base where bit w of k is set, base squared after
 // every bit, as _f12_pow_kernel (pallas_pairing.py:541-569). The product is
 // computed at every bit and kept by mask, so the time does not depend on k.
@@ -706,8 +737,8 @@ int f12_inv(const int32_t* a, int32_t* out, int n, void* stream) {
 }
 
 int f12_csqr(const int32_t* a, int32_t* out, int n, void* stream) {
-  f12_csqr_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(a, out,
-                                                                         n);
+  f12_csqr_kernel<<<prod_blocks<kPowTeam>(n), 32, 0,
+                    (cudaStream_t)stream>>>(a, out, n);
   return (int)cudaGetLastError();
 }
 

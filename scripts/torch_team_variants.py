@@ -20,8 +20,10 @@ every lane loads them itself; the batched add's team size, the same
 kReduceTeam (1, one thread a row, 4, 8: the add is the reduce's body at R =
 2); the slot map's kSlotmulSlots in csrc/gt_ops.cu (1, one thread a slot,
 or 6, one thread a row); the Fp12 inverse's kInvTeam in csrc/gt_ops.cu (1,
-one thread a row, 2, 3 or 6), its Fp inverse (safegcd, or Fermat's x^(p-2)
-at 6 lanes) and its register cap (none, 168 or 128 at 6 lanes).
+one thread a row, 2, 3 or 6) and its register cap (none, 168 or 128 at 6
+lanes); the Fp2 inverse's block size kF2InvThreads (32, 64, 128) in
+csrc/g2_ops.cu; the cyclotomic square's team, the windowed power's
+kPowTeam (6 lanes, or 3 with two slots each: the two kernels share it).
 `cuda_build` builds them all at once with the package's flags. Every
 variant is checked against the package's plain versions before it is timed:
 the Miller loop, the ladders, the power, the products, the inverses, the
@@ -30,8 +32,10 @@ reduce, the add and the slot map byte for byte against `miller_plain`,
 `f12_mulreduce8_plain`, `f12_mul_plain`, `fp_inv_plain`,
 `point_reduce_plain` (on chip_smoke.crafted_reduce_cases too),
 `point_add_plain` (on the crafted reduce's R = 2 pairs too),
-`f12_slotmul_plain` (on chip_smoke.crafted_slotmul_cases too) and
-`f12_inv_plain` (on chip_smoke.crafted_inv_cases too), the fixed-base
+`f12_slotmul_plain` (on chip_smoke.crafted_slotmul_cases too),
+`f12_inv_plain` (on chip_smoke.crafted_inv_cases too), `f2_inv_plain` (on
+chip_smoke.crafted_f2_inv_cases too) and `f12_csqr_plain` (on
+chip_smoke.crafted_csqr_cases too), the fixed-base
 ladder as points (another team size sums in another order, so its Jacobian
 representative differs). Times are CUDA-event means at the main path's
 shapes: the Miller loop at 13,500 pairings; the fixed-base ladder at W = 64
@@ -45,10 +49,12 @@ builds the Fp12 product at 1 and 13,500 rows; the Fp inverse, the reduce
 and the slot maps at the cluster survey's shapes (chip_smoke.CLUSTER_ROWS:
 the reduce at R = 10 over 180 columns and R = 3 over 90, each slot map at 1
 and 13,500 rows), the add at its cluster shapes (90, 270, 810, 900, 13,500
-rows) and the Fp12 inverse on Miller outputs at 1 and 13,500 rows. Variants
-are called through their C entry points, without the package's wrappers;
-the reduce's, the add's, the slot map's and the inverse's are also timed
-from a CUDA graph of the same calls ("graph ms": the kernel's own device
+rows), the Fp12 inverse on Miller outputs at 1 and 13,500 rows, the Fp2
+inverse on 13,500 G2 Z coordinates and the cyclotomic square on GPhi12
+members at 1 and 13,500 rows. Variants are called through their C entry
+points, without the package's wrappers; the reduce's, the add's, the slot
+map's, the inverses' and the square's are also timed from a CUDA graph of
+the same calls ("graph ms": the kernel's own device
 time, without the host's launch path). Prints one JSON line per variant
 with its ptxas registers, stack and spills, then the card's name and power
 limit. The package keeps one kernel per function; PERF.md records the
@@ -58,13 +64,13 @@ readings and the choice.
 
 builds and times only the variants of the kinds named (miller,
 fixed_base, ladder, wpow, g2, prod, fp_inv, reduce, slotmul, add,
-f12inv), for a change that touches only those kernels.
+f12inv, f2inv, csqr), for a change that touches only those kernels.
 
     python3 scripts/torch_team_variants.py --against OTHER_ROOT
 
 times this checkout's variable-base ladder, G2 ladder, windowed GT power,
-8-way product, Fp12 product, Fp inverse, reduce, slot maps, add and Fp12
-inverse against another checkout's
+8-way product, Fp12 product, Fp inverse, reduce, slot maps, add, Fp12
+inverse, Fp2 inverse and cyclotomic square against another checkout's
 instead (for instance a parent commit unpacked with `git archive` under
 build/, which .gitignore lists). Each tree runs in a process of its own
 (the two packages share a name), in the order this, other, other, this;
@@ -75,9 +81,10 @@ rows and times the main path's shapes: the ladder at W = 64 on 90, 270,
 13,500, the power at 63 bits on 1 row and at 63 and 128 bits on 13,500,
 the 8-way product at the nine shapes above, the Fp12 product at 1 and
 13,500 rows, the Fp inverse, the reduce and the four slot maps at the
-cluster survey's shapes, the add at its cluster shapes and the Fp12
-inverse at 1 and 13,500 rows, all through the package's wrappers (the add
-and the Fp12 inverse also from a CUDA graph of the wrapper's calls).
+cluster survey's shapes, the add at its cluster shapes, the Fp12 inverse
+and the cyclotomic square at 1 and 13,500 rows and the Fp2 inverse at
+13,500, all through the package's wrappers (the add, the inverses and the
+square also from a CUDA graph of the wrapper's calls).
 Prints one JSON line per run with each shape's time and a digest of each
 output (the two trees must agree), then the card's name and power
 limit.
@@ -118,7 +125,7 @@ REDUCE_STAGED = (
     "    __syncwarp(tm.mask);\n"
     "    const G1 q = staged[team];\n")
 INV_TEAM = "constexpr int kInvTeam = 6;"
-INV_SAFEGCD = "fp_inv_safegcd(fadd("
+F2_INV_BLOCK = "constexpr int kF2InvThreads = 32;"
 SLOT_THREADS = "constexpr int kSlotmulSlots = 1;"
 FIXED_BASE_SHAPES = (("W=64 N=900", 900, 64), ("W=64 N=270", 270, 64),
                      ("W=16 N=900", 900, 16))
@@ -137,6 +144,11 @@ SLOT_SHAPES = tuple(sorted(CLUSTER_ROWS["f12_slotmul"]))
 # per-value check's 13,500)
 ADD_SHAPES = (90, 270, 810, 900, 13_500)
 F12_INV_SHAPES = (1, 13_500)
+# the Fp2 inverse's (the normalizations of V, 13,500 x 2) and the
+# cyclotomic square's (the final exponentiation's N = 1 x 4; the per-value
+# check's 13,500)
+F2_INV_SHAPES = tuple(sorted(CLUSTER_ROWS["f2_inv"]))
+CSQR_SHAPES = (1, 13_500)
 
 # (label, kind, source, (old, new) edit or None)
 VARIANTS = [
@@ -185,13 +197,16 @@ VARIANTS = [
           for g in (1, 4, 8)
      ] + [(f"f12_inv lanes={g}, safegcd", "f12inv", "gt_ops",
            (INV_TEAM, f"constexpr int kInvTeam = {g};")) for g in (1, 2, 3)
-     ] + [("f12_inv lanes=6, Fermat", "f12inv", "gt_ops",
-           (INV_SAFEGCD, "fp_inv_fermat(fadd(")),
-          ("f12_inv lanes=6, safegcd", "f12inv", "gt_ops", None)
+     ] + [("f12_inv lanes=6, safegcd", "f12inv", "gt_ops", None)
      ] + [(f"f12_inv lanes=6, at most {r} registers", "f12inv", "gt_ops",
            ("__launch_bounds__(32)\n    f12_inv_kernel",
             f"__launch_bounds__(32, {65536 // (32 * r)})\n    f12_inv_kernel"))
-          for r in (168, 128)]
+          for r in (168, 128)
+     ] + [(f"f2_inv {t} threads a block", "f2inv", "g2_ops",
+           (F2_INV_BLOCK, f"constexpr int kF2InvThreads = {t};"))
+          for t in (32, 64, 128)
+     ] + [(f"f12_csqr lanes={g}", "csqr", "gt_ops",
+           (POW_TEAM, f"constexpr int kPowTeam = {g};")) for g in (6, 3)]
 
 
 def edited(source, edit, cuda_build):
@@ -315,6 +330,13 @@ def time_tree(root):
                for n in ADD_SHAPES]
     shapes += [(f"f12_inv N={n}", (rows(gts, n),), cuda_pairing.f12_inv_flat,
                 cuda_pairing.f12_inv_plain) for n in F12_INV_SHAPES]
+    # Z coordinates of Jacobian multiples of the twist's generator
+    g2z = G2.double(g2s)[:, 2].contiguous()
+    shapes += [(f"f2_inv N={n}", (rows(g2z, n),), cuda_pairing.f2_inv_flat,
+                cuda_pairing.f2_inv_plain) for n in F2_INV_SHAPES]
+    shapes += [(f"f12_csqr N={n}", (rows(gts, n),),
+                cuda_pairing.f12_csqr_flat, cuda_pairing.f12_csqr_plain)
+               for n in CSQR_SHAPES]
     out = {"tree": str(root)}
     for label, args, kern, plain in shapes:
         got = kern(*args)
@@ -330,7 +352,7 @@ def time_tree(root):
         out[label] = {"ms": timed(lambda: kern(*args)),
                       "sha": hashlib.sha256(got.cpu().numpy().tobytes())
                       .hexdigest()[:16]}
-        if label.startswith(("point_add", "f12_inv")):
+        if label.startswith(("point_add", "f12_inv", "f2_inv", "f12_csqr")):
             out[label]["graph ms"] = graph_timed(lambda: kern(*args))
     print(json.dumps(out), flush=True)
 
@@ -465,6 +487,16 @@ def main():
     ml = cuda_pairing.miller_flat(px, py, qx, qy)
     inv_cases = [("crafted N=6", crafted_inv_cases(F12, refimpl, dev),
                   False)] + [(f"N={n}", ml[:n], True) for n in F12_INV_SHAPES]
+    # the Fp2 inverse on its crafted rows, then on the G2 ladder's Z
+    # coordinates; the cyclotomic square on its crafted rows, then on
+    # pairing values
+    from chip_smoke import crafted_csqr_cases, crafted_f2_inv_cases
+    from drynx_tpu_torch.crypto import fp2 as F2
+    f2_cases = [("crafted N=9", crafted_f2_inv_cases(F2, params, dev),
+                 False)] + [(f"N={n}", g2_p[:n, 2].contiguous(), True)
+                            for n in F2_INV_SHAPES]
+    csqr_cases = [("crafted N=11", crafted_csqr_cases(F12, refimpl, dev),
+                   False)] + [(f"N={n}", gts[:n], True) for n in CSQR_SHAPES]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def held(name, label, got, want, same):
@@ -589,14 +621,19 @@ def main():
                 if timed_here:
                     row[f"ms {label}"] = timed(run)
                     row[f"graph ms {label}"] = graph_timed(run)
-        elif kind == "f12inv":
-            row["ptxas"] = ptxas_summary(log, "f12_inv_kernel")
-            for label, a, timed_here in inv_cases:
-                want = cuda_pairing.f12_inv_plain(a)
+        elif kind in ("f12inv", "f2inv", "csqr"):
+            fn, cases_here, plain = {
+                "f12inv": ("f12_inv", inv_cases, cuda_pairing.f12_inv_plain),
+                "f2inv": ("f2_inv", f2_cases, cuda_pairing.f2_inv_plain),
+                "csqr": ("f12_csqr", csqr_cases,
+                         cuda_pairing.f12_csqr_plain)}[kind]
+            row["ptxas"] = ptxas_summary(log, f"{fn}_kernel")
+            for label, a, timed_here in cases_here:
+                want = plain(a)
                 out = torch.empty_like(want)
-                run = lambda a=a, out=out: cuda_build.check(
-                    lib.f12_inv(a.data_ptr(), out.data_ptr(), len(a),
-                                stream()), name)
+                run = lambda a=a, out=out, fn=fn: cuda_build.check(
+                    getattr(lib, fn)(a.data_ptr(), out.data_ptr(), len(a),
+                                     stream()), name)
                 run()
                 torch.cuda.synchronize()
                 held(name, label, out, want, torch.equal)

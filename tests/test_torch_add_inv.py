@@ -200,8 +200,9 @@ def test_add_and_inverse_kernels_are_the_designs():
     rows in two tensors) on team_ladder.cuh's team_add; the inverse runs a
     team of six lanes on the product teams' lane setup and inverts in Fp
     by fp_inv_safegcd, not fp_inv_fermat; the tower's one-thread inverse
-    is gone and the Fp2 inverse (B14) keeps its Fermat chain; the variants
-    script times the add's and the inverse's versions."""
+    is gone and the Fp2 inverse (B14) inverts its norm by fp_inv_safegcd
+    too; the variants script times the add's and the inverse's versions,
+    the inverse's with safegcd only."""
     g1 = (cuda_build.CSRC / "g1_ops.cu").read_text()
     add = _body(g1, "    point_add_kernel(")
     assert "team_column_sum(AddRows{p, q}, 2, out, n);" in add
@@ -225,12 +226,14 @@ def test_add_and_inverse_kernels_are_the_designs():
     tower = (cuda_build.CSRC / "bn256_tower.cuh").read_text()
     assert not re.search(r"\b(f12inv|fp6_inv|f2inv)\(", tower)
     g2 = (cuda_build.CSRC / "g2_ops.cu").read_text()
-    assert "fp_inv_fermat(" in _body(g2, "__global__ void f2_inv_kernel(")
+    f2_inv = _body(g2, "    f2_inv_kernel(")
+    assert f2_inv.count("fp_inv_safegcd(") == 1
+    assert "fp_inv_fermat" not in g2
     tv = _variants()
     assert tv.ADD_SHAPES == (90, 270, 810, 900, 13_500)
     assert tv.F12_INV_SHAPES == (1, 13_500)
     labels = {label for label, kind, _, _ in tv.VARIANTS
               if kind in ("add", "f12inv")}
     assert {"point_add lanes=1", "point_add lanes=4", "point_add lanes=8",
-            "f12_inv lanes=1, safegcd", "f12_inv lanes=6, Fermat",
-            "f12_inv lanes=6, safegcd"} <= labels
+            "f12_inv lanes=1, safegcd", "f12_inv lanes=6, safegcd"} <= labels
+    assert "f12_inv lanes=6, Fermat" not in labels

@@ -277,9 +277,9 @@ def test_product_team_constants_are_the_kernels():
 
 
 def test_cluster_row_counts_sum_to_the_launch_constants():
-    """Phase 2 times B3, B4, B7 and B11 at the cluster survey's row counts
-    (B3's as (R, N)), which phase 7 checks against the launches it
-    records."""
+    """Phase 2 times B3, B4, B7, B10, B11 and B14 at the cluster survey's
+    row counts (B3's as (R, N)), which phase 7 checks against the launches
+    it records."""
     for name, rows in CLUSTER_ROWS.items():
         assert sum(rows.values()) == EXPECTED_LAUNCHES_CLUSTER[name]
         shapes = [n if name == "point_reduce" else (n,) for n in rows]
@@ -287,5 +287,5 @@ def test_cluster_row_counts_sum_to_the_launch_constants():
                    for sh in shapes)
         assert all(isinstance(d, int) and d > 0 for sh in shapes
                    for d in sh)
-    assert set(CLUSTER_ROWS) == {"point_reduce", "fp_inv", "f12_mul",
-                                 "f12_slotmul"}
+    assert set(CLUSTER_ROWS) == {"point_reduce", "fp_inv", "f2_inv",
+                                 "f12_mul", "f12_csqr", "f12_slotmul"}

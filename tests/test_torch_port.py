@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from chip_smoke import (REDUCE_RS, SLOTMUL_NS, WPOW_BITS,
+                        crafted_csqr_cases, crafted_f2_inv_cases,
                         crafted_fixed_base_cases, crafted_g2_ladder_cases,
                         crafted_inv_cases, crafted_ladder_cases,
                         crafted_reduce_cases, crafted_slotmul_cases,
@@ -677,6 +678,63 @@ def test_f12_inv_team_kernel_at_main_path_shapes(cuda, n):
     got = cuda_pairing.f12_inv_flat(a)
     torch.cuda.synchronize()
     assert torch.equal(got, cuda_pairing.f12_inv_plain(a))
+
+
+@pytest.mark.gpu
+def test_f2_inv_kernel_on_crafted_rows(cuda):
+    """The Fp2 inverse on 0, 1, (a, 0), (0, b), -1 - i, the stored limbs
+    (p - 1, p - 1) and seeded values, each alone and all nine in one
+    launch."""
+    x = crafted_f2_inv_cases(F2, params, cuda)
+    for k in range(len(x)):
+        got = cuda_pairing.f2_inv_flat(x[k:k + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_pairing.f2_inv_plain(x[k:k + 1])), k
+    got = cuda_pairing.f2_inv_flat(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f2_inv_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 33, 13500])
+def test_f2_inv_kernel_at_main_path_shapes(cuda, n):
+    """The normalizations' 13,500 rows, a partly filled block and one row,
+    on the G2 ladder's Z coordinates with the crafted rows among them."""
+    g2p, g2k = _g2_operands(40, cuda)
+    z = cuda_pairing.g2_scalar_mul_flat(g2p, g2k)[:, 2]
+    x = torch.cat([crafted_f2_inv_cases(F2, params, cuda), z])
+    x = x.repeat((n + len(x) - 1) // len(x), 1, 1)[:n].contiguous()
+    got = cuda_pairing.f2_inv_flat(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f2_inv_plain(x))
+
+
+@pytest.mark.gpu
+def test_csqr_team_kernel_on_crafted_rows(cuda):
+    """The cyclotomic square's team kernel on 0, 1, the six unit slots, a
+    GPhi12 member and values outside GPhi12, each alone (one team) and all
+    eleven in one launch."""
+    a = crafted_csqr_cases(F12, refimpl, cuda)
+    for k in range(len(a)):
+        got = cuda_pairing.f12_csqr_flat(a[k:k + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_pairing.f12_csqr_plain(a[k:k + 1])), k
+    got = cuda_pairing.f12_csqr_flat(a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f12_csqr_plain(a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 13500])
+def test_csqr_team_kernel_at_main_path_shapes(cuda, n):
+    """The final exponentiation's N = 1, the per-value check's 13,500 rows
+    and a partly filled block, on GPhi12 members and the crafted rows."""
+    a = torch.cat([_gt_operands(160, cuda),
+                   crafted_csqr_cases(F12, refimpl, cuda)])
+    a = a.repeat((n + len(a) - 1) // len(a), 1, 1, 1)[:n].contiguous()
+    got = cuda_pairing.f12_csqr_flat(a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_pairing.f12_csqr_plain(a))
 
 
 @pytest.mark.gpu
