@@ -35,9 +35,13 @@ Phases (any failed check exits non-zero; nothing is caught):
      scalars at W in {1, 2, 16, 64} and at N in {1, 5, 21}; the G2 ladder
      on crafted scalars and at N in {1, 5, 21}; the windowed GT power on
      crafted values and exponents at n_bits in {1, 2, 3, 4, 63, 64, 128,
-     256} with and without cyc and at N in {1, 5, 21}; the 8-way product
-     at the joint check's fold shapes and at N in {5, 21}. These are
-     checked and timed the same way but left out of the JSON line's sums.
+     256} with and without cyc and at N in {1, 5, 21}; the Fp12 power on
+     crafted rows (exponents 0, 1, 2^n_bits - 1, bits only at or above
+     n_bits; 1, the unit slots w^j, a GPhi12 member, a value outside it)
+     at n_bits in {1, 48, 63, 256}, in one launch and tiled to 13,500
+     rows; the 8-way product at the joint check's fold shapes and at N in
+     {5, 21}. These are checked and timed the same way but left out of
+     the JSON line's sums.
   3. Run the flagship encrypted logistic-regression survey at the full
      Pima width (10 DPs x 768 records, d=8, K=2, 450 GD steps, 3 servers,
      discrete-log table of +-10000): with every launch count set to 0 just
@@ -75,6 +79,18 @@ Phases (any failed check exits non-zero; nothing is caught):
      store accepted, and rejected with one zx limb changed. Print the wall
      time (median of 3 warm runs after a warm-up), the phase timers and the
      time in Schnorr signing and checking.
+  8. Run the obfuscated max of the reference's minmax.toml (first run:
+     1,000 buckets, 64 rows a DP, 5 DPs, 3 CNs, 3 VNs, ranges (2, 1),
+     thresholds 1.0) through `LocalCluster.run_survey`, counted as above:
+     the decoded max equal to the clear max and to the same survey's
+     without obfuscation; an audit block of 3 VNs x 14 proofs, every entry
+     BM_TRUE; the row counts of every kernel's launches printed; an
+     obfuscation payload with one z limb changed recorded BM_FALSE for its
+     envelope only; `schnorr.verify_batch` equal to host `verify` on every
+     signed envelope of the survey and on nine forgeries. Print the wall
+     time (median of 3 warm runs after the first), the phase timers,
+     ObfuscationPhase and VerifyObfuscation among them, and the time in
+     Schnorr signing and checking.
   Last, the kernels' times, launch counts and bounds as one JSON line, the
   card's name and power limit, and the contract line
   {"ok": true, "device": {...}}.
@@ -187,6 +203,26 @@ CLUSTER_ROWS = {"point_reduce": {(10, 180): 2, (3, 90): 2},
                 "f12_mul": {13_500: 2, 1: 17},
                 "f12_csqr": {1: 4},
                 "f12_slotmul": {13_500: 3, 1: 14}}
+
+# the obfuscated max of the reference's simul/runfiles/minmax.toml, first
+# run (the TIFS "max w/ obf" setting, SURVEY.md:428): 1,000 buckets over
+# [0, 999], 64 rows a DP from a seed, 5 DPs, 3 CNs, 3 VNs, proofs with
+# ranges (2, 1), discrete-log table of +-25,000, obfuscation on,
+# thresholds 1.0: 5,000 range-proofed values (15,000 digit proofs) and 3
+# obfuscation proofs of 1,000 ciphertexts, 14 signed envelopes
+MAX_DPS, MAX_ROWS, MAX_QMAX, MAX_DLOG, MAX_DATA_SEED, MAX_RUNS = (
+    5, 64, 999, 25_000, 8, 3)
+# its launches: phase 7's without the signed offset's correction (the
+# joint range check's folds again five passes, over 15,000 digit proofs),
+# and for each CN's obfuscation proof a ladder over s K, s C, w K, w C and
+# a normalization of its transcript, then the VNs' check of it: a ladder
+# over z K, z C, c K', c C', an add and a normalization
+OBFUSCATION_LAUNCHES = {"scalar_mul": 2, "point_add": 1, "fp_inv": 2}
+EXPECTED_LAUNCHES_MAX = {
+    k: v - SIGNED_OFFSET_LAUNCHES.get(k, 0)
+    + N_SERVERS * OBFUSCATION_LAUNCHES.get(k, 0)
+    for k, v in EXPECTED_LAUNCHES_CLUSTER.items()}
+
 
 # H100 SXM: 132 SMs, 64 32-bit integer multiply-adds per SM per clock,
 # 3.35 TB/s device memory (NVIDIA data sheet and Hopper white paper)
@@ -409,6 +445,32 @@ def crafted_wpow_cases(F, F12, params, refimpl, device):
     edges = sum(7 << b for b in (15, 47, 127))
     ks = [0, 1, (1 << 256) - 1, params.U, edges, edges ^ ((1 << 256) - 1)]
     return (F12.from_ref_batch(vals).to(device), F.from_int(ks).to(device))
+
+
+POW_BITS = (1, 48, 63, 256)
+
+
+def crafted_pow_cases(F, F12, refimpl, n_bits, device):
+    """(f, k), 12 rows, for the Fp12 power at n_bits: a seeded value
+    outside GPhi12 with the exponents 0, 1, 2^n_bits - 1, every bit from
+    n_bits up set and none below (the power must ignore them; 0 at 256
+    bits) and a seeded one; then 1, the unit slots w^j, j = 1 ... 5 (a
+    single non-zero slot, which a wrong slot map moves), and a GPhi12
+    member (the pairing of the generators), each with a seeded exponent
+    whose bits above n_bits are set too. F, F12, refimpl: the port's
+    modules."""
+    rng = np.random.default_rng(53)
+    rand = lambda: [tuple(int.from_bytes(rng.bytes(40), "little")
+                          % refimpl.P for _ in range(2)) for _ in range(6)]
+    zero, one = refimpl.FP2_ZERO, refimpl.FP2_ONE
+    units = [[one if m == j else zero for m in range(6)] for j in range(1, 6)]
+    low = (1 << n_bits) - 1
+    seeded = lambda: int.from_bytes(rng.bytes(32), "little")
+    g = rand()
+    rows = [g] * 5 + [refimpl.FP12_ONE, *units,
+                      refimpl.pair(refimpl.G1, refimpl.G2)]
+    ks = [0, 1, low, ((1 << 256) - 1) ^ low] + [seeded() for _ in range(8)]
+    return (F12.from_ref_batch(rows).to(device), F.from_int(ks).to(device))
 
 
 REDUCE_RS = (1, 2, 3, 10)
@@ -774,6 +836,169 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
     return launches7, walls
 
 
+def phase8(zero_launches, launch_counts):
+    """The obfuscated max of minmax.toml through the port's LocalCluster
+    on the card. Returns (launches, warm wall times)."""
+    import pickle
+
+    from drynx_tpu_torch.crypto import params
+    from drynx_tpu_torch.proofs import requests as rq
+    from drynx_tpu_torch.proofs import schnorr
+    from drynx_tpu_torch.proofs.safe_pickle import safe_loads
+    from drynx_tpu_torch.service.query import query_to_proofs_nbrs
+    from drynx_tpu_torch.service.service import LocalCluster
+    from drynx_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    cluster = LocalCluster(n_cns=N_SERVERS, n_dps=MAX_DPS, n_vns=N_VNS,
+                           seed=CLUSTER_SEED, dlog_limit=MAX_DLOG)
+    rng = np.random.default_rng(MAX_DATA_SEED)
+    for dp in cluster.dps.values():
+        dp.data = rng.integers(0, MAX_QMAX + 1, size=MAX_ROWS)
+    clear = max(int(dp.data.max()) for dp in cluster.dps.values())
+    query = lambda obf: cluster.generate_survey_query(
+        "max", query_min=0, query_max=MAX_QMAX, proofs=1, obfuscation=obf,
+        ranges=[(2, 1)] * (MAX_QMAX + 1), thresholds=1.0)
+    sq, sq_plain = query(True), query(False)
+    cluster.ensure_range_sigs(2)
+    torch.cuda.synchronize()
+    sign = HostTimer(schnorr, "sign")
+    check = HostTimer(schnorr, "verify")
+    print(f"phase 8 setup: cluster keys, tables and {N_SERVERS} signature "
+          f"sets of u=2 {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # every envelope the survey signs, for the batched Schnorr check
+    sent, new_request = [], rq.new_proof_request
+
+    def recorded(*a, **k):
+        req = new_request(*a, **k)
+        sent.append(req)
+        return req
+
+    def run(q):
+        for vn in cluster.vns.vns:
+            vn.verify_cache.clear()
+        sent.clear()
+        sign.reset()
+        check.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cluster.run_survey(q, seed=SURVEY_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = N_VNS * sum(query_to_proofs_nbrs(q))
+        if res.block is None:
+            raise SystemExit("no audit block committed")
+        bitmap = res.block.data.bitmap
+        if len(bitmap) != want or set(bitmap.values()) != {rq.BM_TRUE}:
+            raise SystemExit(f"audit block bitmap: {len(bitmap)} entries "
+                             f"(want {want}), codes "
+                             f"{sorted(set(bitmap.values()))}")
+        if res.result != clear:
+            raise SystemExit(f"decoded max {res.result}, clear max {clear}")
+        return wall, res
+
+    rq.new_proof_request = recorded
+    try:
+        zero_launches()
+        first_s, res = run(sq)
+        launches8 = launch_counts()
+        rows8 = {k: dict(sorted(v.items()))
+                 for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
+        print(f"phase 8: first obfuscated max survey {first_s:.3f} s; "
+              f"launches {launches8}", flush=True)
+        print(f"phase 8: launch shapes, {{kernel: {{rows: launches}}}}: "
+              f"{rows8}", flush=True)
+        if launches8 != EXPECTED_LAUNCHES_MAX:
+            raise SystemExit(f"obfuscated max launches {launches8} differ "
+                             f"from {EXPECTED_LAUNCHES_MAX}")
+        plain_s, res_plain = run(sq_plain)
+        if res_plain.result != res.result:
+            raise SystemExit(f"without obfuscation the max is "
+                             f"{res_plain.result}, with it {res.result}")
+        walls, splits, host = [], [], []
+        for _ in range(MAX_RUNS):
+            wall, res = run(sq)
+            walls.append(wall)
+            splits.append(dict(res.timers.items()))
+            host.append((sign.cpu, check.cpu))
+        envelopes = list(sent)
+        n_signs, n_checks = sign.calls, check.calls
+    finally:
+        rq.new_proof_request = new_request
+    n_entries = len(res.block.data.bitmap)
+    print(f"  decoded max {res.result} = the clear max = the survey's "
+          f"without obfuscation ({plain_s:.3f} s); audit block "
+          f"#{res.block.index}: {n_entries} entries, all BM_TRUE",
+          flush=True)
+
+    # one obfuscation payload with one z limb changed, through a VN's own
+    # receive path: only that envelope turns BM_FALSE
+    sid = sq.survey_id
+    vn, other = cluster.vns.vns[1], cluster.vns.vns[0]
+    key = f"{sid}/obfuscation/cn0/obfuscation-cn0"
+    proof = safe_loads(vn.stored_proofs(sid)[key])
+    proof.z[7, 0] ^= 1
+    cn = cluster.cns[0]
+    req = rq.new_proof_request("obfuscation", sid, cn.name,
+                               "obfuscation-cn0", 0, pickle.dumps(proof),
+                               cn.secret)
+    before = dict(vn.bitmap_for(sid))
+    code = vn.receive_proof(req)
+    after = vn.bitmap_for(sid)
+    changed = {k for k in after if after[k] != before.get(k)}
+    if (code != rq.BM_FALSE or changed != {key}
+            or other.bitmap_for(sid)[key] != rq.BM_TRUE):
+        raise SystemExit(f"tampered obfuscation payload: code {code}, "
+                         f"changed entries {sorted(changed)}")
+
+    # the batched Schnorr check against the host's on every envelope of the
+    # last survey and on three forgeries of each of the first three: another
+    # message, s + 1, R off the curve
+    pubs = [sq.id_to_public[r.sender_id] for r in envelopes]
+    msgs = [r.signed_payload() for r in envelopes]
+    sigs = [r.signature for r in envelopes]
+    for p, m, sg in list(zip(pubs, msgs, sigs))[:3]:
+        s1 = (int.from_bytes(sg.s_bytes, "big") + 1) % params.N
+        r1 = bytearray(sg.r_bytes)
+        r1[-1] ^= 1
+        for m2, sg2 in ((m + b"!", sg),
+                        (m, schnorr.Signature(sg.r_bytes,
+                                              s1.to_bytes(32, "big"))),
+                        (m, schnorr.Signature(bytes(r1), sg.s_bytes))):
+            pubs.append(p)
+            msgs.append(m2)
+            sigs.append(sg2)
+    t0 = time.perf_counter()
+    batch = schnorr.verify_batch(pubs, msgs, sigs)
+    batch_s = time.perf_counter() - t0
+    on_host = [schnorr.verify(p, m, sg)
+               for p, m, sg in zip(pubs, msgs, sigs)]
+    want = [True] * len(envelopes) + [False] * 9
+    if batch.tolist() != on_host or on_host != want:
+        raise SystemExit(f"verify_batch {batch.tolist()} against host "
+                         f"verify {on_host}")
+    print(f"  a tampered obfuscation payload recorded BM_FALSE for its "
+          f"envelope only; verify_batch agrees with host verify on "
+          f"{len(envelopes)} envelopes and 9 forgeries ({batch_s:.3f} s)",
+          flush=True)
+
+    med = statistics.median(walls)
+    split = {k: statistics.median(s.get(k, 0.0) for s in splits)
+             for k in sorted({k for s in splits for k in s})}
+    sign_s, check_s = (statistics.median(h[j] for h in host) for j in (0, 1))
+    print(f"phase 8: obfuscated max survey wall time median {med:.4f} s "
+          f"over {MAX_RUNS} warm runs (all: {[round(x, 4) for x in walls]});"
+          f" phase timers, median: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+          + f"; Schnorr, median CPU time: {n_signs} signs {sign_s:.4f} s + "
+          f"{n_checks} checks {check_s:.4f} s = {sign_s + check_s:.4f} s "
+          f"({100 * (sign_s + check_s) / med:.1f} % of the wall time)",
+          flush=True)
+    cluster.close()
+    return launches8, walls
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1128,6 +1353,13 @@ def main():
     csqr_crafted = crafted_csqr_cases(F12, refimpl, dev)
     csqr_tiled = csqr_crafted.repeat(n_proofs // len(csqr_crafted) + 1, 1, 1,
                                      1)[:n_proofs].contiguous()
+    # B15's crafted rows at each POW_BITS, and tiled to 13,500 rows
+    tile = lambda t: t.repeat(n_proofs // len(t) + 1, *[1] * (t.dim() - 1))[
+        :n_proofs].contiguous()
+    pow_crafted = {nb: crafted_pow_cases(F, F12, refimpl, nb, dev)
+                   for nb in POW_BITS}
+    pow_tiled = {nb: tuple(tile(t) for t in fk)
+                 for nb, fk in pow_crafted.items()}
 
     def scalars(n, n_windows):
         lim = min(refimpl.N, 16 ** n_windows)
@@ -1204,6 +1436,19 @@ def main():
              lambda: cuda_pairing.f12_csqr_flat(csqr_tiled),
              lambda: cuda_pairing.f12_csqr_plain(csqr_tiled), MM_F12_CSQR,
              n_proofs, 2 * nbytes(csqr_tiled))
+        ],
+        # the crafted rows (exponents 0, 1, all n_bits set, bits only above
+        # n_bits; 1, the unit slots, GPhi12, outside it) in one launch and
+        # tiled to 13,500 rows, at each POW_BITS
+        "f12_pow": [
+            (f"crafted{tiled} {nb} bits",
+             (lambda fk=fk, nb=nb: cuda_pairing.f12_pow_flat(*fk, nb)),
+             (lambda fk=fk, nb=nb: cuda_pairing.f12_pow_plain(*fk, nb)),
+             mm_pow(fk[1], nb) / len(fk[1]), len(fk[1]),
+             2 * nbytes(fk[0]) + nbytes(fk[1]))
+            for nb in POW_BITS
+            for tiled, fk in (("", pow_crafted[nb]),
+                              (f" tiled N={n_proofs}", pow_tiled[nb]))
         ],
         # the crafted rows (zero slots, limbs at p - 1, -1, mixed)
         "f12_slotmul": [
@@ -1683,6 +1928,9 @@ def main():
     launches7, walls7 = phase7(stats, X, y, params, zero_launches,
                                launch_counts)
 
+    # -- phase 8: the obfuscated max survey, counted --------------------------
+    launches8, walls8 = phase8(zero_launches, launch_counts)
+
     kernels = []
     for name, tot in summary.items():
         source, replaces = meta[name]
@@ -1691,7 +1939,8 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (launches[name] + launches5[name] + launches6[name]
-                         + launches_pv[name] + launches7[name]),
+                         + launches_pv[name] + launches7[name]
+                         + launches8[name]),
             "max_abs_err": tot["err"], "ms": round(tot["ms"], 6),
             "plain_ms": round(tot["plain_ms"], 3),
             "bound_ms": round(max(ops_ms, bytes_ms), 6),
@@ -1700,8 +1949,8 @@ def main():
         })
     print("(ms, plain_ms, bound_ms: summed over the kernel's main-path shapes "
           "above, one launch each; launches: the survey's, the proofs-on "
-          "collection's, the joint check's, the per-value check's and the "
-          "proofs-on cluster survey's)")
+          "collection's, the joint check's, the per-value check's, the "
+          "proofs-on cluster survey's and the obfuscated max survey's)")
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

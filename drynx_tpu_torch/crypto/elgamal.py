@@ -144,12 +144,39 @@ def encrypt_ints_with_tables(base_table, pub_tbl, values, r_scalars):
     return torch.stack([K, Cc], dim=-3)
 
 
+def ct_add(a, b):
+    """Homomorphic add (unlynx CipherText.Add): one launch of the batched
+    add over both components."""
+    return C.add(a, b)
+
+
+def ct_sub(a, b):
+    return C.add(a, C.neg(b))
+
+
+def ct_scalar_mul(ct, s_limbs):
+    """Multiply BOTH components by scalar s (unlynx MulCipherTextbyScalar,
+    reference protocols/obfuscation_protocol.go:241-243): one ladder launch
+    over the 2V points."""
+    return C.scalar_mul(ct, s_limbs[..., None, :])
+
+
+def ct_zero(batch_shape=(), device="cpu"):
+    return C.infinity(tuple(batch_shape) + (2,), device)
+
+
 def decrypt_point(ct, x_limbs):
     """M = C - x*K. x_limbs: secret scalar limbs (broadcastable)."""
     K = ct[..., 0, :, :]
     Cc = ct[..., 1, :, :]
     xK = C.scalar_mul(K, x_limbs)
     return C.add(Cc, C.neg(xK))
+
+
+def decrypt_check_zero(ct, x_limbs):
+    """True iff plaintext == 0 (unlynx DecryptCheckZero, reference
+    lib/encoding/OR_AND.go:61,114)."""
+    return C.is_infinity(decrypt_point(ct, x_limbs))
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +270,7 @@ def decrypt_ints(ct, secret: int, table: DecryptionTable):
 __all__ = [
     "keygen", "secret_to_limbs", "FixedBase", "fixed_base_mul", "BASE_TABLE",
     "pub_table", "random_scalars", "magnitude_limbs", "int_to_scalar",
-    "encrypt_ints_with_tables", "decrypt_point",
+    "encrypt_ints_with_tables", "ct_add", "ct_sub", "ct_scalar_mul",
+    "ct_zero", "decrypt_point", "decrypt_check_zero",
     "DecryptionTable", "decrypt_ints",
 ]

@@ -2,10 +2,10 @@
 // replaces one Pallas TPU kernel of drynx_tpu/crypto/pallas_pairing.py;
 // drynx_tpu_torch/crypto/cuda_pairing.py binds them with ctypes and holds
 // each beside its plain PyTorch version. f12_wpow, f12_mul,
-// f12_mulreduce8, f12_inv and f12_csqr give each row a team of threads
-// (their notes below; the first three one team product, f12_wpow and
-// f12_csqr one team cyclotomic square), f12_slotmul each Fp2 slot a
-// thread; f12_pow runs one row per thread.
+// f12_mulreduce8, f12_inv, f12_csqr and f12_pow give each row a team of
+// threads (their notes below; the first three one team product, f12_pow
+// two in one round, f12_wpow and f12_csqr one team cyclotomic square),
+// f12_slotmul each Fp2 slot a thread.
 //
 //   f12_mul         replaces _f12_mul_kernel         (f12_mul_flat)
 //   f12_mulreduce8  replaces _f12_mulreduce8_kernel  (f12_mulreduce8_flat)
@@ -19,10 +19,9 @@
 // products of 3), 256 32-bit multiply-adds each, against 2 x 384 bytes in
 // and 384 out; mulreduce8 does 7 products per 3 KB read. Both are
 // operation-bound by that count (about 40 multiply-adds per byte against
-// the card's ~5 per byte). An Fp12 value is 96 32-bit words, so in the
-// one-thread kernels the operands alone fill most of a thread's
-// registers; the Fp6 products are not inlined and keep their temporaries
-// in their own frame, and what does not fit spills to local memory (L1).
+// the card's ~5 per byte). An Fp12 value is 96 32-bit words, so one
+// thread a row would hold most of its registers in the operands alone:
+// every kernel here gives a lane a few Fp2 slots of each value instead.
 // Rows are read with 16-byte vector loads. The window gather that feeds
 // mulreduce8 in the fixed-base GT powers stays a torch index op (an
 // intermediate of 64 entries x 768 bytes per power); fusing it here is
@@ -35,9 +34,10 @@
 //
 // f12_pow is the reference's first power, square-and-multiply-always
 // LSB-first over n_bits bits: per bit one product (kept by mask where the
-// bit is set) and one square, 90 Montgomery products per bit. No path of
-// the port runs it (the windowed power replaced it in the reference too);
-// it is kept so that every Pallas kernel has its counterpart.
+// bit is set) and one square, 108 Montgomery products per bit as two
+// products. No path of the port runs it (the windowed power replaced it
+// in the reference too); it is kept so that every Pallas kernel has its
+// counterpart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -189,42 +189,57 @@ __device__ __forceinline__ Fp2 fp6_part(const Fp2* P, int kk) {
   return f2select(mask_of(kk == 0), r0, f2select(mask_of(kk == 1), r1, r2));
 }
 
-// this lane's slots of a b, a's slots being ca, b's cb across the team
-// (cb == nullptr: b = a). f12mul's Karatsuba, so its bytes.
-template <int kSize>
-__device__ __forceinline__ void team_f12mul(F12Team<kSize>& tm,
-                                            Fp2 (&out)[6 / kSize],
-                                            const Fp2 (&ca)[6 / kSize],
-                                            const Fp2 (*cb)[6 / kSize]) {
+// this lane's slots of the kN Fp12 products a_p b_p, p < kN, in one
+// exchange round, a_p's slots being ca[p] and b_p's cb[p] across the team;
+// where bit p of `squares` is set, b_p = a_p and cb[p] is not read.
+// f12mul's Karatsuba, so its bytes. The lanes publish their slots of the
+// operands (a_p at 12 p, b_p at 12 p + 6); lane t computes products
+// j = t (18 kN / kSize) ... of the 18 kN Fp2 products (product j is
+// Karatsuba's product j - 18 p of a_p b_p, p = j / 18), publishes them,
+// and forms its slots of every a_p b_p from them.
+template <int kN, int kSize, int kWidth>
+__device__ __forceinline__ void team_f12muls(Team<Fp2, kSize, kWidth>& tm,
+                                             Fp2 (&out)[kN][6 / kSize],
+                                             const Fp2 (&ca)[kN][6 / kSize],
+                                             const Fp2 (&cb)[kN][6 / kSize],
+                                             uint32_t squares) {
   static_assert(6 % kSize == 0, "a lane owns whole slots");
+  static_assert(18 * kN <= kWidth, "the products fit in one buffer");
   constexpr int kSlots = 6 / kSize;
-  constexpr int kProds = 18 / kSize;   // a lane's Fp2 products
+  constexpr int kProds = 18 * kN / kSize;   // a lane's Fp2 products
   Fp2* w = tm.out();
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    w[tm.slot * kSlots + s] = ca[s];
-    if (cb) w[6 + tm.slot * kSlots + s] = (*cb)[s];
+  for (int p = 0; p < kN; ++p) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      w[12 * p + tm.slot * kSlots + s] = ca[p][s];
+      if (!((squares >> p) & 1u)) {
+        w[12 * p + 6 + tm.slot * kSlots + s] = cb[p][s];
+      }
+    }
   }
-  const Fp2* a = tm.publish();
-  const Fp2* b = cb ? a + 6 : a;
-  // product j = 6h + r of Karatsuba over Fp6 (h: A1 A2, B1 B2, (A1 + B1)
+  const Fp2* v = tm.publish();
+  // product jj = 6h + r of Karatsuba over Fp6 (h: A1 A2, B1 B2, (A1 + B1)
   // (A2 + B2)) and 3-way Karatsuba within it (r: components {0}, {1},
   // {2}, {0, 1}, {0, 2}, {1, 2}); component e of the h-th Fp6 operand is
   // slot 2e + h, or slots 2e and 2e + 1 for h = 2. Its two operands are
-  // the same sums of a's and of b's slots.
+  // the same sums of a_p's and of b_p's slots.
   Fp2* pw = tm.out();
 #pragma unroll
   for (int q = 0; q < kProds; ++q) {
     const int j = tm.slot * kProds + q;
-    const int h = j / 6, r = j % 6;
+    const int p = kN == 1 ? 0 : j / 18, jj = j - 18 * p;
+    const Fp2* a = v + 12 * p;
+    const Fp2* b = (squares >> p) & 1u ? a : a + 6;
+    const int h = jj / 6, r = jj % 6;
     const int e0 = r < 3 ? r : (r == 5 ? 1 : 0);
     const int e1 = r < 3 ? e0 : (r == 3 ? 1 : 2);
     const uint32_t two = mask_of(h == 2), both = mask_of(r >= 3);
     const int o = h & 1;
-    auto sum = [&](const Fp2* v) {
-      const Fp2 s0 = f2add(v[2 * e0 + o], f2select(two, v[2 * e0 + 1],
+    auto sum = [&](const Fp2* x) {
+      const Fp2 s0 = f2add(x[2 * e0 + o], f2select(two, x[2 * e0 + 1],
                                                     f2zero()));
-      const Fp2 s1 = f2add(v[2 * e1 + o], f2select(two, v[2 * e1 + 1],
+      const Fp2 s1 = f2add(x[2 * e1 + o], f2select(two, x[2 * e1 + 1],
                                                     f2zero()));
       return f2add(s0, f2select(both, s1, f2zero()));
     };
@@ -232,19 +247,42 @@ __device__ __forceinline__ void team_f12mul(F12Team<kSize>& tm,
   }
   const Fp2* P = tm.publish();
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int m = tm.slot * kSlots + s;
-    const int kk = m >> 1;
-    const bool odd = m & 1;
-    // c_k = t0_k + (v t1)_k, (v t1) = (XI t1_2, t1_0, t1_1); d_k = t2_k -
-    // t0_k - t1_k; slot 2k is c_k, slot 2k + 1 is d_k
-    const Fp2 t0 = fp6_part(P, kk);
-    const Fp2 t1 = fp6_part(P + 6, odd ? kk : (kk + 2) % 3);
-    const Fp2 t2 = fp6_part(P + 12, kk);
-    const Fp2 c = f2add(t0, f2select(mask_of(kk == 0), f2mul_xi(t1), t1));
-    const Fp2 d = f2sub(f2sub(t2, t0), t1);
-    out[s] = f2select(mask_of(odd), d, c);
+  for (int p = 0; p < kN; ++p) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int m = tm.slot * kSlots + s;
+      const int kk = m >> 1;
+      const bool odd = m & 1;
+      // c_k = t0_k + (v t1)_k, (v t1) = (XI t1_2, t1_0, t1_1); d_k = t2_k -
+      // t0_k - t1_k; slot 2k is c_k, slot 2k + 1 is d_k
+      const Fp2* Pp = P + 18 * p;
+      const Fp2 t0 = fp6_part(Pp, kk);
+      const Fp2 t1 = fp6_part(Pp + 6, odd ? kk : (kk + 2) % 3);
+      const Fp2 t2 = fp6_part(Pp + 12, kk);
+      const Fp2 c = f2add(t0, f2select(mask_of(kk == 0), f2mul_xi(t1), t1));
+      const Fp2 d = f2sub(f2sub(t2, t0), t1);
+      out[p][s] = f2select(mask_of(odd), d, c);
+    }
   }
+}
+
+// this lane's slots of a b, a's slots being ca, b's cb across the team
+// (cb == nullptr: b = a): team_f12muls of one product
+template <int kSize, int kWidth>
+__device__ __forceinline__ void team_f12mul(Team<Fp2, kSize, kWidth>& tm,
+                                            Fp2 (&out)[6 / kSize],
+                                            const Fp2 (&ca)[6 / kSize],
+                                            const Fp2 (*cb)[6 / kSize]) {
+  constexpr int kSlots = 6 / kSize;
+  Fp2 a[1][kSlots], b[1][kSlots], r[1][kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    a[0][s] = ca[s];
+    b[0][s] = cb ? (*cb)[s] : ca[s];
+  }
+  team_f12muls<1>(tm, r, a, b, cb ? 0u : 1u);
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) out[s] = r[0][s];
 }
 
 // this lane's slots of Granger-Scott's cyclotomic square of f (eprint
@@ -693,24 +731,76 @@ __global__ void __launch_bounds__(32)
   store_slots(out + off, tm.slot, c);
 }
 
-// f^k, LSB-first: acc *= base where bit w of k is set, base squared after
-// every bit, as _f12_pow_kernel (pallas_pairing.py:541-569). The product is
-// computed at every bit and kept by mask, so the time does not depend on k.
-__global__ void f12_pow_kernel(const int32_t* __restrict__ f,
-                               const int32_t* __restrict__ k,
-                               int32_t* __restrict__ out, int n, int n_bits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// f12_pow: f^k, LSB-first over n_bits bits, as _f12_pow_kernel
+// (pallas_pairing.py:541-569): at bit w, acc = acc base where bit w of k
+// is set, then base = base^2. The product is computed at every bit and
+// kept by mask (f2select), so neither the time nor a branch depends on k;
+// bits of k at or above n_bits are never read.
+//
+// A team of kPowTeam lanes computes one row, in one-warp blocks of five
+// teams, on the product teams' lane setup and slot loads; lane t owns
+// the 6 / kPowTeam Fp2 slots of acc and of base. At each bit acc base
+// and base^2 do not depend on each other, so one team_f12muls round
+// computes both: the lanes publish their slots of acc and base, each lane
+// computes 36 / kPowTeam of the two products' 36 Fp2 products (lanes 0-2
+// acc base's, lanes 3-5 base^2's, with six lanes), the team publishes
+// them and each lane forms its slots of both. A bit is then two exchanges
+// and a chain of 6 Fp2 products (18 Montgomery products) a lane, against
+// 30 Fp2 products (90 Montgomery products) for the one thread a row this
+// kernel replaced. The exchange holds 2 x 36 Fp2 values, 4.6 KB a team
+// and 23 KB a warp.
+//
+// What bounds it: on a few rows the chain's latency, each Fp2 product's
+// Montgomery carry chains and each product's operand sums, as in f12_wpow;
+// at 13,500 rows (2,700 warps, 8 an SM at 255 registers) instruction
+// issue, where the lanes' glue (operand sums, every output slot's three
+// Karatsuba combinations before a select) makes six lanes issue ~1.7x the
+// instructions of one thread a row. On an H100 80GB HBM3 at 700 W: 68.2
+// ms at 256 bits and 12.8 at 48 on 13,500 rows, 19.3 ms at 256 bits on
+// one row, against 75.3-75.7, 14.2 and 60.9-61.2 for one thread a row;
+// the two products as two team_f12mul rounds (four exchanges a bit) 4 %
+// slower, 168 registers or 3 lanes slower at 13,500 rows
+// (scripts/torch_team_variants.py). ptxas: 255 registers, a 208-byte
+// stack, 84 bytes of spill stores. No path of the port runs it (the
+// windowed power replaced it in the reference too).
+constexpr int kPowWidth = 36;   // two products' Fp2 products
+
+using PowPairTeam = Team<Fp2, kPowTeam, kPowWidth>;
+
+__global__ void __launch_bounds__(32)
+    f12_pow_kernel(const int32_t* __restrict__ f,
+                   const int32_t* __restrict__ k, int32_t* __restrict__ out,
+                   int n, int n_bits) {
+  __shared__ Fp2 xch[kPowTeamsPerWarp][2][kPowWidth];
+  int i;
+  PowPairTeam tm;
+  if (!prod_lane(n, xch, i, tm)) return;
+  const size_t off = (size_t)i * kF12Words;
   const int32_t* ki = k + (size_t)i * NL16;
-  Fp12 acc = f12_one();
-  Fp12 base = load_fp12(f + (size_t)i * kF12Words);
+  // v[0] is acc, v[1] base
+  Fp2 v[2][kPowSlots], r[2][kPowSlots];
+  load_slots(v[1], f + off, tm.slot);
+#pragma unroll
+  for (int s = 0; s < kPowSlots; ++s) {
+    const int m = tm.slot * kPowSlots + s;
+    v[0][s] = Fp2{fp_select(mask_of(m == 0), fp_one(), fp_zero()),
+                  fp_zero()};
+  }
 #pragma unroll 1
   for (int w = 0; w < n_bits; ++w) {
     const uint32_t bit = ((uint32_t)ki[w >> 4] >> (w & 15)) & 1u;
-    acc = f12select(mask_of(bit == 1u), f12mul(acc, base), acc);
-    base = f12sqr(base);
+    // acc base and base^2 (bit 1 of squares: the second is a square)
+    Fp2 b[2][kPowSlots];
+#pragma unroll
+    for (int s = 0; s < kPowSlots; ++s) b[0][s] = b[1][s] = v[1][s];
+    team_f12muls<2>(tm, r, v, b, 2u);
+#pragma unroll
+    for (int s = 0; s < kPowSlots; ++s) {
+      v[0][s] = f2select(mask_of(bit == 1u), r[0][s], v[0][s]);
+      v[1][s] = r[1][s];
+    }
   }
-  store_fp12(out + (size_t)i * kF12Words, acc);
+  store_slots(out + off, tm.slot, v[0]);
 }
 
 }  // namespace
@@ -766,7 +856,7 @@ int f12_wpow(const int32_t* f, const int32_t* k, int32_t* out, int n,
 
 int f12_pow(const int32_t* f, const int32_t* k, int32_t* out, int n,
             int n_bits, void* stream) {
-  f12_pow_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  f12_pow_kernel<<<prod_blocks<kPowTeam>(n), 32, 0, (cudaStream_t)stream>>>(
       f, k, out, n, n_bits);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,10 @@ a verifying node checks the signature before the payload (kyber
 sign/schnorr, reference lib/proof/structs_proofs.go:117,498-505). Signing
 and the verification of one signature run on the host, in the pure-Python
 curve arithmetic of `refimpl` (one G1 multiplication to sign, two to
-verify). The reference's batched device check (`verify_batch`) has no
-caller on the survey path and is not ported.
+verify). `verify_batch` checks many signatures at once on the device
+(the fixed-base ladder for s·B, the variable-base ladder and the batched
+add for R + c·P); as in the reference, no caller on the survey path uses
+it: the verifying nodes call `verify`.
 
 Scheme: R = k·B, c = H(R ‖ pub ‖ msg) mod n, s = k + c·x;
 verify: s·B == R + c·P.
@@ -18,7 +20,13 @@ import dataclasses
 import hashlib
 import secrets
 
+import numpy as np
+
+from ..crypto import curve as C
+from ..crypto import elgamal as eg
+from ..crypto import field as F
 from ..crypto import params, refimpl
+from ..utils.device import resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,4 +96,25 @@ def verify(pub, msg: bytes, sig: Signature) -> bool:
     return lhs == rhs
 
 
-__all__ = ["Signature", "sign", "verify"]
+def verify_batch(pubs, msgs: list[bytes], sigs: list[Signature],
+                 device=None) -> np.ndarray:
+    """Batched device verification of many signatures (the reference's VN
+    bulk path, drynx_tpu/proofs/schnorr.py:98-120) on `device` (the card
+    unless the CPU is named). pubs: list of affine int pairs. Returns bool
+    (n,)."""
+    n = len(sigs)
+    if n == 0:
+        return np.zeros((0,), dtype=bool)
+    dev = resolve(device)
+    cs = [_challenge(sg.r_bytes, _point_bytes_host(p), m)
+          for p, m, sg in zip(pubs, msgs, sigs)]
+    ss = [int.from_bytes(sg.s_bytes, "big") for sg in sigs]
+    lhs = eg.fixed_base_mul(eg.BASE_TABLE.table.to(dev),
+                            F.from_int(ss).to(dev))
+    rhs = C.add(C.from_ref_batch([_r_point(sg) for sg in sigs]).to(dev),
+                C.scalar_mul(C.from_ref_batch(list(pubs)).to(dev),
+                             F.from_int(cs).to(dev)))
+    return C.eq(lhs, rhs).cpu().numpy()
+
+
+__all__ = ["Signature", "sign", "verify", "verify_batch"]

@@ -4,16 +4,17 @@ The port's counterpart of drynx_tpu/service/service.py (the reference's
 services/service.go HandleSurveyQuery / StartService and the onet
 LocalTest harness, services/service_test.go:29-66). Phases per survey:
 
-  DP encode + encrypt  ->  collective aggregation  ->  key switch to the
-  querier  ->  decrypt + decode (+ gradient descent for log_reg)
+  DP encode + encrypt  ->  collective aggregation  ->  obfuscation (the
+  zero/non-zero operations, when asked)  ->  key switch to the querier  ->
+  decrypt + decode (+ gradient descent for log_reg)
 
 With proofs on, every DP proves its ciphertexts' ranges, every CN proves
-the aggregate and its key-switch contribution, each proof travels in a
-Schnorr-signed envelope to every verifying node (VN), and the root VN
-commits the survey's bitmap to the audit chain. All ciphertext work is
-batched over DPs and servers and runs through the kernels of
-`crypto.cuda_ops` and `crypto.cuda_pairing` on the cluster's device (the
-card unless the CPU is named). On the card the proofs are built and
+the aggregate, its obfuscation and its key-switch contribution, each
+proof travels in a Schnorr-signed envelope to every verifying node (VN),
+and the root VN commits the survey's bitmap to the audit chain. All
+ciphertext work is batched over DPs and servers and runs through the
+kernels of `crypto.cuda_ops` and `crypto.cuda_pairing` on the cluster's
+device (the card unless the CPU is named). On the card the proofs are built and
 delivered on worker threads, one at a time under one lock, while the main
 path goes on; on the CPU they run inline. A survey's randomness is drawn
 on the main thread from one generator seeded by `seed`, in a fixed order,
@@ -21,11 +22,10 @@ before any proof thread starts, so its payload bytes do not depend on
 thread scheduling.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
-obfuscation (ROADMAP queue A, step 11), DRO noise and the shuffle
-(step 12), group-by and cutting factors (steps 8-9), fault probing,
-responder sets and quorums (step 16), durable checkpoints and resumption
-(step 16), held range proofs
-and the cross-survey flush (step 14), the kernel warm-up registry
+DRO noise and the shuffle (ROADMAP queue A, step 12), group-by and
+cutting factors (steps 8-9), fault probing, responder sets and quorums
+(step 16), durable checkpoints and resumption (step 16), held range
+proofs and the cross-survey flush (step 14), the kernel warm-up registry
 (step 15).
 
 Two free functions remain from the earlier slices and serve the cluster:
@@ -54,6 +54,7 @@ from ..models import logreg as lr
 from ..parallel import collective as col
 from ..proofs import aggregation as agg_proof
 from ..proofs import keyswitch as ks_proof
+from ..proofs import obfuscation as obf_proof
 from ..proofs import range_proof as rp
 from ..proofs import requests as rq
 from ..proofs.safe_pickle import safe_loads
@@ -184,8 +185,7 @@ class Survey:
 def _unported(q: Query, group_by=None, responders=None, hold_range=False,
               quorum=False) -> None:
     """Raise for the parts of a survey this port does not run yet."""
-    steps = [(q.obfuscation, "obfuscation", 11),
-             (q.diffp.enabled(), "DRO noise and the shuffle", 12),
+    steps = [(q.diffp.enabled(), "DRO noise and the shuffle", 12),
              (bool(q.group_by or group_by), "group_by", 8),
              (int(q.cutting_factor) > 1, "cutting_factor > 1", 9),
              (responders is not None, "responder sets and fault probing", 16),
@@ -296,6 +296,11 @@ class LocalCluster:
             return bool(np.all(agg_proof.verify_aggregation_proof(
                 proof, self.device)))
 
+        def vobf(data: bytes, _sid: str) -> bool:
+            proof = safe_loads(data)
+            return bool(np.all(obf_proof.verify_obfuscation_proofs(
+                proof, self.device)))
+
         def vks(data: bytes, _sid: str) -> bool:
             proof = safe_loads(data)
             return bool(np.all(ks_proof.verify_keyswitch_proofs(
@@ -319,6 +324,7 @@ class LocalCluster:
         return {"range": _timed("VerifyRange", vrange),
                 "range_joint": _timed("VerifyRange", vrange_joint),
                 "aggregation": _timed("VerifyAggregation", vagg),
+                "obfuscation": _timed("VerifyObfuscation", vobf),
                 "keyswitch": _timed("VerifyKeySwitch", vks)}
 
     # ------------------------------------------------------------------
@@ -362,7 +368,8 @@ class LocalCluster:
                           self.cns + self.dp_idents + self.vn_idents},
             threshold=thresholds if proofs else 0.0,
             aggregation_proof_threshold=thresholds if proofs else 0.0,
-            obfuscation_proof_threshold=0.0,
+            obfuscation_proof_threshold=(thresholds if proofs and obfuscation
+                                         else 0.0),
             range_proof_threshold=thresholds if proofs else 0.0,
             key_switching_proof_threshold=thresholds if proofs else 0.0)
         ok, msg = check_parameters(sq, q.diffp.enabled())
@@ -408,10 +415,14 @@ class LocalCluster:
     def run_survey(self, sq: SurveyQuery, seed: int = 0) -> "SurveyResult":
         return self.finalize_survey(self.execute_survey(sq, seed))
 
-    def _draw(self, gen, n_dps: int, V: int, ranges, proofs_on: bool):
+    def _draw(self, gen, n_dps: int, V: int, ranges, proofs_on: bool,
+              obfuscation: bool):
         """The survey's randomness, in a fixed order: encryption, range
         proofs (per (u, l) spec: s, t, m, v as create_range_proofs draws
-        them), key switch, key-switch proofs (wr, wx)."""
+        them), key switch, key-switch proofs (wr, wx), then per CN the
+        obfuscation scalars s and, with proofs, their proof's w (None
+        without) -- last, so a survey without obfuscation draws what it
+        drew before."""
         dev, ns = self.device, len(self.cns)
         draw = lambda shape: eg.random_scalars(shape, gen, dev)
         enc_rs = draw((n_dps, V))
@@ -424,7 +435,9 @@ class LocalCluster:
                                         (ns, nv, l))]
         ks_rs = draw((ns, V))
         ks_draws = [draw((ns, V)), draw((ns, V))] if proofs_on else None
-        return enc_rs, range_draws, ks_rs, ks_draws
+        obf_draws = [(draw((V,)), draw((V,)) if proofs_on else None)
+                     for _ in range(ns)] if obfuscation else []
+        return enc_rs, range_draws, ks_rs, ks_draws, obf_draws
 
     def execute_survey(self, sq: SurveyQuery, seed: int = 0,
                        hold_range: bool = False,
@@ -471,8 +484,8 @@ class LocalCluster:
             range_offset = signed_offset(dp_stats, q.ranges)
             dp_stats = dp_stats + range_offset
         gen = torch.Generator(device=dev).manual_seed(seed)
-        enc_rs, range_draws, ks_rs, ks_draws = self._draw(
-            gen, n_dps, V, list(q.ranges or []), proofs_on)
+        enc_rs, range_draws, ks_rs, ks_draws, obf_draws = self._draw(
+            gen, n_dps, V, list(q.ranges or []), proofs_on, q.obfuscation)
         cts = eg.encrypt_ints_with_tables(self.base_table,
                                           self.coll_tbl.table, dp_stats,
                                           enc_rs)           # (n_dps, V, 2,3,16)
@@ -506,6 +519,25 @@ class LocalCluster:
             for cn in self.cns:
                 self._async_proof(survey, "aggregation", cn, agg_bytes)
 
+        # --- Obfuscation (zero/non-zero operations; reference :829-851) -
+        # each CN multiplies both components of every ciphertext by its
+        # own secret scalar, proving it with proofs on; the key switch
+        # takes the result
+        work = agg
+        if q.obfuscation:
+            tm.start("ObfuscationPhase")
+            for cn, (s, w) in zip(self.cns, obf_draws):
+                if proofs_on:
+                    pr = obf_proof.create_obfuscation_proofs(work, s,
+                                                             draws=w)
+                    self._async_proof(survey, "obfuscation", cn,
+                                      lambda pr=pr: pickle.dumps(pr))
+                    work = pr.obf
+                else:
+                    work = eg.ct_scalar_mul(work, s)
+            _sync(dev)
+            tm.end("ObfuscationPhase")
+
         # --- Key switch to the querier's key ----------------------------
         tm.start("KeySwitchingPhase")
         srv_x = torch.stack([eg.secret_to_limbs(c.secret)
@@ -513,10 +545,10 @@ class LocalCluster:
         # per-server contributions, batched over (ns, V):
         # U = r·B,  W = r·Q − x·K (commuting; the sums replace the CN chain)
         u_pts, w_pts = col.keyswitch_contribution(
-            agg[None], srv_x[:, None, :], ks_rs, self.client_tbl.table,
+            work[None], srv_x[:, None, :], ks_rs, self.client_tbl.table,
             self.base_table)
         switched = col.keyswitch_finish(
-            agg, flagship._tree_reduce_points(u_pts),
+            work, flagship._tree_reduce_points(u_pts),
             flagship._tree_reduce_points(w_pts))
         # the public aggregate shift (one offset per responder) times B
         total = range_offset * n_dps
@@ -530,7 +562,7 @@ class LocalCluster:
         if proofs_on:
             t0 = time.perf_counter()
             pr = ks_proof.create_keyswitch_proofs(
-                agg[:, 0], srv_x, ks_rs, self.client_pt,
+                work[:, 0], srv_x, ks_rs, self.client_pt,
                 self.client_tbl.table, u_pts, w_pts, draws=ks_draws)
             tm.add("AllProofs", time.perf_counter() - t0)
             ks_bytes = _once(lambda: pickle.dumps(pr))

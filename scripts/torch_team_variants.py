@@ -23,7 +23,10 @@ or 6, one thread a row); the Fp12 inverse's kInvTeam in csrc/gt_ops.cu (1,
 one thread a row, 2, 3 or 6) and its register cap (none, 168 or 128 at 6
 lanes); the Fp2 inverse's block size kF2InvThreads (32, 64, 128) in
 csrc/g2_ops.cu; the cyclotomic square's team, the windowed power's
-kPowTeam (6 lanes, or 3 with two slots each: the two kernels share it).
+kPowTeam (6 lanes, or 3 with two slots each: the two kernels share it);
+the Fp12 power's bit in csrc/gt_ops.cu (its product and square in one
+exchange round, or as two team products one after the other), its
+registers capped at 168, or its team, kPowTeam, at 3 lanes.
 `cuda_build` builds them all at once with the package's flags. Every
 variant is checked against the package's plain versions before it is timed:
 the Miller loop, the ladders, the power, the products, the inverses, the
@@ -34,8 +37,9 @@ reduce, the add and the slot map byte for byte against `miller_plain`,
 `point_add_plain` (on the crafted reduce's R = 2 pairs too),
 `f12_slotmul_plain` (on chip_smoke.crafted_slotmul_cases too),
 `f12_inv_plain` (on chip_smoke.crafted_inv_cases too), `f2_inv_plain` (on
-chip_smoke.crafted_f2_inv_cases too) and `f12_csqr_plain` (on
-chip_smoke.crafted_csqr_cases too), the fixed-base
+chip_smoke.crafted_f2_inv_cases too), `f12_csqr_plain` (on
+chip_smoke.crafted_csqr_cases too) and `f12_pow_plain` (on
+chip_smoke.crafted_pow_cases at each of chip_smoke.POW_BITS), the fixed-base
 ladder as points (another team size sums in another order, so its Jacobian
 representative differs). Times are CUDA-event means at the main path's
 shapes: the Miller loop at 13,500 pairings; the fixed-base ladder at W = 64
@@ -50,8 +54,10 @@ and the slot maps at the cluster survey's shapes (chip_smoke.CLUSTER_ROWS:
 the reduce at R = 10 over 180 columns and R = 3 over 90, each slot map at 1
 and 13,500 rows), the add at its cluster shapes (90, 270, 810, 900, 13,500
 rows), the Fp12 inverse on Miller outputs at 1 and 13,500 rows, the Fp2
-inverse on 13,500 G2 Z coordinates and the cyclotomic square on GPhi12
-members at 1 and 13,500 rows. Variants are called through their C entry
+inverse on 13,500 G2 Z coordinates, the cyclotomic square on GPhi12
+members at 1 and 13,500 rows and the Fp12 power on them at 48 and 256
+bits on 13,500 rows (chip_smoke.py phase 2's shapes) and at 256 bits on
+one. Variants are called through their C entry
 points, without the package's wrappers; the reduce's, the add's, the slot
 map's, the inverses' and the square's are also timed from a CUDA graph of
 the same calls ("graph ms": the kernel's own device
@@ -64,13 +70,14 @@ readings and the choice.
 
 builds and times only the variants of the kinds named (miller,
 fixed_base, ladder, wpow, g2, prod, fp_inv, reduce, slotmul, add,
-f12inv, f2inv, csqr), for a change that touches only those kernels.
+f12inv, f2inv, csqr, pow), for a change that touches only those kernels.
 
     python3 scripts/torch_team_variants.py --against OTHER_ROOT
 
 times this checkout's variable-base ladder, G2 ladder, windowed GT power,
 8-way product, Fp12 product, Fp inverse, reduce, slot maps, add, Fp12
-inverse, Fp2 inverse and cyclotomic square against another checkout's
+inverse, Fp2 inverse, cyclotomic square and Fp12 power against another
+checkout's
 instead (for instance a parent commit unpacked with `git archive` under
 build/, which .gitignore lists). Each tree runs in a process of its own
 (the two packages share a name), in the order this, other, other, this;
@@ -82,8 +89,9 @@ rows and times the main path's shapes: the ladder at W = 64 on 90, 270,
 the 8-way product at the nine shapes above, the Fp12 product at 1 and
 13,500 rows, the Fp inverse, the reduce and the four slot maps at the
 cluster survey's shapes, the add at its cluster shapes, the Fp12 inverse
-and the cyclotomic square at 1 and 13,500 rows and the Fp2 inverse at
-13,500, all through the package's wrappers (the add, the inverses and the
+and the cyclotomic square at 1 and 13,500 rows, the Fp2 inverse at
+13,500 and the Fp12 power at 48 and 256 bits on 13,500 and at 256 on
+one row, all through the package's wrappers (the add, the inverses and the
 square also from a CUDA graph of the wrapper's calls).
 Prints one JSON line per run with each shape's time and a digest of each
 output (the two trees must agree), then the card's name and power
@@ -127,6 +135,11 @@ REDUCE_STAGED = (
 INV_TEAM = "constexpr int kInvTeam = 6;"
 F2_INV_BLOCK = "constexpr int kF2InvThreads = 32;"
 SLOT_THREADS = "constexpr int kSlotmulSlots = 1;"
+# the Fp12 power's bit as one round of two products, or as two rounds of
+# one product each
+POW_ROUND = "    team_f12muls<2>(tm, r, v, b, 2u);\n"
+POW_TWO_ROUNDS = ("    team_f12mul(tm, r[0], v[0], &v[1]);\n"
+                  "    team_f12mul(tm, r[1], v[1], nullptr);\n")
 FIXED_BASE_SHAPES = (("W=64 N=900", 900, 64), ("W=64 N=270", 270, 64),
                      ("W=16 N=900", 900, 16))
 LADDER_SHAPES = (("W=64 N=90", 90, 64), ("W=64 N=270", 270, 64),
@@ -149,6 +162,9 @@ F12_INV_SHAPES = (1, 13_500)
 # check's 13,500)
 F2_INV_SHAPES = tuple(sorted(CLUSTER_ROWS["f2_inv"]))
 CSQR_SHAPES = (1, 13_500)
+# the Fp12 power's (n_bits, rows): chip_smoke.py phase 2's, and one row,
+# where a row's chain alone sets the time
+F12_POW_SHAPES = ((48, 13_500), (256, 13_500), (256, 1))
 
 # (label, kind, source, (old, new) edit or None)
 VARIANTS = [
@@ -206,7 +222,16 @@ VARIANTS = [
            (F2_INV_BLOCK, f"constexpr int kF2InvThreads = {t};"))
           for t in (32, 64, 128)
      ] + [(f"f12_csqr lanes={g}", "csqr", "gt_ops",
-           (POW_TEAM, f"constexpr int kPowTeam = {g};")) for g in (6, 3)]
+           (POW_TEAM, f"constexpr int kPowTeam = {g};")) for g in (6, 3)
+     ] + [("f12_pow, product and square in one round", "pow", "gt_ops",
+           None),
+          ("f12_pow, product and square as two rounds", "pow", "gt_ops",
+           (POW_ROUND, POW_TWO_ROUNDS)),
+          ("f12_pow, at most 168 registers", "pow", "gt_ops",
+           ("__launch_bounds__(32)\n    f12_pow_kernel",
+            "__launch_bounds__(32, 12)\n    f12_pow_kernel")),
+          ("f12_pow lanes=3", "pow", "gt_ops",
+           (POW_TEAM, "constexpr int kPowTeam = 3;"))]
 
 
 def edited(source, edit, cuda_build):
@@ -337,6 +362,10 @@ def time_tree(root):
     shapes += [(f"f12_csqr N={n}", (rows(gts, n),),
                 cuda_pairing.f12_csqr_flat, cuda_pairing.f12_csqr_plain)
                for n in CSQR_SHAPES]
+    shapes += [(f"f12_pow {b} bits N={n}", (rows(gts, n), scalars(n, 256)),
+                (lambda f, k, b=b: cuda_pairing.f12_pow_flat(f, k, b)),
+                (lambda f, k, b=b: cuda_pairing.f12_pow_plain(f, k, b)))
+               for b, n in F12_POW_SHAPES]
     out = {"tree": str(root)}
     for label, args, kern, plain in shapes:
         got = kern(*args)
@@ -497,6 +526,14 @@ def main():
                             for n in F2_INV_SHAPES]
     csqr_cases = [("crafted N=11", crafted_csqr_cases(F12, refimpl, dev),
                    False)] + [(f"N={n}", gts[:n], True) for n in CSQR_SHAPES]
+    # the Fp12 power on its crafted rows at each POW_BITS, then on pairing
+    # values with seeded exponents at phase 2's shapes
+    from chip_smoke import POW_BITS, crafted_pow_cases
+    pow_k = rand(max(n for _, n in F12_POW_SHAPES), 256)
+    pow_cases = [(f"crafted {b} bits", *crafted_pow_cases(
+        F, F12, refimpl, b, dev), b, False) for b in POW_BITS] + [
+        (f"{b} bits N={n}", gts[:n], pow_k[:n], b, True)
+        for b, n in F12_POW_SHAPES]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def held(name, label, got, want, same):
@@ -640,6 +677,19 @@ def main():
                 if timed_here:
                     row[f"ms {label}"] = timed(run)
                     row[f"graph ms {label}"] = graph_timed(run)
+        elif kind == "pow":
+            row["ptxas"] = ptxas_summary(log, "f12_pow_kernel")
+            for label, f, k, bits, timed_here in pow_cases:
+                want = cuda_pairing.f12_pow_plain(f, k, bits)
+                out = torch.empty_like(want)
+                run = lambda f=f, k=k, bits=bits, out=out: cuda_build.check(
+                    lib.f12_pow(f.data_ptr(), k.data_ptr(), out.data_ptr(),
+                                len(k), bits, stream()), name)
+                run()
+                torch.cuda.synchronize()
+                held(name, label, out, want, torch.equal)
+                if timed_here:
+                    row[f"ms {label}"] = timed(run)
         elif kind == "fp_inv":
             row["ptxas"] = ptxas_summary(log, "fp_inv_kernel")
             for n in INV_SHAPES:

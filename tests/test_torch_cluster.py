@@ -593,8 +593,7 @@ def test_kernel_faults_propagate_out_of_the_vns(survey, exc):
 
 def test_unported_options_raise(survey):
     cluster = survey.cluster
-    for kw in ({"obfuscation": True}, {"group_by": [[0, 1]]},
-               {"cutting_factor": 2}):
+    for kw in ({"group_by": [[0, 1]]}, {"cutting_factor": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cluster.generate_survey_query("sum", **kw)
     with pytest.raises(NotImplementedError, match="step 14"):

@@ -19,12 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (REDUCE_RS, SLOTMUL_NS, WPOW_BITS,
+from chip_smoke import (POW_BITS, REDUCE_RS, SLOTMUL_NS, WPOW_BITS,
                         crafted_csqr_cases, crafted_f2_inv_cases,
                         crafted_fixed_base_cases, crafted_g2_ladder_cases,
                         crafted_inv_cases, crafted_ladder_cases,
-                        crafted_reduce_cases, crafted_slotmul_cases,
-                        crafted_wpow_cases, fp_inv_edge_inputs)
+                        crafted_pow_cases, crafted_reduce_cases,
+                        crafted_slotmul_cases, crafted_wpow_cases,
+                        fp_inv_edge_inputs)
 from drynx_tpu_torch import flagship
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
@@ -558,6 +559,21 @@ def test_wpow_team_kernel_on_crafted_cases(cuda, n_bits):
         torch.cuda.synchronize()
         assert torch.equal(got, cuda_pairing.f12_wpow_plain(f, k, n_bits,
                                                             cyc)), cyc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits", POW_BITS)
+def test_pow_team_kernel_on_crafted_cases(cuda, n_bits):
+    """The Fp12 power's team kernel on the crafted rows (exponents 0, 1,
+    all n_bits set, bits only above n_bits; 1, the unit slots, GPhi12, a
+    value outside it) in one launch and tiled to 13,500 rows."""
+    f, k = crafted_pow_cases(F, F12, refimpl, n_bits, cuda)
+    reps = 13_500 // len(f) + 1
+    for ff, kk in ((f, k), (f.repeat(reps, 1, 1, 1)[:13_500].contiguous(),
+                            k.repeat(reps, 1)[:13_500].contiguous())):
+        got = cuda_pairing.f12_pow_flat(ff, kk, n_bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cuda_pairing.f12_pow_plain(ff, kk, n_bits))
 
 
 @pytest.mark.gpu

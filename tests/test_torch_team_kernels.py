@@ -9,19 +9,24 @@ canonical residues, so the card holds them against `scalar_mul_plain`,
 `g2_scalar_mul_plain` and `f12_wpow_plain` byte for byte
 (tests/test_torch_port.py, chip_smoke.py phase 2), on the cases made by
 chip_smoke.crafted_ladder_cases, crafted_g2_ladder_cases and
-crafted_wpow_cases. Here those plain versions meet the JAX package's host
-oracle (drynx_tpu/crypto/refimpl.py) on the same cases: the ladders as
-points, through every branch of their complete add; the power from 1 to
-256 bits (windows cut short and windows across limb edges), with and
-without cyclotomic squares, and on a value outside GPhi12, where the
-cyclotomic chain is Granger-Scott's function and not a power.
+crafted_wpow_cases; csrc/gt_ops.cu's Fp12 power does the same for
+`f12_pow_plain` on chip_smoke.crafted_pow_cases. Here those plain versions
+meet the JAX package's host oracle (drynx_tpu/crypto/refimpl.py) on the
+same cases: the ladders as points, through every branch of their complete
+add; the windowed power from 1 to 256 bits (windows cut short and windows
+across limb edges), with and without cyclotomic squares, and on a value
+outside GPhi12, where the cyclotomic chain is Granger-Scott's function and
+not a power; the Fp12 power at 1, 48, 63 and 256 bits, where the bits of
+k at or above n_bits are ignored.
 """
+import re
+
 import pytest
 import torch
 
-from chip_smoke import (WPOW_BITS, crafted_g2_ladder_cases,
+from chip_smoke import (POW_BITS, WPOW_BITS, crafted_g2_ladder_cases,
                         crafted_ladder_cases, crafted_ladder_scalars,
-                        crafted_wpow_cases)
+                        crafted_pow_cases, crafted_wpow_cases)
 from drynx_tpu.crypto import refimpl as JR
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as TC
@@ -29,6 +34,8 @@ from drynx_tpu_torch.crypto import field as TF
 from drynx_tpu_torch.crypto import fp12 as TF12
 from drynx_tpu_torch.crypto import g2 as TG2
 from drynx_tpu_torch.crypto import params, refimpl
+from drynx_tpu_torch.utils import cuda_build
+from test_torch_inverse import _variants
 
 
 def test_crafted_scalars_fit_the_limbs_and_name_their_branches():
@@ -165,3 +172,45 @@ def test_the_crafted_non_member_tells_the_two_squares_apart():
     fs = [TF12.to_ref(x) for x in f]
     assert all(JR.fp12_csqr(x) == JR.fp12_sq(x) for x in fs[:-1])
     assert JR.fp12_csqr(fs[-1]) != JR.fp12_sq(fs[-1])
+
+
+@pytest.mark.parametrize("n_bits", POW_BITS)
+def test_pow_plain_matches_reference_on_crafted_cases(n_bits):
+    """f^(k mod 2^n_bits) by the reference's fp12_pow on every crafted row:
+    exponents 0, 1, 2^n_bits - 1 and bits only at or above n_bits (which
+    give 1) on a value outside GPhi12, then 1, the unit slots w^j and a
+    GPhi12 member with seeded exponents."""
+    f, k = crafted_pow_cases(TF, TF12, refimpl, n_bits, "cpu")
+    with torch.inference_mode():
+        got = [TF12.to_ref(x) for x in cuda_pairing.f12_pow_flat(f, k,
+                                                                 n_bits)]
+    fs = [TF12.to_ref(x) for x in f]
+    ks = [int(x) for x in TF.to_int(k)]
+    assert ks[:4] == [0, 1, (1 << n_bits) - 1,
+                      ((1 << 256) - 1) ^ ((1 << n_bits) - 1)]
+    assert got[0] == got[3] == got[5] == JR.FP12_ONE
+    assert got == [JR.fp12_pow(x, e % (1 << n_bits))
+                   for x, e in zip(fs, ks)]
+
+
+def test_pow_kernel_is_the_team_design():
+    """csrc/gt_ops.cu's f12_pow runs each row on the product teams' lane
+    setup and computes a bit's product and square in one team_f12muls
+    round, the product kept by mask on the bit; the one-thread kernel and
+    the tower's one-thread Fp6 and Fp12 arithmetic are gone; the variants
+    script's edits of it are each found once."""
+    gt = (cuda_build.CSRC / "gt_ops.cu").read_text()
+    body = gt[gt.index("    f12_pow_kernel("):]
+    body = body[:body.index("\n}\n")]
+    assert "prod_lane(n, xch, i, tm)" in body
+    assert "team_f12muls<2>(tm, r, v, b, 2u);" in body
+    assert "f2select(mask_of(bit == 1u), r[0][s], v[0][s])" in body
+    assert "f12_pow_kernel<<<prod_blocks<kPowTeam>(n), 32," in gt
+    tower = (cuda_build.CSRC / "bn256_tower.cuh").read_text()
+    assert not re.search(r"\b(f12mul|f12sqr|fp6_mul|sparse013)\(|"
+                         r"struct Fp(6|12)\b", tower)
+    tv = _variants()
+    pow_edits = [e for _, kind, _, e in tv.VARIANTS if kind == "pow"]
+    assert None in pow_edits and len(pow_edits) == 4
+    for edit in filter(None, pow_edits):
+        assert gt.count(edit[0]) == 1, edit[0]
