@@ -91,6 +91,31 @@ Phases (any failed check exits non-zero; nothing is caught):
      time (median of 3 warm runs after the first), the phase timers,
      ObfuscationPhase and VerifyObfuscation among them, and the time in
      Schnorr signing and checking.
+  9. Run the noised sum (DRO): the proofs-on rows of the reference's
+     simul/runfiles/scaling.toml:45-60 (`sum` over [0, 15], 5 DPs x 64
+     rows, 3 CNs, 3 VNs, ranges (4, 6), thresholds 1.0) with the DRO
+     parameters of simul/runner.py:133-136 and a 10,000-value noise list
+     (the TIFS diffPri.py's first non-zero size, SURVEY.md:434), through
+     `LocalCluster.run_survey`, counted as above: (a) with fresh
+     precomputation, a first run, a same-seed run with an equal
+     transcript, then the median of 3 warm runs; (b) after
+     `prewarm_dro`, a first run and the median of 3, the precompute
+     counter flat and every precompute file deleted; (c) once through a
+     `CryptoPool` filled by `replenish.refill_to`, whose slabs the survey
+     consumes. Each run: the final shuffled noise list, decrypted with the
+     CNs' secrets on the card, a permutation of the clear list; the answer
+     equal to the clear sum plus the noise at index 0; an audit block of 3
+     VNs x 14 proofs (3 shuffle proofs a VN), every entry BM_TRUE. Exact
+     launch counts, the reduce's rows of the shuffle proofs' sums; a
+     shuffle proof with one z changed BM_FALSE for its envelope only; the
+     sums' two reduces timed against one reduce over all rows and a tree
+     of batched adds; one shuffle proof and its check timed alone. Print
+     the wall times, the phase timers (DROPhase and VerifyShuffle among
+     them), Schnorr CPU time and the host time of the shuffle proofs'
+     scalar chains and hashes. Then time
+     `dro.dro_pipeline` alone at 100,000 values over 3 servers, fresh and
+     from a pool, each output decrypted to a permutation of the clear
+     list.
   Last, the kernels' times, launch counts and bounds as one JSON line, the
   card's name and power limit, and the contract line
   {"ok": true, "device": {...}}.
@@ -222,6 +247,65 @@ EXPECTED_LAUNCHES_MAX = {
     k: v - SIGNED_OFFSET_LAUNCHES.get(k, 0)
     + N_SERVERS * OBFUSCATION_LAUNCHES.get(k, 0)
     for k, v in EXPECTED_LAUNCHES_CLUSTER.items()}
+
+# the noised sum: the proofs-on rows of the reference's
+# simul/runfiles/scaling.toml:45-60 (5 DPs, 3 CNs, 3 VNs, ranges (4, 6))
+# with 64 rows a DP drawn as simul/runner.py draws them (integers in
+# [0, 15) from a seed), `sum` over [0, 15], thresholds 1.0, dlog table
+# +-25,000, and the DRO parameters of simul/runner.py:133-136 at the TIFS
+# diffPri.py's first non-zero noise-list size (SURVEY.md:434); LocalCluster
+# seed 4, survey seed 0. Then the noise pipeline alone at the TIFS's
+# second size.
+NOISE_DPS, NOISE_ROWS, NOISE_QMAX, NOISE_DLOG, NOISE_DATA_SEED = (
+    5, 64, 15, 25_000, 9)
+NOISE_RANGES = (4, 6)
+NOISE_SIZE, NOISE_SCALE_SIZE, NOISE_RUNS = 10_000, 100_000, 3
+NOISE_DIFFP = {"lap_mean": 0.0, "lap_scale": 2.0, "quanta": 1.0,
+               "scale": 1.0, "limit": 8.0}
+NOISE_POOL_SEED, NOISE_SCALE_SEED = 21, 22
+# its audit block: a VN gets 5 range proofs and 3 each of the shuffle,
+# aggregation and key-switch proofs
+NOISE_BITMAP_ENTRIES = N_VNS * (NOISE_DPS + 3 * N_SERVERS)
+# its launches: phase 7's without the signed offset's correction, the joint
+# range check's folds at ceil(log8(digit proofs)) passes, then the DRO
+# phase: the noise's encryption (three fixed-base products and an add) and
+# the noise's add to the result; per CN and noise slab, with fresh
+# precomputation, r B and r P, and the shuffle's add; per CN its shuffle
+# proof and the VNs' check of it (each a fixed-base launch, one ladder,
+# one add, two reduces and three normalizations)
+# the rows at each end of a row-wise kernel's largest call in the noised
+# sum that phase 9 holds against the plain version (a block is at most 128
+# rows)
+KEPT_EDGE = 512
+DRO_LAUNCHES = {"fixed_base_mul": 3, "point_add": 2}
+DRO_LAUNCHES_SLAB = {"point_add": 1}
+DRO_LAUNCHES_FRESH_SLAB = {"fixed_base_mul": 2}
+DRO_LAUNCHES_CN = {"fixed_base_mul": 2, "scalar_mul": 2, "point_add": 2,
+                   "point_reduce": 4, "fp_inv": 6}
+
+
+def fold_passes(n):
+    """ceil(log8(n)), at least 1: the 8-way product's passes over n."""
+    passes = 1
+    while 8 ** passes < n:
+        passes += 1
+    return passes
+
+
+def noised_sum_launches(n_cns, n_slabs, digit_proofs, fresh):
+    """The noised sum's launches for n_cns CNs, n_slabs noise slabs and a
+    joint range check of digit_proofs digit proofs; `fresh`: every CN's
+    zero-encryptions computed in the survey."""
+    want = {k: v - SIGNED_OFFSET_LAUNCHES.get(k, 0)
+            for k, v in EXPECTED_LAUNCHES_CLUSTER.items()}
+    want["f12_mulreduce8"] -= 2 * (5 - fold_passes(digit_proofs))
+    per = [(DRO_LAUNCHES, 1), (DRO_LAUNCHES_CN, n_cns),
+           (DRO_LAUNCHES_SLAB, n_cns * n_slabs),
+           (DRO_LAUNCHES_FRESH_SLAB, n_cns * n_slabs if fresh else 0)]
+    for launches, times in per:
+        for k, v in launches.items():
+            want[k] += v * times
+    return want
 
 
 # H100 SXM: 132 SMs, 64 32-bit integer multiply-adds per SM per clock,
@@ -997,6 +1081,419 @@ def phase8(zero_launches, launch_counts):
           flush=True)
     cluster.close()
     return launches8, walls
+
+
+class KeptCalls:
+    """The G1 kernels at the sizes a run gives them. Inside `with`, each
+    wrapper of KEPT_WRAPPERS keeps its largest call (the reduce: its first
+    call of each shape), inputs and output; `hold()` then holds each byte
+    for byte against its plain version on them: the reduce whole, a
+    row-wise kernel on its first and last KEPT_EDGE rows (the last holding
+    its final partly filled block). Keeping launches nothing."""
+
+    # (module, wrapper, the positional arguments indexed by row; None: the
+    # reduce, whose output rows sum its input's)
+    WRAPPERS = [("cuda_ops", "fixed_base_mul_flat", (1,)),
+                ("cuda_ops", "scalar_mul_flat", (0, 1)),
+                ("cuda_ops", "point_add_flat", (0, 1)),
+                ("cuda_ops", "point_reduce_flat", None),
+                ("cuda_pairing", "fp_inv_flat", (0,))]
+
+    def __init__(self):
+        import importlib
+
+        self.mods = {m: importlib.import_module(f"drynx_tpu_torch.crypto.{m}")
+                     for m, _, _ in self.WRAPPERS}
+        self.kept, self.lock = {}, threading.Lock()
+
+    def _keeper(self, orig, name, row_args):
+        def call(*a, **k):
+            out = orig(*a, **k)
+            key = name if row_args is not None else (name, a[0].shape[:2])
+            with self.lock:
+                have = self.kept.get(key)
+                if have is None or (row_args is not None
+                                    and len(out) > len(have[2])):
+                    self.kept[key] = ([t.clone() if torch.is_tensor(t) else t
+                                       for t in a], dict(k), out.clone())
+            return out
+        return call
+
+    def __enter__(self):
+        self.originals = {}
+        for m, name, row_args in self.WRAPPERS:
+            orig = self.originals[name] = getattr(self.mods[m], name)
+            setattr(self.mods[m], name, self._keeper(orig, name, row_args))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, _ in self.WRAPPERS:
+            setattr(self.mods[m], name, self.originals[name])
+
+    def hold(self):
+        """{kernel: [rows, or (R, N) for the reduce]} of the calls held;
+        raises SystemExit on a difference or a wrapper never called."""
+        held = {}
+        for key, (a, k, out) in sorted(self.kept.items(), key=str):
+            name = key if isinstance(key, str) else key[0]
+            m, _, row_args = next(w for w in self.WRAPPERS if w[1] == name)
+            plain = getattr(self.mods[m], name.replace("_flat", "_plain"))
+            n = len(out)
+            if row_args is None:
+                got, want = out, plain(*a, **k)
+                label = tuple(a[0].shape[:2])
+            else:
+                idx = torch.cat([torch.arange(min(n, KEPT_EDGE)),
+                                 torch.arange(max(KEPT_EDGE, n - KEPT_EDGE),
+                                              n)]).to(out.device)
+                got = out[idx]
+                want = plain(*[t[idx] if i in row_args else t
+                               for i, t in enumerate(a)], **k)
+                label = n
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise SystemExit(f"{name} at {label} rows differs from its "
+                                 f"plain version")
+            held.setdefault(name.replace("_flat", ""), []).append(label)
+        names = {n.replace("_flat", "") for _, n, _ in self.WRAPPERS}
+        if set(held) != names:
+            raise SystemExit(f"no call of {sorted(names - set(held))} kept")
+        return held
+
+
+def phase9(zero_launches, launch_counts):
+    """The noised sum through the port's LocalCluster on the card, then
+    the DRO pipeline alone at 100,000 values. Returns (launches, warm wall
+    times)."""
+    import glob
+    import os
+    import pickle
+    import tempfile
+
+    from drynx_tpu_torch import pool as pool_mod
+    from drynx_tpu_torch.crypto import cuda_ops
+    from drynx_tpu_torch.crypto import curve as C
+    from drynx_tpu_torch.crypto import elgamal as eg
+    from drynx_tpu_torch.crypto import params
+    from drynx_tpu_torch.parallel import dro
+    from drynx_tpu_torch.pool import replenish
+    from drynx_tpu_torch.proofs import requests as rq
+    from drynx_tpu_torch.proofs import schnorr
+    from drynx_tpu_torch.proofs import shuffle as shp
+    from drynx_tpu_torch.proofs.safe_pickle import safe_loads
+    from drynx_tpu_torch.server.transcript import transcript_digest
+    from drynx_tpu_torch.service.query import DiffPParams
+    from drynx_tpu_torch.service.service import LocalCluster
+    from drynx_tpu_torch.utils import cuda_build
+
+    dev = torch.device("cuda")
+    diffp = DiffPParams(noise_list_size=NOISE_SIZE, **NOISE_DIFFP)
+    laplace = [NOISE_DIFFP[k] for k in ("lap_mean", "lap_scale", "quanta",
+                                        "scale", "limit")]
+    clear_noise = np.sort(dro.generate_noise_values(NOISE_SIZE, *laplace))
+    n_slabs = -(-NOISE_SIZE // dro.CHUNK) if NOISE_SIZE > dro.CHUNK else 1
+    digit_proofs = NOISE_DPS * NOISE_RANGES[1] * N_SERVERS
+    want = {fresh: noised_sum_launches(N_SERVERS, n_slabs, digit_proofs,
+                                       fresh) for fresh in (True, False)}
+
+    def make_cluster(pool=None):
+        c = LocalCluster(n_cns=N_SERVERS, n_dps=NOISE_DPS, n_vns=N_VNS,
+                         seed=CLUSTER_SEED, dlog_limit=NOISE_DLOG, pool=pool)
+        rng = np.random.default_rng(NOISE_DATA_SEED)
+        for dp in c.dps.values():
+            dp.data = rng.integers(0, NOISE_QMAX, size=NOISE_ROWS)
+        q = c.generate_survey_query("sum", query_min=0, query_max=NOISE_QMAX,
+                                    proofs=1, ranges=[NOISE_RANGES],
+                                    diffp=diffp, thresholds=1.0)
+        c.ensure_range_sigs(NOISE_RANGES[0])
+        torch.cuda.synchronize()
+        return c, q
+
+    t0 = time.perf_counter()
+    cluster, sq = make_cluster()
+    clear = sum(int(dp.data.sum()) for dp in cluster.dps.values())
+    coll_x = sum(c.secret for c in cluster.cns) % params.N
+    print(f"phase 9 setup: cluster keys, tables and {N_SERVERS} signature "
+          f"sets of u={NOISE_RANGES[0]} {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    sign = HostTimer(schnorr, "sign")
+    check = HostTimer(schnorr, "verify")
+    host = {name: HostTimer(shp, name) for name in (
+        "_ilmpp_responses", "_digest_scalars", "_relation_secret")}
+    timers = [sign, check, *host.values()]
+
+    # the last shuffle's output: the final noise list
+    last, shuffle = {}, dro.shuffle_rerandomize
+
+    def recorded(*a, **k):
+        out = shuffle(*a, **k)
+        last["out"] = out[0]
+        return out
+
+    def run(c, q):
+        for vn in c.vns.vns:
+            vn.verify_cache.clear()
+        for t in timers:
+            t.reset()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = c.run_survey(q, seed=SURVEY_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        rows = {k: dict(sorted(v.items()))
+                for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
+        bitmap = res.block.data.bitmap if res.block is not None else {}
+        n_shuffle = sum("/shuffle/" in k for k in bitmap)
+        if (len(bitmap) != NOISE_BITMAP_ENTRIES
+                or set(bitmap.values()) != {rq.BM_TRUE}
+                or n_shuffle != N_VNS * N_SERVERS):
+            raise SystemExit(f"audit block bitmap: {len(bitmap)} entries "
+                             f"(want {NOISE_BITMAP_ENTRIES}), {n_shuffle} "
+                             f"shuffle, codes {sorted(set(bitmap.values()))}")
+        vals, found = eg.decrypt_ints(last["out"], coll_x, c.dlog)
+        vals = vals.cpu().numpy().astype(np.int64)
+        if not bool(found.all()) or not np.array_equal(np.sort(vals),
+                                                       clear_noise):
+            raise SystemExit("the final noise list does not decrypt to a "
+                             "permutation of the clear noise list")
+        if int(res.result) != clear + int(vals[0]) or abs(int(vals[0])) > 8:
+            raise SystemExit(f"noised sum {res.result}, clear {clear}, "
+                             f"noise at index 0 {vals[0]}")
+        stamp = {"sign": sign.cpu, "check": check.cpu,
+                 **{k: t.cpu for k, t in host.items()}}
+        return wall, res, launches, rows, int(vals[0]), stamp
+
+    def medians(results):
+        walls = [r[0] for r in results]
+        timers = [dict(r[1].timers.items()) for r in results]
+        split = {k: statistics.median(t.get(k, 0.0) for t in timers)
+                 for k in sorted({k for t in timers for k in t})}
+        cpu = {k: statistics.median(r[5][k] for r in results)
+               for k in results[0][5]}
+        return statistics.median(walls), walls, split, cpu
+
+    def report(tag, first, results):
+        med, walls, split, cpu = medians(results)
+        print(f"phase 9{tag}: first run {first:.3f} s; wall time median "
+              f"{med:.4f} s over {len(walls)} warm runs (all: "
+              f"{[round(x, 4) for x in walls]}); phase timers, median: "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+              + f"; CPU time, median: Schnorr {sign.calls} signs "
+              f"{cpu['sign']:.4f} s + {check.calls} checks "
+              f"{cpu['check']:.4f} s ({100 * (cpu['sign'] + cpu['check']) / med:.1f}"
+              f" % of the wall time); shuffle proofs' host work: ILMPP "
+              f"responses {cpu['_ilmpp_responses']:.4f} s, sha3 digests "
+              f"{cpu['_digest_scalars']:.4f} s, the sum for s "
+              f"{cpu['_relation_secret']:.4f} s", flush=True)
+        return walls
+
+    dro.shuffle_rerandomize = recorded
+    try:
+        # (a) fresh precomputation
+        first, res, launches9, rows9, n0, _ = run(cluster, sq)
+        print(f"phase 9a: first noised sum {first:.3f} s; launches "
+              f"{launches9}", flush=True)
+        print(f"phase 9a: launch shapes, {{kernel: {{rows: launches}}}}: "
+              f"{rows9}", flush=True)
+        if launches9 != want[True]:
+            raise SystemExit(f"noised sum launches {launches9} differ from "
+                             f"{want[True]}")
+        k2 = 2 * NOISE_SIZE + 1
+        r_msm = int(np.ceil(np.sqrt(k2)))
+        c_msm = -(-k2 // r_msm)
+        msm_rows = {(r_msm, 2 * c_msm): 2 * N_SERVERS, (c_msm, 2): 2 * N_SERVERS}
+        got_msm = {k: v for k, v in rows9["point_reduce"].items()
+                   if k in msm_rows}
+        if got_msm != msm_rows:
+            raise SystemExit(f"shuffle proofs' reduces {got_msm}, want "
+                             f"{msm_rows}")
+        sid = sq.survey_id
+        digest = transcript_digest(cluster.vns, sid)
+        kept = KeptCalls()
+        with kept:
+            again = run(cluster, sq)
+        if transcript_digest(cluster.vns, sid) != digest:
+            raise SystemExit("a second noised sum with the same seed gives "
+                             "another transcript")
+        print(f"  the G1 kernels at the noised sum's sizes, byte-equal to "
+              f"their plain versions: {kept.hold()}", flush=True)
+        print(f"  audit block #{res.block.index}: {NOISE_BITMAP_ENTRIES} "
+              f"entries, all BM_TRUE, {N_VNS * N_SERVERS} shuffle; the final "
+              f"list a permutation of the {NOISE_SIZE} clear values; answer "
+              f"{res.result} = clear {clear} + noise {n0}; the same "
+              f"transcript {digest[:16]} from a second run "
+              f"({again[0]:.3f} s)", flush=True)
+        walls9 = report("a", first, [run(cluster, sq)
+                                     for _ in range(NOISE_RUNS)])
+
+        # a shuffle proof with one z changed, through a VN's receive path
+        vn, other = cluster.vns.vns[1], cluster.vns.vns[0]
+        key = f"{sid}/shuffle/cn0/shuffle-cn0"
+        proof, a, b = safe_loads(vn.stored_proofs(sid)[key])
+        proof.z[7] ^= 1
+        cn = cluster.cns[0]
+        req = rq.new_proof_request("shuffle", sid, cn.name, "shuffle-cn0", 0,
+                                   pickle.dumps((proof, a, b)), cn.secret)
+        before = dict(vn.bitmap_for(sid))
+        code = vn.receive_proof(req)
+        after = vn.bitmap_for(sid)
+        changed = {k for k in after if after[k] != before.get(k)}
+        if (code != rq.BM_FALSE or changed != {key}
+                or other.bitmap_for(sid)[key] != rq.BM_TRUE):
+            raise SystemExit(f"tampered shuffle payload: code {code}, "
+                             f"changed entries {sorted(changed)}")
+        print("  a shuffle proof with one z changed recorded BM_FALSE for "
+              "its envelope only", flush=True)
+
+        # the shuffle proofs' sums: two reduces against one over every row
+        # and a tree of batched adds, on the relation's shape
+        final = last["out"]
+        rel = torch.cat([final, final, final[:1]])
+        chosen = shp._sum_rows(rel)
+        one = cuda_ops.point_reduce_flat(rel)
+
+        def tree(p):
+            n_add = 0
+            while p.shape[0] > 1:
+                h = p.shape[0] // 2
+                s = C.add(p[:h], p[h:2 * h])
+                p = torch.cat([s, p[2 * h:]]) if p.shape[0] % 2 else s
+                n_add += 1
+            return p[0], n_add
+
+        by_tree, n_tree = tree(rel)
+        if not (bool(C.eq(chosen, one).all())
+                and bool(C.eq(chosen, by_tree).all())):
+            raise SystemExit("the shuffle proofs' sums disagree")
+        ms = {name: cuda_ms(fn, 3) for name, fn in (
+            ("two reduces", lambda: shp._sum_rows(rel)),
+            ("one reduce", lambda: cuda_ops.point_reduce_flat(rel)),
+            ("add tree", lambda: tree(rel)))}
+        print(f"  the shuffle proofs' sum of {k2} rows x 2 points: two "
+              f"reduces ({r_msm}, {2 * c_msm}) then ({c_msm}, 2) "
+              f"{ms['two reduces']:.3f} ms (chosen); one reduce ({k2}, 2) "
+              f"{ms['one reduce']:.3f} ms; a tree of {n_tree} batched adds "
+              f"{ms['add tree']:.3f} ms", flush=True)
+
+        # one shuffle of the final list, its proof and the proof's check
+        # alone, with no proof thread running
+        gen = torch.Generator(device=dev).manual_seed(NOISE_POOL_SEED)
+        out, perm, r = shuffle(final, cluster.coll_tbl.table, gen)
+        betas = shp.limbs_to_ints(r)
+        for t in host.values():
+            t.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = shp.prove_shuffle(final, out, perm, betas, cluster.coll_pt,
+                                  np.random.default_rng(NOISE_POOL_SEED))
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        alone = {k: t.seconds for k, t in host.items()}
+        t0 = time.perf_counter()
+        ok = shp.verify_shuffle(proof, final, out, cluster.coll_pt)
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        if not ok:
+            raise SystemExit("a shuffle proof made alone was rejected")
+        print(f"  one shuffle proof of {NOISE_SIZE} values alone: prove "
+              f"{prove_s:.3f} s (host: ILMPP responses "
+              f"{alone['_ilmpp_responses']:.3f} s, sha3 digests "
+              f"{alone['_digest_scalars']:.3f} s, the sum for s "
+              f"{alone['_relation_secret']:.3f} s), check {check_s:.3f} s",
+              flush=True)
+
+        # (b) after prewarm_dro: the phase only permutes and adds
+        with tempfile.TemporaryDirectory(prefix="drynx_precomp_") as d:
+            t0 = time.perf_counter()
+            cluster.prewarm_dro(NOISE_SIZE, n_surveys=1 + NOISE_RUNS,
+                                cache_dir=d)
+            torch.cuda.synchronize()
+            prewarm_s = time.perf_counter() - t0
+            calls = dro.PRECOMPUTE_CALLS
+            first_b, _, launches_b, *_ = run(cluster, sq)
+            if launches_b != want[False]:
+                raise SystemExit(f"prewarmed noised sum launches "
+                                 f"{launches_b} differ from {want[False]}")
+            results_b = [run(cluster, sq) for _ in range(NOISE_RUNS)]
+            left = glob.glob(os.path.join(d, "precomp_*.npz"))
+            if dro.PRECOMPUTE_CALLS != calls or left:
+                extra = dro.PRECOMPUTE_CALLS - calls
+                raise SystemExit(f"after prewarm_dro: {extra} fresh "
+                                 f"precomputations, {len(left)} files left")
+        print(f"phase 9b: prewarm_dro({NOISE_SIZE}, {1 + NOISE_RUNS} "
+              f"surveys) {prewarm_s:.3f} s; no fresh precomputation, every "
+              f"precompute file deleted", flush=True)
+        report("b", first_b, results_b)
+        cluster.close()
+
+        # (c) once through a CryptoPool filled by replenish.refill_to
+        with tempfile.TemporaryDirectory(prefix="drynx_pool_") as d:
+            pool = pool_mod.CryptoPool(d, slab_elems=NOISE_SIZE)
+            cp, sqp = make_cluster(pool)
+            try:
+                gen = torch.Generator(device=dev).manual_seed(NOISE_POOL_SEED)
+                t0 = time.perf_counter()
+                n_fill = replenish.refill_to(pool, gen, cp.coll_tbl.table,
+                                             N_SERVERS * NOISE_SIZE)
+                torch.cuda.synchronize()
+                fill_s = time.perf_counter() - t0
+                calls, st0 = dro.PRECOMPUTE_CALLS, pool.stats()
+                wall_c, _, launches_c, *_ = run(cp, sqp)
+                st = pool.stats()
+                if (launches_c != want[False] or dro.PRECOMPUTE_CALLS != calls
+                        or st["consumed"] - st0["consumed"] != N_SERVERS
+                        or st["slabs_live"] != 0):
+                    raise SystemExit(f"pooled noised sum: launches "
+                                     f"{launches_c}, pool {st}")
+            finally:
+                cp.close()
+        print(f"phase 9c: refill_to filled {n_fill} slabs of {NOISE_SIZE} "
+              f"in {fill_s:.3f} s; the pooled noised sum {wall_c:.3f} s "
+              f"consumed {N_SERVERS} (stats {st})", flush=True)
+    finally:
+        dro.shuffle_rerandomize = shuffle
+
+    # the noise pipeline alone at 100,000 values, fresh and pooled
+    x, pub = eg.keygen(np.random.default_rng(NOISE_SCALE_SEED))
+    tbl = eg.pub_table(pub)
+    tbl.table = tbl.table.to(dev)
+    dl = eg.DecryptionTable(limit=int(NOISE_DIFFP["limit"])).to(dev)
+    clear_big = np.sort(dro.generate_noise_values(NOISE_SCALE_SIZE,
+                                                  *laplace))
+    gen = torch.Generator(device=dev).manual_seed(NOISE_SCALE_SEED)
+
+    def pipeline(pool=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cts, _ = dro.dro_pipeline(tbl, NOISE_SCALE_SIZE, *laplace,
+                                  n_servers=N_SERVERS, pool=pool,
+                                  generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vals, found = eg.decrypt_ints(cts, x, dl)
+        if not bool(found.all()) or not np.array_equal(
+                np.sort(vals.cpu().numpy().astype(np.int64)), clear_big):
+            raise SystemExit("the pipeline's list does not decrypt to a "
+                             "permutation of the clear noise list")
+        return wall
+
+    fresh_s = [pipeline() for _ in range(2)]
+    with tempfile.TemporaryDirectory(prefix="drynx_pool_") as d:
+        pool = pool_mod.CryptoPool(d, slab_elems=NOISE_SCALE_SIZE)
+        t0 = time.perf_counter()
+        replenish.refill_to(pool, gen, tbl.table, N_SERVERS * NOISE_SCALE_SIZE)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        pooled_s = pipeline(pool)
+        if pool.stats()["consumed"] != N_SERVERS:
+            raise SystemExit(f"pooled pipeline: pool {pool.stats()}")
+    print(f"phase 9: dro_pipeline at {NOISE_SCALE_SIZE} values, "
+          f"{N_SERVERS} servers: fresh {fresh_s[0]:.3f} s first, "
+          f"{fresh_s[1]:.3f} s warm; pooled {pooled_s:.3f} s (the pool "
+          f"filled in {fill_s:.3f} s); each output a permutation of the "
+          f"clear list", flush=True)
+    return launches9, walls9
 
 
 def main():
@@ -1931,6 +2428,9 @@ def main():
     # -- phase 8: the obfuscated max survey, counted --------------------------
     launches8, walls8 = phase8(zero_launches, launch_counts)
 
+    # -- phase 9: the noised sum (DRO), counted -------------------------------
+    launches9, walls9 = phase9(zero_launches, launch_counts)
+
     kernels = []
     for name, tot in summary.items():
         source, replaces = meta[name]
@@ -1940,7 +2440,7 @@ def main():
             "replaces": replaces,
             "launches": (launches[name] + launches5[name] + launches6[name]
                          + launches_pv[name] + launches7[name]
-                         + launches8[name]),
+                         + launches8[name] + launches9[name]),
             "max_abs_err": tot["err"], "ms": round(tot["ms"], 6),
             "plain_ms": round(tot["plain_ms"], 3),
             "bound_ms": round(max(ops_ms, bytes_ms), 6),
@@ -1950,7 +2450,8 @@ def main():
     print("(ms, plain_ms, bound_ms: summed over the kernel's main-path shapes "
           "above, one launch each; launches: the survey's, the proofs-on "
           "collection's, the joint check's, the per-value check's, the "
-          "proofs-on cluster survey's and the obfuscated max survey's)")
+          "proofs-on cluster survey's, the obfuscated max survey's and the "
+          "noised sum's)")
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,12 @@ on int64 keys. Randomness comes from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
+from .. import pool as pool_mod
 from . import cuda_ops
 from . import curve as C
 from . import field as F
@@ -70,6 +73,14 @@ class FixedBase:
                 base = refimpl.g1_add(base, base)
         self.table = torch.stack(rows)
 
+    @classmethod
+    def from_table(cls, table) -> "FixedBase":
+        """Rehydrate from a persisted (64, 16, 3, 16) table (either
+        package's, uint32 or int32), skipping the host build."""
+        fb = cls.__new__(cls)
+        fb.table = torch.from_numpy(np.asarray(table).astype(np.int32))
+        return fb
+
 
 def fixed_base_mul(table, k_limbs, n_windows: int = NUM_WINDOWS):
     """k * P via windowed lookup-and-add. k_limbs: (..., 16) plain scalars;
@@ -83,9 +94,32 @@ def fixed_base_mul(table, k_limbs, n_windows: int = NUM_WINDOWS):
 BASE_TABLE = FixedBase(refimpl.G1)
 
 
+# host table builds this process actually paid (the pool tests assert it
+# stays flat when the store is warm)
+FB_BUILD_COUNT = 0
+
+
 def pub_table(pub_affine) -> FixedBase:
-    """The fixed-base table of a public key (host affine ints)."""
-    return FixedBase(pub_affine)
+    """The fixed-base table of a public key (host affine ints), on the CPU.
+
+    Consults the active crypto pool (`drynx_tpu_torch.pool`) when one is
+    set, as the reference does: tables are content-addressed by the affine
+    point (the reference's digest and `.npz` member), so a warm store,
+    written by either package, skips the host build."""
+    global FB_BUILD_COUNT
+    store = pool_mod.active_pool()
+    dig = None
+    if store is not None and pub_affine is not None:
+        x, y = pub_affine
+        dig = hashlib.sha256(f"{int(x):x},{int(y):x}".encode()).hexdigest()[:16]
+        got = store.load_sig("fb", dig)
+        if got is not None:
+            return FixedBase.from_table(got["table"])
+    tbl = FixedBase(pub_affine)
+    FB_BUILD_COUNT += 1
+    if dig is not None:
+        store.save_sig("fb", dig, table=tbl.table.numpy().astype(np.uint32))
+    return tbl
 
 
 # ---------------------------------------------------------------------------

@@ -42,13 +42,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import logging
 import secrets as _secrets
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import pool as pool_mod
 from ..crypto import cuda_pairing as CP
 from ..crypto import curve as C
 from ..crypto import elgamal as eg
@@ -123,14 +126,56 @@ def _window_table(base) -> torch.Tensor:
         (CP.N_WINDOWS, CP.WINDOW_ENTRIES) + GT_SHAPE)
 
 
+# Table-build counters: bumped only by REAL builds (the pairing
+# batch, the host window tables), never when a RangeSig or the persistent
+# store already holds the table. The pool tests assert they stay flat when
+# a fresh cluster reloads from a warm store.
+SIG_BUILD_COUNTS = {"gt_table": 0, "pow_table": 0}
+# Proof threads build sig tables concurrently; dict += is read-modify-
+# write, so the counters are bumped under a lock.
+_SIG_COUNT_LOCK = threading.Lock()
+
+
+def _sig_store():
+    """The persistent sig-table store, if a crypto pool is active
+    (content-addressed by A-table digest: safe to share process-wide)."""
+    return pool_mod.active_pool()
+
+
+def _a_bytes(sg: RangeSig) -> bytes:
+    """A's bytes in the reference's uint32 layout (its digest input)."""
+    return sg.A.cpu().numpy().astype(np.uint32).tobytes()
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.uint32)
+
+
+def _i32(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int32))
+
+
 def sig_gt_table(sigs: list[RangeSig], device=None) -> torch.Tensor:
     """(ns, u, 6, 2, 16) on `device` (None: the card): gtA[i][k] = e(B,
-    A_i[k]), computed once per signature set and kept on each RangeSig. On
-    a CUDA device the missing sets are paired in one batch by the pairing
+    A_i[k]), computed once per signature set and kept on each RangeSig.
+    A set the active crypto pool holds (key: sha256 of A, the reference's)
+    is loaded from it; the others are paired and stored there. On a CUDA
+    device the missing sets are paired in one batch by the pairing
     kernels (the reference's route, range_proof.py:115-121); on the CPU by
     the host oracle."""
     dev = resolve(device)
+    store = _sig_store()
+    if store is not None:
+        for sg in sigs:
+            if sg.gt is None:
+                d = store.load_sig("gt", hashlib.sha256(_a_bytes(sg))
+                                   .hexdigest())
+                if d is not None:
+                    sg.gt = _i32(d["gt"])
     missing = [sg for sg in sigs if sg.gt is None]
+    if missing:
+        with _SIG_COUNT_LOCK:
+            SIG_BUILD_COUNTS["gt_table"] += 1
     if missing and dev.type == "cuda":
         for sg, g in zip(missing, _pair_generator_with(
                 torch.stack([sg.A for sg in missing]).to(dev))):
@@ -138,6 +183,10 @@ def sig_gt_table(sigs: list[RangeSig], device=None) -> torch.Tensor:
     else:
         for sg in missing:
             sg.gt = F12.pair_host(refimpl.G1, G2.to_ref(sg.A))
+    if store is not None:
+        for sg in missing:
+            store.save_sig("gt", hashlib.sha256(_a_bytes(sg)).hexdigest(),
+                           gt=_u32(sg.gt))
     return torch.stack([sg.gt.to(dev) for sg in sigs])
 
 
@@ -156,11 +205,26 @@ def sig_gt_pow_tables(sigs: list[RangeSig], device=None) -> torch.Tensor:
     the host from sig_gt_table once per signature set; each RangeSig keeps
     its tables on the device last asked for."""
     device = resolve(device)
-    gts = sig_gt_table(sigs, device)
-    for sg, gt in zip(sigs, gts):
-        if sg.gt_pow is None:
-            sg.gt_pow = torch.stack([_window_table(F12.to_ref(g))
-                                     for g in gt])
+    if any(sg.gt_pow is None for sg in sigs):
+        store = _sig_store()
+        key = hashlib.sha256(b"".join(_a_bytes(sg) for sg in sigs)).hexdigest()
+        d = store.load_sig("pow", key) if store is not None else None
+        if d is not None:
+            for sg, T in zip(sigs, _i32(d["T"]).split(
+                    [sg.u for sg in sigs])):
+                sg.gt_pow = T
+        else:
+            with _SIG_COUNT_LOCK:
+                SIG_BUILD_COUNTS["pow_table"] += 1
+            gts = sig_gt_table(sigs, device)
+            for sg, gt in zip(sigs, gts):
+                if sg.gt_pow is None:
+                    sg.gt_pow = torch.stack([_window_table(F12.to_ref(g))
+                                             for g in gt])
+            if store is not None:
+                store.save_sig("pow", key, T=np.concatenate(
+                    [_u32(sg.gt_pow) for sg in sigs]))
+    for sg in sigs:
         sg.gt_pow = sg.gt_pow.to(device)
     return torch.cat([sg.gt_pow for sg in sigs])
 

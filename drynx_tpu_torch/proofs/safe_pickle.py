@@ -4,14 +4,15 @@ The port's counterpart of drynx_tpu/proofs/safe_pickle.py. Verifying nodes
 deserialize proof bodies sent by the very parties they exist to distrust;
 a plain `pickle.loads` on attacker-controlled bytes runs whatever callable
 a crafted `__reduce__` names. This module allows only the value types
-proofs legitimately contain: numpy arrays and the three proof dataclasses
-of this package, each by its exact name. torch is not allowed: its pickle
+proofs legitimately contain: numpy arrays and the proof dataclasses of
+this package, each by its exact name. torch is not allowed: its pickle
 globals include arbitrary callables, so the port's proof dataclasses pickle
 their tensors as CPU numpy arrays and the verifier moves them to its
 device.
 
 (The range-proof payload has its own fixed-layout byte codec and never goes
-through pickle; aggregation, obfuscation and key-switch bodies use this.)
+through pickle; aggregation, obfuscation, key-switch and shuffle bodies use
+this.)
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ import torch
 
 # The only globals a proof payload may name, as exact (module, name) pairs:
 # numpy's array reconstructors (protocol 4 and protocol 5, under numpy 2's
-# `_core` and numpy 1's `core` spelling), ndarray and dtype, and the three
-# proof dataclasses. Roots are not allowed wholesale: the unpickler resolves
+# `_core` and numpy 1's `core` spelling), ndarray and dtype, and the proof
+# dataclasses. Roots are not allowed wholesale: the unpickler resolves
 # a dotted name inside an allowed module, so any module of this package
 # would hand out what it imports (`os.system`, `torch.load`).
 _ALLOWED = {
@@ -37,6 +38,8 @@ _ALLOWED = {
     ("drynx_tpu_torch.proofs.aggregation", "AggregationProofBatch"),
     ("drynx_tpu_torch.proofs.keyswitch", "KeySwitchProofBatch"),
     ("drynx_tpu_torch.proofs.obfuscation", "ObfuscationProofBatch"),
+    ("drynx_tpu_torch.proofs.shuffle", "ShuffleProof"),
+    ("drynx_tpu_torch.proofs.shuffle", "ILMPPProof"),
 }
 
 

@@ -2,8 +2,9 @@
 
 The part of drynx_tpu/resilience/policy.py that the in-process cluster
 uses: how long a verifying-node group waits for its proofs, how often it
-polls, and locks that carry a diagnostic name. The retry table and the
-fault plane are not ported (ROADMAP queue A, step 16).
+polls, the epsilon ledger's default budget, and locks that carry a
+diagnostic name. The retry table and the fault plane are not ported
+(ROADMAP queue A, step 16).
 """
 from __future__ import annotations
 
@@ -21,6 +22,10 @@ END_VERIFICATION_TIMEOUT_S = 600.0
 # Tree overlay fan-out bounds (service/topology.py tree_fanout).
 TREE_FANOUT_MIN = 2
 TREE_FANOUT_MAX = 8
+# Per-(DP, cohort) epsilon budget the accountant enforces (pool/epsilon.py)
+# when neither the ledger nor the caller names one; DRYNX_EPSILON_BUDGET
+# overrides.
+EPSILON_BUDGET = 1.0
 
 def named_lock(name: str, *, reentrant: bool = False):
     """A threading.Lock (or RLock). The name documents the call site; the
@@ -31,4 +36,5 @@ def named_lock(name: str, *, reentrant: bool = False):
 
 __all__ = ["named_lock", "VN_GROUP_WAIT_S",
            "POLL_INTERVAL_S", "COLD_COMPILE_WAIT_S",
-           "END_VERIFICATION_TIMEOUT_S", "TREE_FANOUT_MIN", "TREE_FANOUT_MAX"]
+           "END_VERIFICATION_TIMEOUT_S", "TREE_FANOUT_MIN", "TREE_FANOUT_MAX",
+           "EPSILON_BUDGET"]

@@ -5,11 +5,13 @@ services/service.go HandleSurveyQuery / StartService and the onet
 LocalTest harness, services/service_test.go:29-66). Phases per survey:
 
   DP encode + encrypt  ->  collective aggregation  ->  obfuscation (the
-  zero/non-zero operations, when asked)  ->  key switch to the querier  ->
-  decrypt + decode (+ gradient descent for log_reg)
+  zero/non-zero operations, when asked)  ->  DRO noise (when asked)  ->
+  key switch to the querier  ->  decrypt + decode (+ gradient descent for
+  log_reg)
 
 With proofs on, every DP proves its ciphertexts' ranges, every CN proves
-the aggregate, its obfuscation and its key-switch contribution, each
+the aggregate, its obfuscation, its shuffle of the noise list and its
+key-switch contribution, each
 proof travels in a Schnorr-signed envelope to every verifying node (VN),
 and the root VN commits the survey's bitmap to the audit chain. All
 ciphertext work is batched over DPs and servers and runs through the
@@ -21,9 +23,16 @@ on the main thread from one generator seeded by `seed`, in a fixed order,
 before any proof thread starts, so its payload bytes do not depend on
 thread scheduling.
 
+The DRO noise phase (reference service.py:852-915) encrypts the
+deterministic noise list, passes it through every CN's shuffle and
+re-randomization in roster order, and adds one noise ciphertext to each
+result. A CN's zero-encryptions come from its prewarmed entries
+(`prewarm_dro`, `load_shuffle_precomp`; consumed once, their files
+deleted), else from the persistent crypto pool (`LocalCluster(pool=...)`,
+slabs claimed once), else are computed fresh.
+
 Not ported yet, each raising NotImplementedError where it is asked for:
-DRO noise and the shuffle (ROADMAP queue A, step 12), group-by and
-cutting factors (steps 8-9), fault probing, responder sets and quorums
+group-by and cutting factors (steps 8-9), fault probing, responder sets and quorums
 (step 16), durable checkpoints and resumption (step 16), held range
 proofs and the cross-survey flush (step 14), the kernel warm-up registry
 (step 15).
@@ -36,6 +45,8 @@ check of the DPs' payloads).
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
 import pickle
 import secrets
 import tempfile
@@ -47,16 +58,19 @@ import numpy as np
 import torch
 
 from .. import flagship
+from .. import pool as pool_mod
 from ..crypto import curve as C
 from ..crypto import elgamal as eg
 from ..encoding import stats as st
 from ..models import logreg as lr
 from ..parallel import collective as col
+from ..parallel import dro
 from ..proofs import aggregation as agg_proof
 from ..proofs import keyswitch as ks_proof
 from ..proofs import obfuscation as obf_proof
 from ..proofs import range_proof as rp
 from ..proofs import requests as rq
+from ..proofs import shuffle as shuffle_proof
 from ..proofs.safe_pickle import safe_loads
 from ..resilience import policy as pol
 from ..utils import log
@@ -185,8 +199,7 @@ class Survey:
 def _unported(q: Query, group_by=None, responders=None, hold_range=False,
               quorum=False) -> None:
     """Raise for the parts of a survey this port does not run yet."""
-    steps = [(q.diffp.enabled(), "DRO noise and the shuffle", 12),
-             (bool(q.group_by or group_by), "group_by", 8),
+    steps = [(bool(q.group_by or group_by), "group_by", 8),
              (int(q.cutting_factor) > 1, "cutting_factor > 1", 9),
              (responders is not None, "responder sets and fault probing", 16),
              (quorum, "DP and VN quorums", 16),
@@ -206,12 +219,20 @@ class LocalCluster:
     range-proof signatures with numpy's default_rng and the host curve
     arithmetic, as the reference does: one seed gives the same keys in both
     packages. The VNs' proof stores live in a temporary directory that
-    `close()` removes.
+    `close()` removes. `pool` (a `pool.CryptoPool`) is activated before any
+    table is built: it serves the fixed-base and signature tables and the
+    DRO phase's zero-encryption slabs (reference service.py:143-151,
+    :202-209).
     """
 
     def __init__(self, n_cns: int = 3, n_dps: int = 5, n_vns: int = 3,
-                 seed: int = 1, dlog_limit: int = 10000, device=None):
+                 seed: int = 1, dlog_limit: int = 10000, device=None,
+                 pool=None):
         self.device = dev = resolve(device)
+        self.pool = pool
+        self._pool_digest: Optional[str] = None
+        if pool is not None:
+            pool_mod.activate(pool)
         rng = np.random.default_rng(seed)
         self.rng = rng
         self.cns = [_new_identity(f"cn{i}", rng) for i in range(n_cns)]
@@ -227,7 +248,16 @@ class LocalCluster:
             tbl.table = tbl.table.to(dev)
         self.base_table = eg.BASE_TABLE.table.to(dev)
         self.client_pt = C.from_ref(self.client.public).to(dev)
+        self.coll_pt = C.from_ref(self.coll_pub).to(dev)
         self.dlog = eg.DecryptionTable(limit=dlog_limit).to(dev)
+        # the DRO slabs' key: the collective-key table's digest (every
+        # tenant is content-addressed, so a shared pool never serves an
+        # artifact to the wrong key)
+        if pool is not None:
+            self._pool_digest = pool_mod.key_digest(self.coll_tbl.table)
+        # prewarmed shuffle precomputations, {(CN index, size): [(precomp,
+        # file or None)]}, each consumed once
+        self._shuffle_precomp: dict = {}
 
         # DP -> CN mapping (reference repartitionDPs round robin)
         self.server_to_dp: dict = {}
@@ -262,9 +292,12 @@ class LocalCluster:
         self._proof_device_lock = pol.named_lock("proof_device_lock")
 
     def close(self) -> None:
-        """Remove the VNs' proof stores."""
+        """Remove the VNs' proof stores, and deactivate the cluster's pool
+        if it is still the active one."""
         if self._vn_dir is not None:
             self._vn_dir.cleanup()
+        if self.pool is not None and pool_mod.active_pool() is self.pool:
+            pool_mod.activate(None)
 
     # ------------------------------------------------------------------
     # Proof payload verifiers installed at the VNs
@@ -306,6 +339,14 @@ class LocalCluster:
             return bool(np.all(ks_proof.verify_keyswitch_proofs(
                 proof, self.client_tbl.table)))
 
+        def vshuffle(data: bytes, _sid: str) -> bool:
+            # the (in, out) the envelope carries; CN i's input is not
+            # chained to CN i-1's output, as in the reference (:303-309)
+            proof, in_cts, out_cts = safe_loads(data)
+            return shuffle_proof.verify_shuffle(
+                proof, torch.from_numpy(in_cts).to(self.device),
+                torch.from_numpy(out_cts), self.coll_pt)
+
         # each computed verification lands in its Verify<Type> timer and in
         # AllProofs (cache hits add nothing)
         def _timed(name, fn):
@@ -325,7 +366,8 @@ class LocalCluster:
                 "range_joint": _timed("VerifyRange", vrange_joint),
                 "aggregation": _timed("VerifyAggregation", vagg),
                 "obfuscation": _timed("VerifyObfuscation", vobf),
-                "keyswitch": _timed("VerifyKeySwitch", vks)}
+                "keyswitch": _timed("VerifyKeySwitch", vks),
+                "shuffle": _timed("VerifyShuffle", vshuffle)}
 
     # ------------------------------------------------------------------
     # Survey query construction (reference API.GenerateSurveyQuery, api.go:58)
@@ -405,9 +447,77 @@ class LocalCluster:
         raise NotImplementedError("the kernel warm-up registry is not "
                                   "ported yet (ROADMAP queue A, step 15)")
 
-    def prewarm_dro(self, *args, **kwargs) -> None:
-        raise NotImplementedError("DRO noise is not ported yet (ROADMAP "
-                                  "queue A, step 12)")
+    # ------------------------------------------------------------------
+    # The shuffle precomputation (reference :435-482)
+    # ------------------------------------------------------------------
+    def prewarm_dro(self, noise_size: int, n_surveys: int = 1,
+                    seed: int = 0, cache_dir: Optional[str] = None) -> None:
+        """Pre-fill the shuffle-precomputation pool: one fresh entry per
+        (CN, survey), on the cluster's device. The reference does this at
+        survey setup and persists it (service.go:316-317) so the timed DRO
+        phase only permutes + adds. With cache_dir set, each entry is also
+        written to disk (the reference's `.npz` members) so a restarted
+        process re-loads it (load_shuffle_precomp); entries are consumed
+        once, and the backing file is deleted when an entry is used."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            secrets.randbits(63) ^ seed)
+        for ci in range(len(self.cns)):
+            for _ in range(n_surveys):
+                pc = dro.precompute_rerandomization(
+                    self.coll_tbl.table, noise_size, gen,
+                    base_tbl=self.base_table)
+                path = None
+                if cache_dir is not None:
+                    os.makedirs(cache_dir, exist_ok=True)
+                    path = os.path.join(
+                        cache_dir, f"precomp_{ci}_{noise_size}_"
+                        f"{secrets.token_hex(6)}.npz")
+                    dro.save_precompute(path, pc)
+                self._shuffle_precomp.setdefault(
+                    (ci, noise_size), []).append((pc, path))
+
+    def load_shuffle_precomp(self, cache_dir: str) -> int:
+        """Re-load persisted precomputation entries (either package's)
+        after a restart, onto the cluster's device. Returns the number of
+        entries loaded."""
+        n = 0
+        for path in sorted(glob.glob(os.path.join(cache_dir,
+                                                  "precomp_*.npz"))):
+            stem = os.path.basename(path)[len("precomp_"):-len(".npz")]
+            ci_s, size_s, _ = stem.split("_", 2)
+            pc = dro.load_precompute(path, self.device)
+            self._shuffle_precomp.setdefault(
+                (int(ci_s), int(size_s)), []).append((pc, path))
+            n += 1
+        return n
+
+    def _take_precomp(self, ci: int, size: int):
+        """CN ci's zero-encryptions for a noise list of `size`: a prewarmed
+        entry (its file claimed, then deleted), else a slab of the
+        persistent pool (moved to the device once), else None. Each is
+        consumed once: reusing a re-randomization mask across surveys would
+        let a proof observer cancel the masks and recover both
+        permutations."""
+        entries = self._shuffle_precomp.get((ci, size))
+        while entries:
+            pc, path = entries.pop()
+            if path is None:
+                return pc
+            # a persisted entry is claimed by renaming its file before use,
+            # as the pool's store claims a slab: another process that
+            # loaded the same file loses the rename and skips the entry
+            claimed = path + ".claimed"
+            try:
+                os.rename(path, claimed)
+            except FileNotFoundError:
+                continue
+            os.unlink(claimed)
+            return pc
+        if self.pool is not None:
+            got = self.pool.try_consume_dro(self._pool_digest, size)
+            if got is not None:
+                return dro.to_device(got[0], got[1], self.device)
+        return None
 
     # ------------------------------------------------------------------
     # The full survey (reference SendSurveyQuery path, SURVEY.md §3.1)
@@ -416,13 +526,17 @@ class LocalCluster:
         return self.finalize_survey(self.execute_survey(sq, seed))
 
     def _draw(self, gen, n_dps: int, V: int, ranges, proofs_on: bool,
-              obfuscation: bool):
+              obfuscation: bool, n_noise: int = 0):
         """The survey's randomness, in a fixed order: encryption, range
         proofs (per (u, l) spec: s, t, m, v as create_range_proofs draws
         them), key switch, key-switch proofs (wr, wx), then per CN the
         obfuscation scalars s and, with proofs, their proof's w (None
-        without) -- last, so a survey without obfuscation draws what it
-        drew before."""
+        without), then with `n_noise` > 0 the DRO draws: the noise's
+        encryption scalars, and per CN the permutation, fresh blinding
+        scalars (drawn whether or not a precomputation serves the CN) and,
+        with proofs, its prover's 128-bit rng seed (None without). Each
+        group comes after the ones before it, so a survey without
+        obfuscation or noise draws what it drew before."""
         dev, ns = self.device, len(self.cns)
         draw = lambda shape: eg.random_scalars(shape, gen, dev)
         enc_rs = draw((n_dps, V))
@@ -437,7 +551,23 @@ class LocalCluster:
         ks_draws = [draw((ns, V)), draw((ns, V))] if proofs_on else None
         obf_draws = [(draw((V,)), draw((V,)) if proofs_on else None)
                      for _ in range(ns)] if obfuscation else []
-        return enc_rs, range_draws, ks_rs, ks_draws, obf_draws
+        dro_draws = None
+        if n_noise > 0:
+            noise_r = draw((n_noise,))
+            per_cn = []
+            for _ in range(ns):
+                perm = torch.randperm(n_noise, generator=gen,
+                                      device=gen.device)
+                r = draw((n_noise,))
+                seed = None
+                if proofs_on:
+                    words = torch.randint(0, 1 << 16, (8,), generator=gen,
+                                          device=gen.device)
+                    seed = int.from_bytes(
+                        words.cpu().numpy().astype("<u2").tobytes(), "little")
+                per_cn.append((perm, r, seed))
+            dro_draws = (noise_r, per_cn)
+        return enc_rs, range_draws, ks_rs, ks_draws, obf_draws, dro_draws
 
     def execute_survey(self, sq: SurveyQuery, seed: int = 0,
                        hold_range: bool = False,
@@ -484,8 +614,10 @@ class LocalCluster:
             range_offset = signed_offset(dp_stats, q.ranges)
             dp_stats = dp_stats + range_offset
         gen = torch.Generator(device=dev).manual_seed(seed)
-        enc_rs, range_draws, ks_rs, ks_draws, obf_draws = self._draw(
-            gen, n_dps, V, list(q.ranges or []), proofs_on, q.obfuscation)
+        n_noise = (int(q.diffp.noise_list_size) if q.diffp.enabled() else 0)
+        (enc_rs, range_draws, ks_rs, ks_draws, obf_draws,
+         dro_draws) = self._draw(gen, n_dps, V, list(q.ranges or []),
+                                 proofs_on, q.obfuscation, n_noise)
         cts = eg.encrypt_ints_with_tables(self.base_table,
                                           self.coll_tbl.table, dp_stats,
                                           enc_rs)           # (n_dps, V, 2,3,16)
@@ -537,6 +669,43 @@ class LocalCluster:
                     work = eg.ct_scalar_mul(work, s)
             _sync(dev)
             tm.end("ObfuscationPhase")
+
+        # --- DRO noise (reference :852-915) ------------------------------
+        # the noise list, encrypted, passes through every CN's shuffle and
+        # re-randomization in roster order; one noise ciphertext is added
+        # per result (service.go:600-604)
+        if dro_draws is not None:
+            tm.start("DROPhase")
+            d = q.diffp
+            noise = dro.generate_noise_values(
+                d.noise_list_size, d.lap_mean, d.lap_scale, d.quanta,
+                d.scale, d.limit)
+            noise_r, per_cn = dro_draws
+            n_cts = dro.encrypt_noise(self.coll_tbl, noise, r=noise_r,
+                                      base_tbl=self.base_table)
+            S = int(n_cts.shape[0])
+            for ci, (cn, (perm, r, rng_seed)) in enumerate(zip(self.cns,
+                                                               per_cn)):
+                pc = self._take_precomp(ci, S)
+                if pc is None:
+                    pc = dro.precompute_rerandomization(
+                        self.coll_tbl.table, S, base_tbl=self.base_table,
+                        r=r)
+                out_cts, perm, rs = dro.shuffle_rerandomize(
+                    n_cts, self.coll_tbl.table, precomp=pc, perm=perm)
+                if proofs_on:
+                    pr = shuffle_proof.prove_shuffle(
+                        n_cts, out_cts, perm, shuffle_proof.limbs_to_ints(rs),
+                        self.coll_pt, np.random.default_rng(rng_seed))
+                    self._async_proof(
+                        survey, "shuffle", cn,
+                        lambda pr=pr, a=n_cts, b=out_cts: pickle.dumps(
+                            (pr, a.cpu().numpy(), b.cpu().numpy())))
+                n_cts = out_cts
+            idx = torch.arange(V, device=dev) % S
+            work = eg.ct_add(work, n_cts[idx])
+            _sync(dev)
+            tm.end("DROPhase")
 
         # --- Key switch to the querier's key ----------------------------
         tm.start("KeySwitchingPhase")

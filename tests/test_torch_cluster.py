@@ -592,7 +592,17 @@ def test_kernel_faults_propagate_out_of_the_vns(survey, exc):
 
 
 def test_unported_options_raise(survey):
+    """Group-by, cutting factors, held ranges, quorums, probing and
+    checkpoints raise; DRO noise (ported) is accepted, with its shuffle
+    proofs counted and thresholded."""
     cluster = survey.cluster
+    diffp = TQ.DiffPParams(noise_list_size=4, lap_scale=2.0, quanta=1.0,
+                           scale=1.0, limit=8.0)
+    sq = cluster.generate_survey_query("sum", query_min=0, query_max=15,
+                                       proofs=1, diffp=diffp,
+                                       thresholds=0.5)
+    assert sq.threshold == 0.5
+    assert TQ.query_to_proofs_nbrs(sq)[1] == N_CNS
     for kw in ({"group_by": [[0, 1]]}, {"cutting_factor": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cluster.generate_survey_query("sum", **kw)
