@@ -35,7 +35,13 @@ Phases (any failed check exits non-zero; nothing is caught):
      scalars at W in {1, 2, 16, 64} and at N in {1, 5, 21}; the G2 ladder
      on crafted scalars and at N in {1, 5, 21}; the windowed GT power on
      crafted values and exponents at n_bits in {1, 2, 3, 4, 63, 64, 128,
-     256} with and without cyc and at N in {1, 5, 21}; the Fp12 power on
+     256} with and without cyc and at N in {1, 5, 21} (these partly filled
+     blocks, and the Fp12 product's, the 8-way product's and the Miller
+     loop's smaller N, each a prefix of a main shape's rows, against the
+     first N rows of that shape's one plain run; the fixed-base ladder's N
+     against one run at 900 for each W; the crafted rows of the Fp12
+     inverse and power, alone and tiled, against one run of those rows);
+     the Fp12 power on
      crafted rows (exponents 0, 1, 2^n_bits - 1, bits only at or above
      n_bits; 1, the unit slots w^j, a GPhi12 member, a value outside it)
      at n_bits in {1, 48, 63, 256}, in one launch and tiled to 13,500
@@ -77,8 +83,8 @@ Phases (any failed check exits non-zero; nothing is caught):
      the CPU; the same transcript digest from a second run with the same
      seed (verification caches cleared); a key-switch payload from a VN's
      store accepted, and rejected with one zx limb changed. Print the wall
-     time (median of 3 warm runs after a warm-up), the phase timers and the
-     time in Schnorr signing and checking.
+     time of the second, warm run, its phase timers and its time in
+     Schnorr signing and checking.
   8. Run the obfuscated max of the reference's minmax.toml (first run:
      1,000 buckets, 64 rows a DP, 5 DPs, 3 CNs, 3 VNs, ranges (2, 1),
      thresholds 1.0) through `LocalCluster.run_survey`, counted as above:
@@ -88,7 +94,7 @@ Phases (any failed check exits non-zero; nothing is caught):
      obfuscation payload with one z limb changed recorded BM_FALSE for its
      envelope only; `schnorr.verify_batch` equal to host `verify` on every
      signed envelope of the survey and on nine forgeries. Print the wall
-     time (median of 3 warm runs after the first), the phase timers,
+     time (one warm run after the first), the phase timers,
      ObfuscationPhase and VerifyObfuscation among them, and the time in
      Schnorr signing and checking.
   9. Run the noised sum (DRO): the proofs-on rows of the reference's
@@ -98,8 +104,8 @@ Phases (any failed check exits non-zero; nothing is caught):
      (the TIFS diffPri.py's first non-zero size, SURVEY.md:434), through
      `LocalCluster.run_survey`, counted as above: (a) with fresh
      precomputation, a first run, a same-seed run with an equal
-     transcript, then the median of 3 warm runs; (b) after
-     `prewarm_dro`, a first run and the median of 3, the precompute
+     transcript, then one warm run; (b) after `prewarm_dro`, a first
+     run and a warm run, the precompute
      counter flat and every precompute file deleted; (c) once through a
      `CryptoPool` filled by `replenish.refill_to`, whose slabs the survey
      consumes. Each run: the final shuffled noise list, decrypted with the
@@ -116,9 +122,50 @@ Phases (any failed check exits non-zero; nothing is caught):
      `dro.dro_pipeline` alone at 100,000 values over 3 servers, fresh and
      from a pool, each output decrypted to a permutation of the clear
      list.
-  Last, the kernels' times, launch counts and bounds as one JSON line, the
-  card's name and power limit, and the contract line
-  {"ok": true, "device": {...}}.
+  10a. Run a grouped survey: frequency_count over [0, 15] on the
+     proofs-on row of simul/runfiles/scaling.toml:45-52 (5 DPs, 3 CNs, 3
+     VNs, ranges (4, 6)) at its largest records row (8,192 rows a DP), each
+     row in one of tests/test_groupby.py's 6 groups (96 values a DP, 8,640
+     digit proofs), through `LocalCluster.run_survey`, counted as above:
+     every group's histogram equal to its clear counts, an all-BM_TRUE
+     block, the same transcript from a second run. Print the wall times.
+  10b. Run phase 7's survey at cutting factor 4 (360 values a DP, 54,000
+     digit proofs), counted: the four replicas decrypt equal, the first
+     equal to the clear sums, the weights within 1e-3 of CPU GD, an
+     all-BM_TRUE block. Print the wall times.
+  11. Run four of phase 7's surveys (survey seeds 0-3) with
+     `execute_survey(hold_range=True)`, wait until every VN holds their
+     range payloads (`range_ready`), flush them with one
+     `VNGroup.flush_cross_survey`, and finalize each, counted: four
+     all-BM_TRUE blocks, every survey's decrypted statistics equal to the
+     clear sums and its weights within 1e-3 of CPU GD, one RLC check of
+     54,000 digit proofs in the flush. Then the four surveys' 40 range
+     payloads from a VN's store, re-signed and held again at that VN with
+     one Zv byte of DP 3's payload of the third survey changed, flushed as
+     one cross batch: BM_FALSE for that envelope only, every other BM_TRUE.
+     Print the flush's time beside the surveys' VerifyRange.
+  12. Run the stream of scripts/bench_stream.py's headline through
+     `service.streaming.StreamEngine` (2 CNs, 2 DPs, 2 VNs, frequency_count
+     over [0, 15], ranges (16, 4), 12,500-row panes, a window of 48):
+     fill the window, advance by 1 pane and by 2, each counted: the result
+     equal to the clear counts, the delta window's bytes equal to a
+     from-scratch fold of its panes, a 1-pane advance making and checking
+     one pane proof a DP and shipping only the CNs' aggregation proofs;
+     a from-scratch control on a cold stream id fed every row (the same
+     result, window bytes and decrypted values); an engine restarted on
+     the same stream id with the pane ProofDB (every blob reused, the
+     advance's bytes and transcript and every pane's transcript
+     reproduced); every block all BM_TRUE. Print the pane seal, advance
+     and scratch times and their ratio.
+  Phases 10-12 keep each kernel's largest call of each phase (KeptCalls,
+  all 14 kernels of the survey paths) and hold them, at the end, byte for
+  byte against the plain versions. Last, the kernels' times, launch counts
+  and bounds as one JSON line, the card's name and power limit, and the
+  contract line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --only 10a,10b,11,12
+
+builds the kernels and runs only the named phases of 10-12 (no JSON line).
 
 It imports nothing of JAX and nothing of the drynx_tpu package.
 """
@@ -200,7 +247,7 @@ TAMPER_DP = 3
 # joint range check as EXPECTED_LAUNCHES_VERIFY, the aggregation proof (a
 # reduce), the key-switch proofs (two fixed-base products, one ladder over
 # c U, zx K, c W and c Y, two adds, one normalization)
-N_VNS, CLUSTER_SEED, SURVEY_SEED, CLUSTER_RUNS = 3, 4, 0, 3
+N_VNS, CLUSTER_SEED, SURVEY_SEED = 3, 4, 0
 SIGNED_OFFSET_LAUNCHES = {"fixed_base_mul": 1, "point_add": 1}
 EXPECTED_LAUNCHES_CLUSTER = {"fixed_base_mul": 15, "scalar_mul": 7,
                              "point_reduce": 4, "point_add": 12, "fp_inv": 7,
@@ -235,8 +282,7 @@ CLUSTER_ROWS = {"point_reduce": {(10, 180): 2, (3, 90): 2},
 # ranges (2, 1), discrete-log table of +-25,000, obfuscation on,
 # thresholds 1.0: 5,000 range-proofed values (15,000 digit proofs) and 3
 # obfuscation proofs of 1,000 ciphertexts, 14 signed envelopes
-MAX_DPS, MAX_ROWS, MAX_QMAX, MAX_DLOG, MAX_DATA_SEED, MAX_RUNS = (
-    5, 64, 999, 25_000, 8, 3)
+MAX_DPS, MAX_ROWS, MAX_QMAX, MAX_DLOG, MAX_DATA_SEED = 5, 64, 999, 25_000, 8
 # its launches: phase 7's without the signed offset's correction (the
 # joint range check's folds again five passes, over 15,000 digit proofs),
 # and for each CN's obfuscation proof a ladder over s K, s C, w K, w C and
@@ -259,7 +305,7 @@ EXPECTED_LAUNCHES_MAX = {
 NOISE_DPS, NOISE_ROWS, NOISE_QMAX, NOISE_DLOG, NOISE_DATA_SEED = (
     5, 64, 15, 25_000, 9)
 NOISE_RANGES = (4, 6)
-NOISE_SIZE, NOISE_SCALE_SIZE, NOISE_RUNS = 10_000, 100_000, 3
+NOISE_SIZE, NOISE_SCALE_SIZE = 10_000, 100_000
 NOISE_DIFFP = {"lap_mean": 0.0, "lap_scale": 2.0, "quanta": 1.0,
                "scale": 1.0, "limit": 8.0}
 NOISE_POOL_SEED, NOISE_SCALE_SEED = 21, 22
@@ -284,6 +330,42 @@ DRO_LAUNCHES_CN = {"fixed_base_mul": 2, "scalar_mul": 2, "point_add": 2,
                    "point_reduce": 4, "fp_inv": 6}
 
 
+# the grouped survey: the proofs-on row of simul/runfiles/scaling.toml:45-52
+# (5 DPs, 3 CNs, 3 VNs, ranges (4, 6)) with the largest records row of
+# :74-78 (8,192 rows a DP, drawn as simul/runner.py:130 draws them, seed 9),
+# frequency_count over [0, 15], each row's group drawn uniformly from
+# tests/test_groupby.py:17's GROUP_BY (6 groups): V = 96 a DP, 8,640 digit
+# proofs; dlog +-25,000, LocalCluster seed 4, survey seed 0
+GROUP_BY = [[0, 1], [10, 20, 30]]
+GROUP_ROWS = 8192
+# the cut survey: phase 7's at cutting factor 4 (V = 360 a DP, 54,000 digit
+# proofs); the held batch: four of phase 7's surveys, survey seeds 0-3
+# (SurveyServer's default max_batch, drynx_tpu/server/scheduler.py:130), one
+# DP's payload of the third with one Zv byte changed in the second batch
+CUT, HELD = 4, 4
+# the stream: the headline of scripts/bench_stream.py:241-258, 2 CNs, 2 DPs,
+# 2 VNs, LocalCluster seed 7, dlog +-90,000, frequency_count over [0, 15],
+# ranges (16, 4), 12,500-row panes, a window of 48 (600,000 rows a DP), rows
+# from default_rng(3), engine seed 21; filled, then advanced by 1 pane and
+# by 2 (51 panes)
+STREAM = dict(n_cns=2, n_dps=2, n_vns=2, seed=7, dlog=90_000, V=16,
+              ranges=(16, 4), pw=12_500, w=48, data_seed=3, engine_seed=21)
+# an advance's survey tail: the VNs' check of the CNs' aggregation proof (a
+# reduce over the window's folds), the key switch (two fixed-base products,
+# a ladder, an add, two reduces over the 2 CNs, the finish's add) and
+# decryption (a ladder, an add, a normalization)
+ADVANCE_AGG = {"point_reduce": 1}
+ADVANCE_TAIL = {"fixed_base_mul": 2, "scalar_mul": 2, "point_add": 3,
+                "point_reduce": 2, "fp_inv": 1}
+# a pane's seal: encryption (three fixed-base products, an add) and the fold
+# of the DPs' ciphertexts (a reduce, a normalization); its range proofs:
+# phase 5's creation without the encryption
+PANE_SEAL = {"fixed_base_mul": 3, "point_add": 1, "point_reduce": 1,
+             "fp_inv": 1}
+PANE_PROOF = {"fixed_base_mul": 2, "point_add": 1, "fp_inv": 2, "f2_inv": 1,
+              "g2_scalar_mul": 1, "f12_mul": 1, "f12_mulreduce8": 4}
+
+
 def fold_passes(n):
     """ceil(log8(n)), at least 1: the 8-way product's passes over n."""
     passes = 1
@@ -292,19 +374,59 @@ def fold_passes(n):
     return passes
 
 
+def verify_launches(digit_proofs):
+    """One RLC check (the joint check's kernels) over `digit_proofs` digit
+    proofs: gtB^S's two passes and the two folds' passes."""
+    want = dict(EXPECTED_LAUNCHES_VERIFY)
+    want["f12_mulreduce8"] = 2 + 2 * fold_passes(digit_proofs)
+    return want
+
+
+def add_launches(want, launches, times=1):
+    for k, v in launches.items():
+        want[k] = want.get(k, 0) + v * times
+    return want
+
+
+def survey_launches(digit_proofs, signed_offset):
+    """A proofs-on cluster survey's launches (phase 7's) with a joint range
+    check of `digit_proofs`; without the signed offset's correction for an
+    op other than log_reg."""
+    want = {k: v - (0 if signed_offset else SIGNED_OFFSET_LAUNCHES.get(k, 0))
+            for k, v in EXPECTED_LAUNCHES_CLUSTER.items()}
+    # phase 7's 13,500 digit proofs fold in five passes
+    return add_launches(want, {"f12_mulreduce8": 2 * (
+        fold_passes(digit_proofs) - 5)})
+
+
+def stream_launches(sealed, proved, verified, payload_proofs, delta,
+                    agg_checked=True):
+    """A stream advance's launches: `sealed` panes sealed, `proved` of them
+    range-proved, `verified` pane payloads of `payload_proofs` digit proofs
+    checked by the VNs, then the window fold (`delta` adds and a
+    normalization, or a from-scratch fold for None: a reduce and a
+    normalization) and the survey tail (the aggregation check unless the
+    VNs' cache holds its verdict)."""
+    want = dict.fromkeys(EXPECTED_LAUNCHES_CLUSTER, 0)
+    add_launches(want, PANE_SEAL, sealed)
+    add_launches(want, PANE_PROOF, proved)
+    add_launches(want, verify_launches(payload_proofs), verified)
+    add_launches(want, {"point_reduce": 1, "fp_inv": 1} if delta is None
+                 else {"point_add": delta, "fp_inv": 1})
+    add_launches(want, ADVANCE_TAIL)
+    return add_launches(want, ADVANCE_AGG if agg_checked else {})
+
+
 def noised_sum_launches(n_cns, n_slabs, digit_proofs, fresh):
     """The noised sum's launches for n_cns CNs, n_slabs noise slabs and a
     joint range check of digit_proofs digit proofs; `fresh`: every CN's
     zero-encryptions computed in the survey."""
-    want = {k: v - SIGNED_OFFSET_LAUNCHES.get(k, 0)
-            for k, v in EXPECTED_LAUNCHES_CLUSTER.items()}
-    want["f12_mulreduce8"] -= 2 * (5 - fold_passes(digit_proofs))
-    per = [(DRO_LAUNCHES, 1), (DRO_LAUNCHES_CN, n_cns),
-           (DRO_LAUNCHES_SLAB, n_cns * n_slabs),
-           (DRO_LAUNCHES_FRESH_SLAB, n_cns * n_slabs if fresh else 0)]
-    for launches, times in per:
-        for k, v in launches.items():
-            want[k] += v * times
+    want = survey_launches(digit_proofs, signed_offset=False)
+    for launches, times in ((DRO_LAUNCHES, 1), (DRO_LAUNCHES_CN, n_cns),
+                            (DRO_LAUNCHES_SLAB, n_cns * n_slabs),
+                            (DRO_LAUNCHES_FRESH_SLAB,
+                             n_cns * n_slabs if fresh else 0)):
+        add_launches(want, launches, times)
     return want
 
 
@@ -688,6 +810,21 @@ def fp_inv_edge_inputs(F, params, device):
     return F.from_int(vals).to(device)
 
 
+def prefixes(plain_max):
+    """One plain run at the largest N of a kernel's partly filled blocks,
+    shared: `at(n)` gives a plain call that returns that run's first n rows
+    (the kernels are row-wise, so row i does not depend on N)."""
+    box = {}
+
+    def at(n):
+        def call():
+            if "out" not in box:
+                box["out"] = plain_max()
+            return box["out"][:n]
+        return call
+    return at
+
+
 def cuda_ms(fn, reps):
     """Mean device time of fn() over reps runs, after one warm-up."""
     fn()
@@ -793,27 +930,20 @@ class HostTimer:
 
 def phase7(stats, X, y, params, zero_launches, launch_counts):
     """The proofs-on survey of bench.py:_proofs_on_cluster through the
-    port's LocalCluster on the card. Returns (launches, warm wall times)."""
+    port's LocalCluster on the card. Returns (launches, [the warm wall
+    time], the warm run's VerifyRange)."""
     import pickle
 
-    from drynx_tpu_torch.models import logreg as lr
-    from drynx_tpu_torch.proofs import requests as rq
     from drynx_tpu_torch.proofs import schnorr
     from drynx_tpu_torch.proofs.safe_pickle import safe_loads
     from drynx_tpu_torch.server.transcript import transcript_digest
-    from drynx_tpu_torch.service.service import LocalCluster
     from drynx_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    cluster = LocalCluster(n_cns=N_SERVERS, n_dps=NUM_DPS, n_vns=N_VNS,
-                           seed=CLUSTER_SEED, dlog_limit=DLOG_LIMIT)
-    for i, dp in enumerate(cluster.dps.values()):
-        dp.data = lr.shard_for_dp(X, y, i, NUM_DPS)
+    cluster = cluster_pima(X, y)
     V = stats.shape[1]
     sq = cluster.generate_survey_query("log_reg", proofs=1, lr_params=params,
                                        ranges=[(U, L)] * V, thresholds=1.0)
-    cluster.ensure_range_sigs(U)
-    torch.cuda.synchronize()
     print(f"phase 7 setup: cluster keys, tables and {N_SERVERS} signature "
           f"sets of u={U} {time.perf_counter() - t0:.1f} s", flush=True)
     sign = HostTimer(schnorr, "sign")
@@ -831,13 +961,8 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
         res = cluster.run_survey(sq, seed=SURVEY_SEED)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if res.block is None:
-            raise SystemExit("no audit block committed")
-        bitmap = res.block.data.bitmap
-        if (len(bitmap) != N_VNS * (NUM_DPS + 2 * N_SERVERS)
-                or set(bitmap.values()) != {rq.BM_TRUE}):
-            raise SystemExit(f"audit block bitmap: {len(bitmap)} entries, "
-                             f"codes {sorted(set(bitmap.values()))}")
+        check_block(res.block, N_VNS * (NUM_DPS + 2 * N_SERVERS),
+                    "cluster survey")
         dec = torch.from_numpy(res.decrypted.values)
         if not res.decrypted.found.all() or not torch.equal(dec, clear):
             raise SystemExit("decrypted values differ from the clear sums")
@@ -860,13 +985,7 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
         if rows7.get(name) != want:
             raise SystemExit(f"cluster survey {name} shapes {rows7.get(name)}"
                              f" differ from {want}, phase 2's")
-    w = torch.from_numpy(res.result)
-    w_cpu = lr.train(lr.unpack(torch.from_numpy(res.decrypted.values),
-                               params), params)
-    w_err = float((w - w_cpu).abs().max())
-    w_tol = 1e-3 * max(1.0, float(w_cpu.abs().max()))
-    if w.shape != (D + 1,) or not bool(torch.isfinite(w).all()) or w_err > w_tol:
-        raise SystemExit(f"cluster weights differ from CPU GD: {w_err}")
+    w_err, w_tol = lr_weights_ok(res, params, "cluster survey")
     digest = transcript_digest(cluster.vns, sid)
     print(f"  audit block #{res.block.index}: {len(res.block.data.bitmap)} "
           f"entries, all BM_TRUE; all {V} values exact and found; weights "
@@ -875,18 +994,12 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
           f"{sign.cpu:.3f} s CPU, {check.calls} checks {check.cpu:.3f} s "
           f"CPU", flush=True)
 
-    walls, splits, host = [], [], []
-    for i in range(1 + CLUSTER_RUNS):
-        wall, res = run()
-        if i == 0:
-            again = transcript_digest(cluster.vns, sid)
-            if again != digest:
-                raise SystemExit("a second run with the same seed gives "
-                                 f"transcript {again}, not {digest}")
-            continue
-        walls.append(wall)
-        splits.append(dict(res.timers.items()))
-        host.append((sign.cpu, check.cpu, sign.seconds + check.seconds))
+    # the warm run: the same seed, the same transcript
+    wall, res = run()
+    again = transcript_digest(cluster.vns, sid)
+    if again != digest:
+        raise SystemExit("a second run with the same seed gives "
+                         f"transcript {again}, not {digest}")
 
     # a key-switch payload from a VN's store, and a copy with one zx limb
     # changed, through the VN's own verifier
@@ -899,30 +1012,24 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
     if ok is not True or bad is not False:
         raise SystemExit(f"key-switch verifier: honest {ok}, tampered {bad}")
 
-    med = statistics.median(walls)
-    split = {k: statistics.median(s.get(k, 0.0) for s in splits)
-             for k in sorted({k for s in splits for k in s})}
-    sign_s, check_s, wall_s = (statistics.median(h[j] for h in host)
-                               for j in (0, 1, 2))
+    sign_s, check_s = sign.cpu, check.cpu
     print(f"  the same transcript from a second run; key-switch payload "
           f"accepted, with one zx limb changed rejected", flush=True)
-    print(f"phase 7: cluster survey wall time median {med:.4f} s over "
-          f"{CLUSTER_RUNS} warm runs after a warm-up (all: "
-          f"{[round(x, 4) for x in walls]}); phase timers, median: "
-          + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
-          + f"; Schnorr, median CPU time: {sign.calls} signs {sign_s:.4f} s "
+    print(f"phase 7: cluster survey wall time {wall:.4f} s warm (the second "
+          f"run); phase timers: " + phase_timers([res])
+          + f"; Schnorr CPU time: {sign.calls} signs {sign_s:.4f} s "
           f"+ {check.calls} checks {check_s:.4f} s = {sign_s + check_s:.4f} s"
-          f" ({100 * (sign_s + check_s) / med:.1f} % of the wall time; "
-          f"{wall_s:.4f} s of call wall time summed over threads); peak "
-          f"device memory "
+          f" ({100 * (sign_s + check_s) / wall:.1f} % of the wall time; "
+          f"{sign.seconds + check.seconds:.4f} s of call wall time summed "
+          f"over threads); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     cluster.close()
-    return launches7, walls
+    return launches7, [wall], dict(res.timers.items()).get("VerifyRange")
 
 
 def phase8(zero_launches, launch_counts):
     """The obfuscated max of minmax.toml through the port's LocalCluster
-    on the card. Returns (launches, warm wall times)."""
+    on the card. Returns (launches, [the warm wall time])."""
     import pickle
 
     from drynx_tpu_torch.crypto import params
@@ -970,14 +1077,8 @@ def phase8(zero_launches, launch_counts):
         res = cluster.run_survey(q, seed=SURVEY_SEED)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        want = N_VNS * sum(query_to_proofs_nbrs(q))
-        if res.block is None:
-            raise SystemExit("no audit block committed")
-        bitmap = res.block.data.bitmap
-        if len(bitmap) != want or set(bitmap.values()) != {rq.BM_TRUE}:
-            raise SystemExit(f"audit block bitmap: {len(bitmap)} entries "
-                             f"(want {want}), codes "
-                             f"{sorted(set(bitmap.values()))}")
+        check_block(res.block, N_VNS * sum(query_to_proofs_nbrs(q)),
+                    "obfuscated max")
         if res.result != clear:
             raise SystemExit(f"decoded max {res.result}, clear max {clear}")
         return wall, res
@@ -1000,14 +1101,10 @@ def phase8(zero_launches, launch_counts):
         if res_plain.result != res.result:
             raise SystemExit(f"without obfuscation the max is "
                              f"{res_plain.result}, with it {res.result}")
-        walls, splits, host = [], [], []
-        for _ in range(MAX_RUNS):
-            wall, res = run(sq)
-            walls.append(wall)
-            splits.append(dict(res.timers.items()))
-            host.append((sign.cpu, check.cpu))
+        wall, res = run(sq)
         envelopes = list(sent)
         n_signs, n_checks = sign.calls, check.calls
+        sign_s, check_s = sign.cpu, check.cpu
     finally:
         rq.new_proof_request = new_request
     n_entries = len(res.block.data.bitmap)
@@ -1067,94 +1164,142 @@ def phase8(zero_launches, launch_counts):
           f"{len(envelopes)} envelopes and 9 forgeries ({batch_s:.3f} s)",
           flush=True)
 
-    med = statistics.median(walls)
-    split = {k: statistics.median(s.get(k, 0.0) for s in splits)
-             for k in sorted({k for s in splits for k in s})}
-    sign_s, check_s = (statistics.median(h[j] for h in host) for j in (0, 1))
-    print(f"phase 8: obfuscated max survey wall time median {med:.4f} s "
-          f"over {MAX_RUNS} warm runs (all: {[round(x, 4) for x in walls]});"
-          f" phase timers, median: "
-          + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
-          + f"; Schnorr, median CPU time: {n_signs} signs {sign_s:.4f} s + "
+    print(f"phase 8: obfuscated max survey wall time {wall:.4f} s warm (the "
+          f"third run); phase timers: " + phase_timers([res])
+          + f"; Schnorr CPU time: {n_signs} signs {sign_s:.4f} s + "
           f"{n_checks} checks {check_s:.4f} s = {sign_s + check_s:.4f} s "
-          f"({100 * (sign_s + check_s) / med:.1f} % of the wall time)",
+          f"({100 * (sign_s + check_s) / wall:.1f} % of the wall time)",
           flush=True)
     cluster.close()
-    return launches8, walls
+    return launches8, [wall]
 
 
 class KeptCalls:
-    """The G1 kernels at the sizes a run gives them. Inside `with`, each
-    wrapper of KEPT_WRAPPERS keeps its largest call (the reduce: its first
-    call of each shape), inputs and output; `hold()` then holds each byte
-    for byte against its plain version on them: the reduce whole, a
-    row-wise kernel on its first and last KEPT_EDGE rows (the last holding
-    its final partly filled block). Keeping launches nothing."""
+    """The kernels at the sizes a run gives them. Inside `with`, each
+    wrapper of `wrappers` keeps, under the current `tag`, its largest call
+    with each set of its other non-tensor arguments (the slot map, the
+    power's bits, the ladder's windows; the reduce: its first call of each
+    shape): a row-wise kernel its first
+    and last KEPT_EDGE rows (the last holding its final partly filled
+    block) of every argument indexed by row, its other arguments and those
+    rows of its output; the reduce the whole call. `hold()` then holds them
+    byte for byte against the plain versions on the card: the reduce one
+    call a shape, a row-wise kernel the kept rows of every tag in one plain
+    call for each set of its other arguments (row i of a row-wise kernel
+    does not depend on the others). Keeping launches nothing."""
 
     # (module, wrapper, the positional arguments indexed by row; None: the
     # reduce, whose output rows sum its input's)
-    WRAPPERS = [("cuda_ops", "fixed_base_mul_flat", (1,)),
-                ("cuda_ops", "scalar_mul_flat", (0, 1)),
-                ("cuda_ops", "point_add_flat", (0, 1)),
-                ("cuda_ops", "point_reduce_flat", None),
-                ("cuda_pairing", "fp_inv_flat", (0,))]
+    G1 = [("cuda_ops", "fixed_base_mul_flat", (1,)),
+          ("cuda_ops", "scalar_mul_flat", (0, 1)),
+          ("cuda_ops", "point_add_flat", (0, 1)),
+          ("cuda_ops", "point_reduce_flat", None),
+          ("cuda_pairing", "fp_inv_flat", (0,))]
+    PAIRING = [("cuda_pairing", "f2_inv_flat", (0,)),
+               ("cuda_pairing", "g2_scalar_mul_flat", (0, 1)),
+               ("cuda_pairing", "f12_mul_flat", (0, 1)),
+               ("cuda_pairing", "f12_mulreduce8_flat", (0,)),
+               ("cuda_pairing", "miller_flat", (0, 1, 2, 3)),
+               ("cuda_pairing", "f12_inv_flat", (0,)),
+               ("cuda_pairing", "f12_csqr_flat", (0,)),
+               ("cuda_pairing", "f12_slotmul_flat", (0,)),
+               ("cuda_pairing", "f12_wpow_flat", (0, 1))]
 
-    def __init__(self):
+    def __init__(self, wrappers=G1):
         import importlib
 
+        self.wrappers = list(wrappers)
         self.mods = {m: importlib.import_module(f"drynx_tpu_torch.crypto.{m}")
-                     for m, _, _ in self.WRAPPERS}
-        self.kept, self.lock = {}, threading.Lock()
+                     for m, _, _ in self.wrappers}
+        self.kept, self.lock, self.tag = {}, threading.Lock(), ""
 
     def _keeper(self, orig, name, row_args):
         def call(*a, **k):
             out = orig(*a, **k)
-            key = name if row_args is not None else (name, a[0].shape[:2])
             with self.lock:
+                if row_args is None:
+                    key = (name, self.tag, tuple(a[0].shape[:2]))
+                    if key not in self.kept:
+                        self.kept[key] = ([t.clone() for t in a], dict(k),
+                                          out.clone(), None)
+                    return out
+                params = tuple(x for i, x in enumerate(a)
+                               if i not in row_args and not torch.is_tensor(x))
+                params += tuple(sorted(k.items()))
+                key, n = (name, self.tag, params), len(out)
                 have = self.kept.get(key)
-                if have is None or (row_args is not None
-                                    and len(out) > len(have[2])):
-                    self.kept[key] = ([t.clone() if torch.is_tensor(t) else t
-                                       for t in a], dict(k), out.clone())
+                if have is None or n > have[3]:
+                    idx = torch.cat([
+                        torch.arange(min(n, KEPT_EDGE)),
+                        torch.arange(max(min(n, KEPT_EDGE), n - KEPT_EDGE),
+                                     n)]).to(
+                        out.device)
+                    self.kept[key] = (
+                        [t[idx].clone() if i in row_args else t
+                         for i, t in enumerate(a)], dict(k), out[idx].clone(),
+                        n)
             return out
         return call
 
     def __enter__(self):
         self.originals = {}
-        for m, name, row_args in self.WRAPPERS:
+        for m, name, row_args in self.wrappers:
             orig = self.originals[name] = getattr(self.mods[m], name)
             setattr(self.mods[m], name, self._keeper(orig, name, row_args))
         return self
 
     def __exit__(self, *exc):
-        for m, name, _ in self.WRAPPERS:
+        for m, name, _ in self.wrappers:
             setattr(self.mods[m], name, self.originals[name])
 
+    @staticmethod
+    def _same(x, y):
+        if torch.is_tensor(x) or torch.is_tensor(y):
+            return (torch.is_tensor(x) and torch.is_tensor(y)
+                    and x.shape == y.shape and torch.equal(x, y))
+        return x == y
+
     def hold(self):
-        """{kernel: [rows, or (R, N) for the reduce]} of the calls held;
-        raises SystemExit on a difference or a wrapper never called."""
-        held = {}
-        for key, (a, k, out) in sorted(self.kept.items(), key=str):
-            name = key if isinstance(key, str) else key[0]
-            m, _, row_args = next(w for w in self.WRAPPERS if w[1] == name)
+        """{kernel: [(tag, rows or (R, N) for the reduce[, the other
+        arguments])]} of the calls held; raises SystemExit on a difference
+        or a wrapper never called."""
+        held, groups = {}, {}
+        for key, (a, k, out, n) in sorted(self.kept.items(), key=str):
+            name, tag = key[0], key[1]
+            m, _, row_args = next(w for w in self.wrappers if w[1] == name)
             plain = getattr(self.mods[m], name.replace("_flat", "_plain"))
-            n = len(out)
             if row_args is None:
-                got, want = out, plain(*a, **k)
-                label = tuple(a[0].shape[:2])
+                if not torch.equal(out, plain(*a, **k)):
+                    raise SystemExit(f"{name} at {key[2]} ({tag}) differs "
+                                     f"from its plain version")
+                held.setdefault(name[:-5], []).append((tag, key[2]))
+                continue
+            label = (tag, n) + ((key[2],) if key[2] else ())
+            # one plain call for every kept call with the same other
+            # arguments
+            same = groups.setdefault(name, [])
+            for g in same:
+                ga, gk = g[0][0], g[0][1]
+                if gk == k and all(i in row_args or self._same(x, ga[i])
+                                   for i, x in enumerate(a)):
+                    g.append((a, k, out, label))
+                    break
             else:
-                idx = torch.cat([torch.arange(min(n, KEPT_EDGE)),
-                                 torch.arange(max(KEPT_EDGE, n - KEPT_EDGE),
-                                              n)]).to(out.device)
-                got = out[idx]
-                want = plain(*[t[idx] if i in row_args else t
-                               for i, t in enumerate(a)], **k)
-                label = n
-            if got.shape != want.shape or not torch.equal(got, want):
-                raise SystemExit(f"{name} at {label} rows differs from its "
-                                 f"plain version")
-            held.setdefault(name.replace("_flat", ""), []).append(label)
-        names = {n.replace("_flat", "") for _, n, _ in self.WRAPPERS}
+                same.append([(a, k, out, label)])
+        for name, gs in groups.items():
+            m, _, row_args = next(w for w in self.wrappers if w[1] == name)
+            plain = getattr(self.mods[m], name.replace("_flat", "_plain"))
+            for g in gs:
+                a0, k0 = g[0][0], g[0][1]
+                args = [torch.cat([e[0][i] for e in g]) if i in row_args
+                        else x for i, x in enumerate(a0)]
+                got = torch.cat([e[2] for e in g])
+                want = plain(*args, **k0)
+                if got.shape != want.shape or not torch.equal(got, want):
+                    raise SystemExit(f"{name} at {[e[3] for e in g]} differs "
+                                     f"from its plain version")
+                held.setdefault(name[:-5], []).extend(e[3] for e in g)
+        names = {n[:-5] for _, n, _ in self.wrappers}
         if set(held) != names:
             raise SystemExit(f"no call of {sorted(names - set(held))} kept")
         return held
@@ -1162,8 +1307,8 @@ class KeptCalls:
 
 def phase9(zero_launches, launch_counts):
     """The noised sum through the port's LocalCluster on the card, then
-    the DRO pipeline alone at 100,000 values. Returns (launches, warm wall
-    times)."""
+    the DRO pipeline alone at 100,000 values. Returns (launches, [the warm
+    wall time])."""
     import glob
     import os
     import pickle
@@ -1243,14 +1388,10 @@ def phase9(zero_launches, launch_counts):
         launches = launch_counts()
         rows = {k: dict(sorted(v.items()))
                 for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
-        bitmap = res.block.data.bitmap if res.block is not None else {}
-        n_shuffle = sum("/shuffle/" in k for k in bitmap)
-        if (len(bitmap) != NOISE_BITMAP_ENTRIES
-                or set(bitmap.values()) != {rq.BM_TRUE}
-                or n_shuffle != N_VNS * N_SERVERS):
-            raise SystemExit(f"audit block bitmap: {len(bitmap)} entries "
-                             f"(want {NOISE_BITMAP_ENTRIES}), {n_shuffle} "
-                             f"shuffle, codes {sorted(set(bitmap.values()))}")
+        check_block(res.block, NOISE_BITMAP_ENTRIES, "noised sum")
+        n_shuffle = sum("/shuffle/" in k for k in res.block.data.bitmap)
+        if n_shuffle != N_VNS * N_SERVERS:
+            raise SystemExit(f"audit block: {n_shuffle} shuffle entries")
         vals, found = eg.decrypt_ints(last["out"], coll_x, c.dlog)
         vals = vals.cpu().numpy().astype(np.int64)
         if not bool(found.all()) or not np.array_equal(np.sort(vals),
@@ -1264,29 +1405,18 @@ def phase9(zero_launches, launch_counts):
                  **{k: t.cpu for k, t in host.items()}}
         return wall, res, launches, rows, int(vals[0]), stamp
 
-    def medians(results):
-        walls = [r[0] for r in results]
-        timers = [dict(r[1].timers.items()) for r in results]
-        split = {k: statistics.median(t.get(k, 0.0) for t in timers)
-                 for k in sorted({k for t in timers for k in t})}
-        cpu = {k: statistics.median(r[5][k] for r in results)
-               for k in results[0][5]}
-        return statistics.median(walls), walls, split, cpu
-
-    def report(tag, first, results):
-        med, walls, split, cpu = medians(results)
-        print(f"phase 9{tag}: first run {first:.3f} s; wall time median "
-              f"{med:.4f} s over {len(walls)} warm runs (all: "
-              f"{[round(x, 4) for x in walls]}); phase timers, median: "
-              + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
-              + f"; CPU time, median: Schnorr {sign.calls} signs "
+    def report(tag, first, warm):
+        wall, res, cpu = warm[0], warm[1], warm[5]
+        print(f"phase 9{tag}: first run {first:.3f} s; a warm run "
+              f"{wall:.4f} s; phase timers: " + phase_timers([res])
+              + f"; CPU time: Schnorr {sign.calls} signs "
               f"{cpu['sign']:.4f} s + {check.calls} checks "
-              f"{cpu['check']:.4f} s ({100 * (cpu['sign'] + cpu['check']) / med:.1f}"
+              f"{cpu['check']:.4f} s ({100 * (cpu['sign'] + cpu['check']) / wall:.1f}"
               f" % of the wall time); shuffle proofs' host work: ILMPP "
               f"responses {cpu['_ilmpp_responses']:.4f} s, sha3 digests "
               f"{cpu['_digest_scalars']:.4f} s, the sum for s "
               f"{cpu['_relation_secret']:.4f} s", flush=True)
-        return walls
+        return [wall]
 
     dro.shuffle_rerandomize = recorded
     try:
@@ -1324,8 +1454,7 @@ def phase9(zero_launches, launch_counts):
               f"{res.result} = clear {clear} + noise {n0}; the same "
               f"transcript {digest[:16]} from a second run "
               f"({again[0]:.3f} s)", flush=True)
-        walls9 = report("a", first, [run(cluster, sq)
-                                     for _ in range(NOISE_RUNS)])
+        walls9 = report("a", first, run(cluster, sq))
 
         # a shuffle proof with one z changed, through a VN's receive path
         vn, other = cluster.vns.vns[1], cluster.vns.vns[0]
@@ -1406,8 +1535,7 @@ def phase9(zero_launches, launch_counts):
         # (b) after prewarm_dro: the phase only permutes and adds
         with tempfile.TemporaryDirectory(prefix="drynx_precomp_") as d:
             t0 = time.perf_counter()
-            cluster.prewarm_dro(NOISE_SIZE, n_surveys=1 + NOISE_RUNS,
-                                cache_dir=d)
+            cluster.prewarm_dro(NOISE_SIZE, n_surveys=2, cache_dir=d)
             torch.cuda.synchronize()
             prewarm_s = time.perf_counter() - t0
             calls = dro.PRECOMPUTE_CALLS
@@ -1415,16 +1543,16 @@ def phase9(zero_launches, launch_counts):
             if launches_b != want[False]:
                 raise SystemExit(f"prewarmed noised sum launches "
                                  f"{launches_b} differ from {want[False]}")
-            results_b = [run(cluster, sq) for _ in range(NOISE_RUNS)]
+            warm_b = run(cluster, sq)
             left = glob.glob(os.path.join(d, "precomp_*.npz"))
             if dro.PRECOMPUTE_CALLS != calls or left:
                 extra = dro.PRECOMPUTE_CALLS - calls
                 raise SystemExit(f"after prewarm_dro: {extra} fresh "
                                  f"precomputations, {len(left)} files left")
-        print(f"phase 9b: prewarm_dro({NOISE_SIZE}, {1 + NOISE_RUNS} "
-              f"surveys) {prewarm_s:.3f} s; no fresh precomputation, every "
+        print(f"phase 9b: prewarm_dro({NOISE_SIZE}, 2 surveys) "
+              f"{prewarm_s:.3f} s; no fresh precomputation, every "
               f"precompute file deleted", flush=True)
-        report("b", first_b, results_b)
+        report("b", first_b, warm_b)
         cluster.close()
 
         # (c) once through a CryptoPool filled by replenish.refill_to
@@ -1496,10 +1624,546 @@ def phase9(zero_launches, launch_counts):
     return launches9, walls9
 
 
+def check_block(block, want_entries, what):
+    """An audit block of `want_entries` entries, every one BM_TRUE."""
+    from drynx_tpu_torch.proofs import requests as rq
+
+    bitmap = block.data.bitmap if block is not None else {}
+    if len(bitmap) != want_entries or set(bitmap.values()) != {rq.BM_TRUE}:
+        raise SystemExit(f"{what}: audit block of {len(bitmap)} entries "
+                         f"(want {want_entries}), codes "
+                         f"{sorted(set(bitmap.values()))}")
+
+
+def phase_timers(results):
+    """The phase timers of survey results (each timer's median over them),
+    as one line."""
+    split = {k: statistics.median(dict(r.timers.items()).get(k, 0.0)
+                                  for r in results)
+             for k in sorted({k for r in results for k, _ in r.timers.items()})}
+    return ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+
+
+def lr_weights_ok(res, params, what):
+    """The survey's weights against GD on the CPU from its decrypted
+    values, within 1e-3 (relative to the largest weight, at least 1).
+    Returns (the max abs error, the tolerance)."""
+    from drynx_tpu_torch.models import logreg as lr
+
+    w = torch.from_numpy(res.result)
+    w_cpu = lr.train(lr.unpack(torch.from_numpy(res.decrypted.values),
+                               params), params)
+    err = float((w - w_cpu).abs().max())
+    tol = 1e-3 * max(1.0, float(w_cpu.abs().max()))
+    if w.shape != (D + 1,) or not bool(torch.isfinite(w).all()) or err > tol:
+        raise SystemExit(f"{what}: weights differ from CPU GD: {err}")
+    return err, tol
+
+
+def phase10a(zero_launches, launch_counts, kept):
+    """The grouped survey through the port's LocalCluster on the card.
+    Returns (launches, wall times)."""
+    from drynx_tpu_torch.encoding import stats as st
+    from drynx_tpu_torch.server.transcript import transcript_digest
+    from drynx_tpu_torch.service.service import LocalCluster
+    from drynx_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    cluster = LocalCluster(n_cns=N_SERVERS, n_dps=NOISE_DPS, n_vns=N_VNS,
+                           seed=CLUSTER_SEED, dlog_limit=NOISE_DLOG)
+    rng = np.random.default_rng(NOISE_DATA_SEED)
+    data, groups = [], []
+    for dp in cluster.dps.values():
+        dp.data = rng.integers(0, NOISE_QMAX, size=GROUP_ROWS)
+        dp.groups = np.stack([rng.choice(np.asarray(v), size=GROUP_ROWS)
+                              for v in GROUP_BY], axis=-1)
+        data.append(dp.data)
+        groups.append(dp.groups)
+    data, groups = np.concatenate(data), np.concatenate(groups)
+    n_groups = len(GROUP_BY[0]) * len(GROUP_BY[1])
+    Vg = NOISE_QMAX + 1
+    sq = cluster.generate_survey_query(
+        "frequency_count", query_min=0, query_max=NOISE_QMAX, proofs=1,
+        ranges=[NOISE_RANGES] * Vg, group_by=GROUP_BY, thresholds=1.0)
+    cluster.ensure_range_sigs(NOISE_RANGES[0])
+    torch.cuda.synchronize()
+    digit_proofs = NOISE_DPS * n_groups * Vg * NOISE_RANGES[1] * N_SERVERS
+    print(f"phase 10a setup: cluster, {n_groups} groups x {Vg} values a DP, "
+          f"{digit_proofs} digit proofs, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    clear = {}
+    for g in st.group_grid(GROUP_BY):
+        sub = data[np.all(groups == g[None], axis=-1)]
+        clear[tuple(int(t) for t in g)] = {v: int((sub == v).sum())
+                                           for v in range(Vg)}
+
+    def run():
+        for vn in cluster.vns.vns:
+            vn.verify_cache.clear()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cluster.run_survey(sq, seed=SURVEY_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        check_block(res.block, N_VNS * (NOISE_DPS + 2 * N_SERVERS),
+                    "grouped survey")
+        if res.result != clear:
+            raise SystemExit("a group's histogram differs from its clear "
+                             "counts")
+        return wall, res, launches
+
+    kept.tag = "10a"
+    with kept:
+        first, res, launches = run()
+    rows = {k: dict(sorted(v.items()))
+            for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
+    want = survey_launches(digit_proofs, signed_offset=False)
+    print(f"phase 10a: first grouped survey {first:.3f} s; launches "
+          f"{launches}", flush=True)
+    print(f"phase 10a: launch shapes, {{kernel: {{rows: launches}}}}: {rows}",
+          flush=True)
+    if launches != want:
+        raise SystemExit(f"grouped survey launches {launches} differ from "
+                         f"{want}")
+    digest = transcript_digest(cluster.vns, sq.survey_id)
+    warm, res2, _ = run()
+    if transcript_digest(cluster.vns, sq.survey_id) != digest:
+        raise SystemExit("a second grouped survey with the same seed gives "
+                         "another transcript")
+    print(f"  every group's histogram equals its clear counts; audit block "
+          f"of {len(res.block.data.bitmap)} entries, all BM_TRUE; the same "
+          f"transcript {digest[:16]} from a second run", flush=True)
+    print(f"phase 10a: grouped survey wall time {first:.4f} s cold, "
+          f"{warm:.4f} s warm; phase timers (warm): "
+          + phase_timers([res2]), flush=True)
+    cluster.close()
+    return launches, [first, warm]
+
+
+def cluster_pima(X, y):
+    """Phase 7's cluster with its DPs' Pima shards."""
+    from drynx_tpu_torch.models import logreg as lr
+    from drynx_tpu_torch.service.service import LocalCluster
+
+    cluster = LocalCluster(n_cns=N_SERVERS, n_dps=NUM_DPS, n_vns=N_VNS,
+                           seed=CLUSTER_SEED, dlog_limit=DLOG_LIMIT)
+    for i, dp in enumerate(cluster.dps.values()):
+        dp.data = lr.shard_for_dp(X, y, i, NUM_DPS)
+    cluster.ensure_range_sigs(U)
+    torch.cuda.synchronize()
+    return cluster
+
+
+def phase10b(cluster, stats, params, zero_launches, launch_counts, kept):
+    """Phase 7's survey at cutting factor 4 on `cluster` (phase 7's
+    configuration). Returns (launches, walls)."""
+    from drynx_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    V = stats.shape[1]
+    sq = cluster.generate_survey_query(
+        "log_reg", proofs=1, lr_params=params, ranges=[(U, L)] * (CUT * V),
+        thresholds=1.0, cutting_factor=CUT)
+    digit_proofs = NUM_DPS * CUT * V * L * N_SERVERS
+    print(f"phase 10b setup: V = {CUT * V} a DP, {digit_proofs} digit "
+          f"proofs, {time.perf_counter() - t0:.1f} s", flush=True)
+    clear = stats.sum(0).cpu().numpy()
+    full = []
+    decrypt = cluster._decrypt
+    cluster._decrypt = lambda sw: full.append(decrypt(sw)) or full[-1]
+
+    def run():
+        for vn in cluster.vns.vns:
+            vn.verify_cache.clear()
+        full.clear()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cluster.run_survey(sq, seed=SURVEY_SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        check_block(res.block, N_VNS * (NUM_DPS + 2 * N_SERVERS),
+                    "cut survey")
+        reps = full[0].values.reshape(CUT, V)
+        if not (full[0].found.all() and (reps == reps[0]).all()):
+            raise SystemExit("the cut survey's replicas differ")
+        if not np.array_equal(res.decrypted.values, clear):
+            raise SystemExit("the first replica differs from phase 7's "
+                             "decrypted statistics (the clear sums)")
+        return (wall, res, launches,
+                lr_weights_ok(res, params, "cut survey")[0])
+
+    kept.tag = "10b"
+    with kept:
+        first, res, launches, err = run()
+    rows = {k: dict(sorted(v.items()))
+            for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
+    want = survey_launches(digit_proofs, signed_offset=True)
+    print(f"phase 10b: first cut survey {first:.3f} s; launches {launches}",
+          flush=True)
+    print(f"phase 10b: launch shapes, {{kernel: {{rows: launches}}}}: {rows}",
+          flush=True)
+    if launches != want:
+        raise SystemExit(f"cut survey launches {launches} differ from {want}")
+    warm, res2, _, _ = run()
+    print(f"  {CUT} replicas of {V} values decrypt equal; the first equals "
+          f"the clear sums exactly; weights max abs err vs CPU GD {err:.3g}; "
+          f"audit block of {len(res.block.data.bitmap)} entries, all BM_TRUE",
+          flush=True)
+    print(f"phase 10b: cut survey wall time {first:.4f} s cold, {warm:.4f} s "
+          f"warm; phase timers (warm): " + phase_timers([res2]), flush=True)
+    del cluster._decrypt
+    return launches, [first, warm]
+
+
+def phase11(cluster, stats, params, zero_launches, launch_counts, kept,
+            verify_range_alone):
+    """Four of phase 7's surveys held, their range payloads flushed in one
+    cross-survey check, then finalized; the payloads replayed to one VN
+    with one tampered and flushed again. Returns (launches of the batch,
+    [its wall time, the replay's])."""
+    from drynx_tpu_torch.proofs import range_proof as rp
+    from drynx_tpu_torch.proofs import requests as rq
+    from drynx_tpu_torch.resilience import policy as pol
+    from drynx_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    V = stats.shape[1]
+    sqs = [cluster.generate_survey_query(
+        "log_reg", proofs=1, lr_params=params, ranges=[(U, L)] * V,
+        thresholds=1.0) for _ in range(HELD)]
+    sids = [sq.survey_id for sq in sqs]
+    digit_proofs = HELD * NUM_DPS * V * L * N_SERVERS
+    print(f"phase 11 setup: {HELD} surveys, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    clear = stats.sum(0).cpu().numpy()
+    checks, batch_verify = [], rp.verify_range_proofs_batch
+
+    def counted(pb, *a, **k):
+        checks.append(pb.n_values * pb.l * pb.n_servers)
+        return batch_verify(pb, *a, **k)
+
+    tampered = (sids[2], cluster.dp_idents[TAMPER_DP].name)
+
+    def batch():
+        for vn in cluster.vns.vns:
+            vn.verify_cache.clear()
+        zero_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pendings = [cluster.execute_survey(sq, seed=i, hold_range=True)
+                        for i, sq in enumerate(sqs)]
+            # the payloads are built on proof threads: wait until every VN
+            # holds every survey's, as the scheduler does, then flush
+            deadline = time.monotonic() + pol.COLD_COMPILE_WAIT_S
+            while not all(vn.range_ready(sid) for vn in cluster.vns.vns
+                          for sid in sids):
+                if time.monotonic() > deadline:
+                    raise SystemExit("held payloads never arrived")
+                time.sleep(pol.POLL_INTERVAL_S)
+            checks.clear()
+            rp.verify_range_proofs_batch = counted
+            t1 = time.perf_counter()
+            flushed = cluster.vns.flush_cross_survey(sids)
+            torch.cuda.synchronize()
+            flush_s = time.perf_counter() - t1
+            rp.verify_range_proofs_batch = batch_verify
+            results = [cluster.finalize_survey(p) for p in pendings]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rp.verify_range_proofs_batch = batch_verify
+        if sorted(flushed) != sorted(sids):
+            raise SystemExit(f"the cross flush took {flushed}, not {sids}")
+        for res in results:
+            if not np.array_equal(res.decrypted.values, clear):
+                raise SystemExit("a held survey's decrypted statistics "
+                                 "differ from phase 7's (the clear sums)")
+            lr_weights_ok(res, params, "held survey")
+        return wall, flush_s, results, launch_counts(), list(checks)
+
+    kept.tag = "11"
+    with kept:
+        wall, flush_s, results, launches, checks1 = batch()
+    rows = {k: dict(sorted(v.items()))
+            for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
+    want = {k: HELD * (v - EXPECTED_LAUNCHES_VERIFY[k])
+            for k, v in EXPECTED_LAUNCHES_CLUSTER.items()}
+    add_launches(want, verify_launches(digit_proofs))
+    print(f"phase 11: first held batch {wall:.3f} s; launches {launches}",
+          flush=True)
+    print(f"phase 11: launch shapes, {{kernel: {{rows: launches}}}}: {rows}",
+          flush=True)
+    if launches != want:
+        raise SystemExit(f"held batch launches {launches} differ from {want}")
+    for res in results:
+        check_block(res.block, N_VNS * (NUM_DPS + 2 * N_SERVERS),
+                    "held survey")
+    if checks1 != [digit_proofs]:
+        raise SystemExit(f"the cross flush ran RLC checks of {checks1} digit "
+                         f"proofs, not one of {digit_proofs}")
+    own = sum(dict(r.timers.items()).get("VerifyRange", 0.0)
+              for r in results)
+    print(f"  {HELD} all-BM_TRUE blocks; every survey's decrypted statistics "
+          f"equal the clear sums, weights within tolerance of CPU GD; the "
+          f"payloads checked in one RLC batch of {checks1[0]} digit proofs; "
+          f"flush {flush_s:.4f} s (VerifyRange summed over the {HELD} "
+          f"surveys {own:.4f} s; one survey's own joint check in phase 7: "
+          f"{verify_range_alone}, x{HELD})", flush=True)
+
+    # the four surveys' range payloads from a VN's store, re-signed and
+    # delivered again to that VN with one Zv byte of DP TAMPER_DP's payload
+    # of the third survey changed, held and flushed as one cross batch:
+    # BM_FALSE for that envelope only
+    vn = cluster.vns.vns[1]
+    idents = {d.name: d for d in cluster.dp_idents}
+    stored = {sid: {k: v for k, v in vn.stored_proofs(sid).items()
+                    if "/range/" in k} for sid in sids}
+    key = f"{tampered[0]}/range/{tampered[1]}/range-{tampered[1]}"
+    t1 = time.perf_counter()
+    for sid in sids:
+        vn.register_survey(sid, NUM_DPS, {"range": 1.0},
+                           expected_range=NUM_DPS, hold_range=True)
+        for k, data in sorted(stored[sid].items()):
+            dp = idents[k.split("/")[2]]
+            if k == key:
+                data = tamper_zv(data)
+            vn.receive_proof(rq.new_proof_request(
+                "range", sid, dp.name, f"range-{dp.name}", 0, data,
+                dp.secret))
+    checks.clear()
+    rp.verify_range_proofs_batch = counted
+    try:
+        t2 = time.perf_counter()
+        flushed = vn.flush_ranges_cross(sids)
+        torch.cuda.synchronize()
+        flush2 = time.perf_counter() - t2
+    finally:
+        rp.verify_range_proofs_batch = batch_verify
+    replay_s = time.perf_counter() - t1
+    bad = {sid: {k for k, v in vn.bitmap_for(sid).items() if v != rq.BM_TRUE}
+           for sid in sids}
+    if (sorted(flushed) != sorted(sids) or vn.bitmap_for(tampered[0])[key]
+            != rq.BM_FALSE or any(bad[sid] != ({key} if sid == tampered[0]
+                                                else set()) for sid in sids)
+            or any(len(vn.bitmap_for(sid)) != NUM_DPS for sid in sids)):
+        raise SystemExit(f"tampered cross flush: entries not BM_TRUE {bad}")
+    print(f"  the {HELD} surveys' {HELD * NUM_DPS} range payloads replayed "
+          f"to {vn.name} with one Zv byte of {tampered[1]}'s payload of "
+          f"survey 3 changed: BM_FALSE for that envelope only, every other "
+          f"BM_TRUE; RLC checks of {checks} digit proofs; flush "
+          f"{flush2:.4f} s ({replay_s:.3f} s with the envelopes)",
+          flush=True)
+    wall2 = replay_s
+    print(f"phase 11: held batch wall time {wall:.4f} s (flush "
+          f"{flush_s:.4f} s); phase timers, median of the {HELD} surveys: "
+          + phase_timers(results),
+          flush=True)
+    return launches, [wall, wall2]
+
+
+def phase12(zero_launches, launch_counts, kept):
+    """The stream of scripts/bench_stream.py's headline through the port's
+    StreamEngine on the card. Returns (launches of the steady advance,
+    its wall time)."""
+    import tempfile
+    from collections import Counter
+
+    from drynx_tpu_torch.server.transcript import transcript_digest
+    from drynx_tpu_torch.service import topology as topo
+    from drynx_tpu_torch.service.service import LocalCluster
+    from drynx_tpu_torch.service.store import ProofDB
+    from drynx_tpu_torch.service.streaming import StreamEngine
+
+    S = STREAM
+    V, W, PW = S["V"], S["w"], S["pw"]
+    t0 = time.perf_counter()
+    cluster = LocalCluster(n_cns=S["n_cns"], n_dps=S["n_dps"],
+                           n_vns=S["n_vns"], seed=S["seed"],
+                           dlog_limit=S["dlog"])
+    rng = np.random.default_rng(S["data_seed"])
+    rows = {d.name: rng.integers(0, V, size=(W + 3, PW))
+            for d in cluster.dp_idents}
+    payload_proofs = V * S["ranges"][1] * S["n_cns"]
+    tmp = tempfile.TemporaryDirectory(prefix="drynx_panes_")
+    db_path = f"{tmp.name}/panes.db"
+
+    def mk(sid, db=None):
+        return StreamEngine(cluster, "frequency_count", 0, V - 1,
+                            stream_id=sid, pane_width=PW, window_panes=W,
+                            ranges=[S["ranges"]] * V, proofs=1,
+                            seed=S["engine_seed"], pane_db=db)
+
+    def truth(a, b):
+        c = Counter()
+        for r in rows.values():
+            c.update(r[a:b].reshape(-1).tolist())
+        return {v: c.get(v, 0) for v in range(V)}
+
+    def timed(eng, feed):
+        eng.feed(feed)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adv = eng.advance()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_block(adv.block, S["n_vns"] * S["n_cns"], "stream advance")
+        return adv, wall, launch_counts()
+
+    def check(what, launches, want):
+        if launches != want:
+            raise SystemExit(f"stream {what}: launches {launches} differ "
+                             f"from {want}")
+
+    eng = mk("hl", ProofDB(db_path))
+    torch.cuda.synchronize()
+    print(f"phase 12 setup: cluster and {W + 3} panes of {PW} rows a DP, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kept.tag = "12"
+    with kept:
+        a0, fill_s, l0 = timed(eng, {n: r[:W].reshape(-1)
+                                     for n, r in rows.items()})
+    check("fill", l0, stream_launches(W, W, 2 * W, payload_proofs, None))
+    if a0.window != (0, W - 1) or a0.result != truth(0, W):
+        raise SystemExit(f"stream fill: window {a0.window}, result differs")
+    c0 = dict(eng.counters)
+    a1, adv_s, l1 = timed(eng, {n: r[W] for n, r in rows.items()})
+    check("1-pane advance", l1, stream_launches(1, 1, 2, payload_proofs, 2))
+    made = {k: eng.counters[k] - c0[k] for k in c0}
+    if ((a1.panes_new, a1.panes_expired) != (1, 1)
+            or made["proofs_created"] != S["n_dps"]
+            or made["pane_verifies"] != S["n_dps"]
+            or set(k.split("/")[1] for k in a1.block.data.bitmap)
+            != {"aggregation"}):
+        raise SystemExit(f"steady advance: {a1.panes_new} new, "
+                         f"{a1.panes_expired} expired, counters {made}")
+    a2, adv2_s, l2 = timed(eng, {n: r[W + 1:W + 3].reshape(-1)
+                                 for n, r in rows.items()})
+    check("2-pane advance", l2, stream_launches(2, 2, 4, payload_proofs, 4))
+    first, last = a2.window
+    if (first, last) != (3, W + 2) or a2.result != truth(3, W + 3):
+        raise SystemExit(f"stream 2-pane advance: window {a2.window}, "
+                         f"result differs from the clear counts")
+    window_bytes = eng.window_ct.cpu().numpy().tobytes()
+    scratch_fold = topo.fold_cts(torch.stack(
+        [eng._panes[i].fold for i in range(first, last + 1)]))
+    if scratch_fold.cpu().numpy().tobytes() != window_bytes:
+        raise SystemExit("the delta window differs from a from-scratch fold "
+                         "of its panes")
+    for p in eng._panes:
+        check_block(p.block, S["n_vns"] * S["n_dps"], f"pane {p.pane_id}")
+    dig = transcript_digest(cluster.vns, a2.survey_id)
+    pane_digs = [transcript_digest(cluster.vns, eng.pane_sid(p))
+                 for p in range(last + 1)]
+    seal_s = (dict(eng.timers.items())["PaneSeal"]
+              / eng.counters["panes_sealed"])
+    print(f"phase 12: filled {W} panes in {fill_s:.3f} s; advance by 1 pane "
+          f"{adv_s:.4f} s (2 proofs made and checked, {S['n_cns']} "
+          f"aggregation envelopes), by 2 panes {adv2_s:.4f} s; launches of "
+          f"the 1-pane advance {l1}", flush=True)
+
+    # the from-scratch control: a cold stream id fed every row
+    sc = mk("hl-scratch")
+    s1, scratch_s, ls = timed(sc, {n: r.reshape(-1) for n, r in rows.items()})
+    check("scratch", ls, stream_launches(W + 3, W + 3, 2 * (W + 3),
+                                         payload_proofs, None))
+    if (s1.result != a2.result or s1.window != a2.window
+            or sc.window_ct.cpu().numpy().tobytes() != window_bytes
+            or s1.decrypted.values.tobytes() != a2.decrypted.values.tobytes()):
+        raise SystemExit("the from-scratch control differs from the delta "
+                         "advance")
+    for p in sc._panes:
+        check_block(p.block, S["n_vns"] * S["n_dps"], f"scratch pane")
+
+    # a restarted engine on the same stream id with the ProofDB
+    rs = mk("hl", ProofDB(db_path))
+    r1, restart_s, lr_ = timed(rs, {n: r.reshape(-1) for n, r in rows.items()})
+    check("restart", lr_, stream_launches(W + 3, 0, 0, payload_proofs, None,
+                                          agg_checked=False))
+    if (rs.counters["proofs_created"] != 0
+            or rs.counters["proofs_reused"] != S["n_dps"] * (W + 3)
+            or r1.survey_id != a2.survey_id or r1.result != a2.result
+            or rs.window_ct.cpu().numpy().tobytes() != window_bytes
+            or r1.decrypted.values.tobytes() != a2.decrypted.values.tobytes()
+            or transcript_digest(cluster.vns, r1.survey_id) != dig
+            or [transcript_digest(cluster.vns, rs.pane_sid(p))
+                for p in range(last + 1)] != pane_digs):
+        raise SystemExit(f"the restarted engine differs: counters "
+                         f"{rs.counters}")
+    for p in rs._panes:
+        check_block(p.block, S["n_vns"] * S["n_dps"], f"restarted pane")
+    print(f"  result = the clear counts of panes {first}..{last} ("
+          f"{W * PW} rows a DP); the delta window's bytes = a from-scratch "
+          f"fold = the cold control's; every block all BM_TRUE; a restarted "
+          f"engine reused {rs.counters['proofs_reused']} blobs and "
+          f"reproduced the advance's bytes, transcript {dig[:16]} and all "
+          f"{last + 1} pane transcripts ({restart_s:.3f} s)", flush=True)
+    print(f"phase 12: pane seal {seal_s:.4f} s a pane (mean of "
+          f"{eng.counters['panes_sealed']}); advance by 1 pane {adv_s:.4f} s; "
+          f"from scratch over {W + 3} panes {scratch_s:.3f} s; ratio "
+          f"{scratch_s / adv_s:.2f}; engine timers: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in eng.timers.items()),
+          flush=True)
+    cluster.close()
+    tmp.cleanup()
+    return l1, [adv_s]
+
+
+def new_phases(stats, X, y, params, zero_launches, launch_counts,
+               verify_range_alone=None, only=None):
+    """Phases 10-12 (`only`: some of "10a", "10b", "11", "12", run in
+    that order), each
+    keeping its kernels' largest calls; every kept call is then held
+    against its plain version. Returns {phase: (launches, walls)}."""
+    kept = KeptCalls(KeptCalls.G1 + KeptCalls.PAIRING)
+    out, pima = {}, []
+
+    def pima_cluster():
+        # phases 10b and 11 share one cluster of phase 7's configuration
+        if not pima:
+            t0 = time.perf_counter()
+            pima.append(cluster_pima(X, y))
+            print(f"phases 10b and 11: cluster keys, tables and "
+                  f"{N_SERVERS} signature sets of u={U} "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return pima[0]
+
+    runs = {"10a": lambda: phase10a(zero_launches, launch_counts, kept),
+            "10b": lambda: phase10b(pima_cluster(), stats, params,
+                                    zero_launches, launch_counts, kept),
+            "11": lambda: phase11(
+                pima_cluster(), stats, params, zero_launches, launch_counts,
+                kept, "not measured" if verify_range_alone is None
+                else f"{verify_range_alone:.4f} s"),
+            "12": lambda: phase12(zero_launches, launch_counts, kept)}
+    for name in runs if only is None else only:
+        t0 = time.perf_counter()
+        out[name] = runs[name]()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s in all",
+              flush=True)
+    for c in pima:
+        c.close()
+    t0 = time.perf_counter()
+    held = kept.hold()
+    print(f"phases 10-12: every kernel's largest call of each phase byte-equal"
+          f" to its plain version ({time.perf_counter() - t0:.1f} s): "
+          f"{held}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    start = time.perf_counter()
+    only = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        only = sys.argv[2].split(",")
     from drynx_tpu_torch import flagship
     from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
     from drynx_tpu_torch.crypto import curve as C
@@ -1552,6 +2216,10 @@ def main():
     V = stats.shape[1]
     print(f"setup: V={V} ciphertexts per DP, host keygen + tables "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if only is not None:
+        new_phases(stats, X, y, params, zero_launches, launch_counts,
+                   only=only)
+        return 0
     base = eg.BASE_TABLE.table.to(dev)
     mag, _ = eg.magnitude_limbs(stats.reshape(-1))
     cts = eg.encrypt_ints_with_tables(base, setup.coll_pub_table, stats,
@@ -1651,6 +2319,18 @@ def main():
         (16, rp._g1_args(vb, pubs).reshape(-1, 3, 16), r_w,
          "RLC weighting")]
     K = NUM_DPS * V
+    # the main path's plain runs that phase 2's partly filled blocks (its
+    # extra shapes) are held against: each such block is a prefix of the
+    # main shape's rows, so its kernel call is compared with the first N
+    # rows of the main shape's one plain run
+    ladder_main = prefixes(lambda: cuda_ops.scalar_mul_plain(
+        *ladder_rows[0][1:3], 64))
+    g2_main = prefixes(lambda: cuda_pairing.g2_scalar_mul_plain(g2_p, g2_k))
+    mul_main = prefixes(lambda: cuda_pairing.f12_mul_plain(gt1, gt2))
+    mr8_main = prefixes(lambda: cuda_pairing.f12_mulreduce8_plain(g_multi))
+    miller_main = prefixes(lambda: cuda_pairing.miller_plain(*ml_in))
+    wpow_main = prefixes(lambda: cuda_pairing.f12_wpow_plain(gt_ca, r_w, 63,
+                                                             True))
     cases = {
         # kernel: list of (label, wrapper call, plain call, mont muls/elem,
         #                  elements, bytes moved)
@@ -1696,9 +2376,10 @@ def main():
         ] + [
             (f"W={w} N={len(k)} ({what})",
              (lambda p=p, k=k, w=w: cuda_ops.scalar_mul_flat(p, k, w)),
+             ladder_main(len(k)) if i == 0 else
              (lambda p=p, k=k, w=w: cuda_ops.scalar_mul_plain(p, k, w)),
              mm_scalar_mul(k, w), len(k), len(k) * (192 + 64 + 192))
-            for w, p, k, what in ladder_rows
+            for i, (w, p, k, what) in enumerate(ladder_rows)
         ],
         "point_reduce": [
             (f"R={NUM_DPS} N={2 * V} (aggregate)",
@@ -1743,14 +2424,13 @@ def main():
         "g2_scalar_mul": [
             (f"N={n_proofs} (V = v A[digit])",
              lambda: cuda_pairing.g2_scalar_mul_flat(g2_p, g2_k),
-             lambda: cuda_pairing.g2_scalar_mul_plain(g2_p, g2_k),
-             mm_g2_ladder(g2_k), n_proofs, 2 * nbytes(g2_p) + nbytes(g2_k)),
+             g2_main(n_proofs), mm_g2_ladder(g2_k), n_proofs,
+             2 * nbytes(g2_p) + nbytes(g2_k)),
         ],
         "f12_mul": [
             (f"N={n_proofs} (a = gt1 gt2)",
              lambda: cuda_pairing.f12_mul_flat(gt1, gt2),
-             lambda: cuda_pairing.f12_mul_plain(gt1, gt2), MM_F12_MUL,
-             n_proofs, 3 * nbytes(gt1)),
+             mul_main(n_proofs), MM_F12_MUL, n_proofs, 3 * nbytes(gt1)),
             ("N=1 (final exp, total)",
              lambda: cuda_pairing.f12_mul_flat(gt1[:1], gt2[:1]),
              lambda: cuda_pairing.f12_mul_plain(gt1[:1], gt2[:1]),
@@ -1759,6 +2439,7 @@ def main():
         "f12_mulreduce8": [
             (f"N={g.shape[0]} ({what})",
              (lambda g=g: cuda_pairing.f12_mulreduce8_flat(g)),
+             mr8_main(len(g)) if g is g_multi else
              (lambda g=g: cuda_pairing.f12_mulreduce8_plain(g)),
              7 * MM_F12_MUL, g.shape[0], nbytes(g) * 9 // 8)
             for g, what in ((g_multi, "digit power, pass 1"),
@@ -1769,8 +2450,7 @@ def main():
         "miller": [
             (f"N={n_proofs} (RLC Miller loop)",
              lambda: cuda_pairing.miller_flat(*ml_in),
-             lambda: cuda_pairing.miller_plain(*ml_in),
-             mm_miller(cuda_pairing.ATE_BITS), n_proofs,
+             miller_main(n_proofs), mm_miller(cuda_pairing.ATE_BITS), n_proofs,
              nbytes(*ml_in) + f12_bytes),
         ],
         # B8, B10, B11: the per-value check's final exponentiation at
@@ -1803,8 +2483,8 @@ def main():
              mm_wpow(128, True), n_proofs, 2 * f12_bytes + nbytes(t1_k)),
             (f"N={n_proofs} 63 bits cyc (a^r)",
              lambda: cuda_pairing.f12_wpow_flat(gt_ca, r_w, 63, cyc=True),
-             lambda: cuda_pairing.f12_wpow_plain(gt_ca, r_w, 63, True),
-             mm_wpow(63, True), n_proofs, 2 * f12_bytes + nbytes(r_w)),
+             wpow_main(n_proofs), mm_wpow(63, True), n_proofs,
+             2 * f12_bytes + nbytes(r_w)),
             ("N=1 63 bits cyc (final exp, power by u)",
              lambda: cuda_pairing.f12_wpow_flat(gt_a[:1], u_k, 63, cyc=True),
              lambda: cuda_pairing.f12_wpow_plain(gt_a[:1], u_k, 63, True),
@@ -1857,12 +2537,24 @@ def main():
                    for nb in POW_BITS}
     pow_tiled = {nb: tuple(tile(t) for t in fk)
                  for nb, fk in pow_crafted.items()}
+    # one plain run of the crafted rows at each POW_BITS: the tiled launch
+    # is held against it tiled (a row-wise kernel)
+    pow_crafted_plain = {nb: prefixes(lambda fk=fk, nb=nb: cuda_pairing.
+                                      f12_pow_plain(*fk, nb))(len(fk[1]))
+                         for nb, fk in pow_crafted.items()}
 
     def scalars(n, n_windows):
         lim = min(refimpl.N, 16 ** n_windows)
         return F.from_int([int.from_bytes(rng_x.bytes(32), "little") % lim
                            for _ in range(n)]).to(dev)
 
+    # one plain run for the fixed-base ladder at each W (N = 900) and for
+    # the Fp12 inverse's crafted rows (each row alone and tiled)
+    fb_k = {w: scalars(900, w) for w in (1, 16, 17, 64)}
+    fb_plain = {w: prefixes(lambda w=w: cuda_ops.fixed_base_mul_plain(
+        base, fb_k[w], w)) for w in fb_k}
+    inv_plain = prefixes(lambda: cuda_pairing.f12_inv_plain(inv_crafted))(
+        len(inv_crafted))
     extra = {
         # the crafted chains (every branch of the complete add), a reduce
         # of one row, and a partly filled block
@@ -1898,13 +2590,12 @@ def main():
         "f12_inv": [
             (f"crafted row {k} N=1",
              (lambda k=k: cuda_pairing.f12_inv_flat(inv_crafted[k:k + 1])),
-             (lambda k=k: cuda_pairing.f12_inv_plain(inv_crafted[k:k + 1])),
-             MM_F12_INV, 1, 2 * 768)
+             (lambda k=k: inv_plain()[k:k + 1]), MM_F12_INV, 1, 2 * 768)
             for k in range(len(inv_crafted))
         ] + [
             (f"crafted rows tiled N={n_proofs}",
              lambda: cuda_pairing.f12_inv_flat(inv_tiled),
-             lambda: cuda_pairing.f12_inv_plain(inv_tiled), MM_F12_INV,
+             lambda: tile(inv_plain()), MM_F12_INV,
              n_proofs, 2 * nbytes(inv_tiled))
         ],
         # the crafted rows (0, 1, (a, 0), (0, b), -1 - i, limbs at p - 1,
@@ -1940,12 +2631,13 @@ def main():
         "f12_pow": [
             (f"crafted{tiled} {nb} bits",
              (lambda fk=fk, nb=nb: cuda_pairing.f12_pow_flat(*fk, nb)),
-             (lambda fk=fk, nb=nb: cuda_pairing.f12_pow_plain(*fk, nb)),
-             mm_pow(fk[1], nb) / len(fk[1]), len(fk[1]),
+             pow_plain, mm_pow(fk[1], nb) / len(fk[1]), len(fk[1]),
              2 * nbytes(fk[0]) + nbytes(fk[1]))
             for nb in POW_BITS
-            for tiled, fk in (("", pow_crafted[nb]),
-                              (f" tiled N={n_proofs}", pow_tiled[nb]))
+            for tiled, fk, pow_plain in (
+                ("", pow_crafted[nb], pow_crafted_plain[nb]),
+                (f" tiled N={n_proofs}", pow_tiled[nb],
+                 lambda nb=nb: tile(pow_crafted_plain[nb]())))
         ],
         # the crafted rows (zero slots, limbs at p - 1, -1, mixed)
         "f12_slotmul": [
@@ -1972,17 +2664,16 @@ def main():
         "f12_mul": [
             (f"N={n} (a partly filled block)",
              (lambda n=n: cuda_pairing.f12_mul_flat(gt1[:n], gt2[:n])),
-             (lambda n=n: cuda_pairing.f12_mul_plain(gt1[:n], gt2[:n])),
-             MM_F12_MUL, n, 3 * n * 768)
+             mul_main(n), MM_F12_MUL, n, 3 * n * 768)
             for n in (5, 21)
         ],
         "fixed_base_mul": [
             (f"W={w} N={n}",
-             (lambda k=k, w=w: cuda_ops.fixed_base_mul_flat(base, k, w)),
-             (lambda k=k, w=w: cuda_ops.fixed_base_mul_plain(base, k, w)),
-             mm_fixed_base(k, w), n, nbytes(base[:w], k) + n * 192)
+             (lambda n=n, w=w: cuda_ops.fixed_base_mul_flat(
+                 base, fb_k[w][:n], w)),
+             fb_plain[w](n), mm_fixed_base(fb_k[w][:n], w), n,
+             nbytes(base[:w], fb_k[w][:n]) + n * 192)
             for w in (1, 16, 17, 64) for n in (1, 90, 270, 900)
-            for k in [scalars(n, w)]
         ] + [
             (f"crafted table {name}",
              (lambda t=t, k=k: cuda_ops.fixed_base_mul_flat(t, k)),
@@ -1999,10 +2690,11 @@ def main():
             for w in (1, 2, 16, 64)
         ] + [
             (f"W=64 N={n} (a partly filled block)",
-             (lambda k=k: cuda_ops.scalar_mul_flat(a900[:len(k)], k)),
-             (lambda k=k: cuda_ops.scalar_mul_plain(a900[:len(k)], k)),
-             mm_scalar_mul(k, 64), n, n * (192 + 64 + 192))
-            for n in (1, 5, 21) for k in [scalars(n, 64)]
+             (lambda n=n: cuda_ops.scalar_mul_flat(
+                 ladder_rows[0][1][:n], ladder_rows[0][2][:n])),
+             ladder_main(n), mm_scalar_mul(ladder_rows[0][2][:n], 64), n,
+             n * (192 + 64 + 192))
+            for n in (1, 5, 21)
         ],
         "g2_scalar_mul": [
             ("crafted", lambda: cuda_pairing.g2_scalar_mul_flat(*g2_crafted),
@@ -2013,9 +2705,7 @@ def main():
             (f"N={n} (a partly filled block)",
              (lambda n=n: cuda_pairing.g2_scalar_mul_flat(g2_p[:n],
                                                           g2_k[:n])),
-             (lambda n=n: cuda_pairing.g2_scalar_mul_plain(g2_p[:n],
-                                                           g2_k[:n])),
-             mm_g2_ladder(g2_k[:n]), n,
+             g2_main(n), mm_g2_ladder(g2_k[:n]), n,
              2 * nbytes(g2_p[:n]) + nbytes(g2_k[:n]))
             for n in (1, 5, 21)
         ],
@@ -2032,9 +2722,7 @@ def main():
             (f"N={n} 63 bits cyc (a partly filled block)",
              (lambda n=n: cuda_pairing.f12_wpow_flat(gt_ca[:n], r_w[:n], 63,
                                                      cyc=True)),
-             (lambda n=n: cuda_pairing.f12_wpow_plain(gt_ca[:n], r_w[:n], 63,
-                                                      True)),
-             mm_wpow(63, True), n, n * (2 * 768 + 64))
+             wpow_main(n), mm_wpow(63, True), n, n * (2 * 768 + 64))
             for n in (1, 5, 21)
         ],
         # the joint check's folds (five passes each over 13,500 values
@@ -2043,15 +2731,13 @@ def main():
         "f12_mulreduce8": [
             (f"N={n} (joint check fold or gtB^S pass)",
              (lambda n=n: cuda_pairing.f12_mulreduce8_flat(g_multi[:n])),
-             (lambda n=n: cuda_pairing.f12_mulreduce8_plain(g_multi[:n])),
-             7 * MM_F12_MUL, n, nbytes(g_multi[:n]) * 9 // 8)
+             mr8_main(n), 7 * MM_F12_MUL, n, nbytes(g_multi[:n]) * 9 // 8)
             for n in (4096, 512, 64, 21, 8, 5, 1)
         ],
         "miller": [
             (f"N={n}",
              (lambda n=n: cuda_pairing.miller_flat(*(t[:n] for t in ml_in))),
-             (lambda n=n: cuda_pairing.miller_plain(*(t[:n] for t in ml_in))),
-             mm_miller(cuda_pairing.ATE_BITS), n,
+             miller_main(n), mm_miller(cuda_pairing.ATE_BITS), n,
              nbytes(*(t[:n] for t in ml_in)) + n * 768)
             for n in (1, 1000)
         ],
@@ -2090,6 +2776,8 @@ def main():
     }
 
     # -- phase 2: every kernel against its plain version ---------------------
+    print(f"-- phase 2 at {time.perf_counter() - start:.1f} s",
+          flush=True)
     imad_per_ms = SMS * IMAD_PER_CLK_SM * sm_mhz * 1e3
     summary = {}
     print("phase 2: kernels vs plain versions (byte for byte)", flush=True)
@@ -2130,6 +2818,8 @@ def main():
         summary[name] = tot
 
     # -- phase 3: the main path, counted --------------------------------------
+    print(f"-- phase 3 at {time.perf_counter() - start:.1f} s",
+          flush=True)
     fn = flagship.build_pipeline(setup, params)
     zero_launches()
     torch.cuda.synchronize()
@@ -2182,6 +2872,8 @@ def main():
           f"{statistics.median(gd_s):.4f} s", flush=True)
 
     # -- phase 5: proofs-on data collection, counted --------------------------
+    print(f"-- phase 5 at {time.perf_counter() - start:.1f} s",
+          flush=True)
     def collect():
         gen = torch.Generator(device=dev).manual_seed(PROOF_SEED)
         cts5, lists = svc.collect_with_range_proofs(
@@ -2314,6 +3006,8 @@ def main():
           f"response + payloads {split[3]:.4f} s", flush=True)
 
     # -- phase 6: the verifying node's joint check, counted ------------------
+    print(f"-- phase 6 at {time.perf_counter() - start:.1f} s",
+          flush=True)
     def verify(datas):
         return svc.verify_collected_range_proofs(datas, ranges, {U: sigs},
                                                  coll_tbl)
@@ -2422,14 +3116,26 @@ def main():
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     # -- phase 7: the proofs-on LocalCluster survey, counted -----------------
-    launches7, walls7 = phase7(stats, X, y, params, zero_launches,
-                               launch_counts)
+    print(f"-- phase 7 at {time.perf_counter() - start:.1f} s",
+          flush=True)
+    launches7, walls7, verify_range7 = phase7(stats, X, y, params,
+                                              zero_launches, launch_counts)
 
     # -- phase 8: the obfuscated max survey, counted --------------------------
+    print(f"-- phase 8 at {time.perf_counter() - start:.1f} s",
+          flush=True)
     launches8, walls8 = phase8(zero_launches, launch_counts)
 
     # -- phase 9: the noised sum (DRO), counted -------------------------------
+    print(f"-- phase 9 at {time.perf_counter() - start:.1f} s",
+          flush=True)
     launches9, walls9 = phase9(zero_launches, launch_counts)
+
+    # -- phases 10-12: grouped, cut, held and streaming surveys, counted ------
+    print(f"-- phases 10-12 at {time.perf_counter() - start:.1f} s",
+          flush=True)
+    new = new_phases(stats, X, y, params, zero_launches, launch_counts,
+                     verify_range7)
 
     kernels = []
     for name, tot in summary.items():
@@ -2440,7 +3146,8 @@ def main():
             "replaces": replaces,
             "launches": (launches[name] + launches5[name] + launches6[name]
                          + launches_pv[name] + launches7[name]
-                         + launches8[name] + launches9[name]),
+                         + launches8[name] + launches9[name]
+                         + sum(new[p][0][name] for p in new)),
             "max_abs_err": tot["err"], "ms": round(tot["ms"], 6),
             "plain_ms": round(tot["plain_ms"], 3),
             "bound_ms": round(max(ops_ms, bytes_ms), 6),
@@ -2450,8 +3157,10 @@ def main():
     print("(ms, plain_ms, bound_ms: summed over the kernel's main-path shapes "
           "above, one launch each; launches: the survey's, the proofs-on "
           "collection's, the joint check's, the per-value check's, the "
-          "proofs-on cluster survey's, the obfuscated max survey's and the "
-          "noised sum's)")
+          "proofs-on cluster survey's, the obfuscated max survey's, the "
+          "noised sum's, the grouped and the cut survey's, the held batch's "
+          "and the stream's 1-pane advance's)")
+    print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

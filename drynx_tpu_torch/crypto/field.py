@@ -48,7 +48,12 @@ class ModCtx:
 
     def nprime_full(self, device) -> torch.Tensor:
         """-m^-1 mod 2^256 as limbs (the full-width REDC factor)."""
-        return _const((-pow(self.modulus, -1, params.R)) % params.R, device)
+        return _const(_nprime(self.modulus), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _nprime(modulus: int) -> int:
+    return (-pow(modulus, -1, params.R)) % params.R
 
 
 FP = ModCtx(params.P, params.R2_MOD_P, "Fp")

@@ -18,8 +18,13 @@ iff every DP's bit is one. A DP's encoding is an int64 CPU tensor whose
 length depends only on the query. Grid ops above `tiles.TILE_THRESHOLD`
 buckets encode tile by tile, with the same result. Decoding reads a
 `DecryptedVector` (integers where the discrete log resolved, zero flags
-always). The group-by encoders are not ported yet (ROADMAP queue A,
-step 8).
+always).
+
+Group-by: the group is a leading axis. The group grid (the cartesian
+product of each attribute's candidate values) is known from the query, so
+one (n_groups, rows) membership mask gives every group's statistics in one
+pass, and the homomorphic sum along the aligned group axis is the per-group
+aggregation. The querier decodes the group-major vector group by group.
 """
 from __future__ import annotations
 
@@ -33,6 +38,15 @@ from . import tiles
 
 # The five ops that encode over the dense [query_min, query_max] value grid.
 GRID_OPS = ("min", "max", "frequency_count", "union", "inter")
+
+
+def grid_buckets(query) -> int:
+    """Bucket-grid width of a grid-op query, 0 for every other op (and for
+    a query without an operation)."""
+    op = getattr(query, "operation", None)
+    if op is None or op.name not in GRID_OPS:
+        return 0
+    return int(op.query_max) - int(op.query_min) + 1
 
 
 @dataclasses.dataclass
@@ -163,6 +177,109 @@ def encode_clear(op: str, data, query_min: int = 0, query_max: int = 0,
         err = _i64(preds) - x
         return torch.stack([n, x.sum(), (x * x).sum(), (err * err).sum()])
     raise ValueError(f"unknown operation {op!r}")
+
+
+# ---------------------------------------------------------------------------
+# Group-by encoders (reference data_collection_protocol.go:157-196)
+# ---------------------------------------------------------------------------
+
+def group_grid(group_by) -> np.ndarray:
+    """Cartesian product of candidate values per group attribute
+    (reference AllPossibleGroups): [[vals_attr0], [vals_attr1], ...]
+    -> int64 (n_groups, n_attrs), the first attribute slowest."""
+    arrs = [np.asarray(v, dtype=np.int64) for v in group_by]
+    mesh = np.meshgrid(*arrs, indexing="ij")
+    return np.stack([m.ravel() for m in mesh], axis=-1)
+
+
+def encode_clear_grouped(op: str, data, groups, grid, query_min: int = 0,
+                         query_max: int = 0, preds=None,
+                         bit_scale=None) -> torch.Tensor:
+    """Per-group local sufficient statistics, int64 (n_groups, V).
+
+    data: as encode_clear. groups: (rows, n_attrs) group label per record.
+    grid: (n_groups, n_attrs) from group_grid(). An empty group encodes the
+    operation's identity (zero sums, empty-set bits)."""
+    x = _i64(data)
+    g, gr = _i64(groups), _i64(grid)
+    s = _scale(bit_scale)
+    mask = (g[None, :, :] == gr[:, None, :]).all(-1)     # (n_groups, rows)
+    mi = mask.to(torch.int64)
+    n = mi.sum(1)
+    if op == "sum":
+        return (mi @ x)[:, None]
+    if op == "mean":
+        return torch.stack([mi @ x, n], 1)
+    if op == "variance":
+        return torch.stack([mi @ x, n, mi @ (x * x)], 1)
+    if op == "cosim":
+        a, b = x[:, 0], x[:, 1]
+        return torch.stack([mi @ a, mi @ b, mi @ (a * a), mi @ (b * b),
+                            mi @ (a * b)], 1)
+    if op == "bool_OR":
+        return ((mask & (x != 0)[None]).any(1).to(torch.int64) * s)[:, None]
+    if op == "bool_AND":
+        # an empty group is an AND over the empty set: true, encoded 0
+        bit = torch.where(mask, (x != 0)[None], True).all(1)
+        return ((1 - bit.to(torch.int64)) * s)[:, None]
+    grid_v = _grid(query_min, query_max + 1)
+    if op == "min":
+        # empty-group sentinel max + 1: every bit 0, nothing for the OR
+        local = torch.where(mask, x[None], query_max + 1).min(1).values
+        return (grid_v[None] >= local[:, None]).to(torch.int64) * s
+    if op == "max":
+        # empty-group sentinel min - 1: every bit 1, complement 0
+        local = torch.where(mask, x[None], query_min - 1).max(1).values
+        return (1 - (grid_v[None] >= local[:, None]).to(torch.int64)) * s
+    if op in ("frequency_count", "union", "inter"):
+        eq = (x[:, None] == grid_v[None]).to(torch.int64)   # (rows, V)
+        counts = mi @ eq
+        if op == "frequency_count":
+            return counts
+        present = (counts > 0).to(torch.int64)
+        return present * s if op == "union" else (1 - present) * s
+    if op == "lin_reg":
+        X, y = x[:, :-1], x[:, -1]
+        iu, ju = np.triu_indices(X.shape[1])
+        outer = torch.einsum("gr,rd,re->gde", mi, X, X)
+        sxx = outer[:, torch.from_numpy(iu), torch.from_numpy(ju)]
+        return torch.cat([n[:, None], mi @ X, sxx, (mi @ y)[:, None],
+                          torch.einsum("gr,r,rd->gd", mi, y, X)], 1)
+    if op == "r2":
+        err = _i64(preds) - x
+        return torch.stack([n, mi @ x, mi @ (x * x), mi @ (err * err)], 1)
+    raise ValueError(f"unknown operation {op!r} for grouped encoding")
+
+
+def decode_grouped(op: str, dec: DecryptedVector, grid, query_min: int = 0,
+                   query_max: int = 0, dims: int = 1) -> dict:
+    """Per-group decode (reference services/api.go:124-128) of the
+    group-major (n_groups * V,) vector: {group tuple: result}.
+
+    An empty group decodes to None where the op can say so: mean,
+    variance, cosim, r2 and lin_reg carry an N (cosim a zero norm), min's
+    bits are all zero, and the order statistics of an empty histogram are
+    None (top_k: []). `max` cannot: its complement encoding's neutral
+    element equals a genuine max of query_min, so an empty group decodes
+    to query_min, the same ambiguity as the reference's bit encoding
+    (min_max.go:87-123)."""
+    grid = np.asarray(grid)
+    n_groups = grid.shape[0]
+    v = np.asarray(dec.values).reshape(n_groups, -1)
+    f = np.asarray(dec.found).reshape(n_groups, -1)
+    z = np.asarray(dec.is_zero).reshape(n_groups, -1)
+    out = {}
+    for gi in range(n_groups):
+        key = tuple(int(t) for t in grid[gi])
+        if op == "cosim" and int(v[gi][2]) * int(v[gi][3]) == 0:
+            out[key] = None
+            continue
+        sub = DecryptedVector(values=v[gi], found=f[gi], is_zero=z[gi])
+        try:
+            out[key] = decode(op, sub, query_min, query_max, dims)
+        except ZeroDivisionError:
+            out[key] = None   # empty group: mean, variance, r2 undefined
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -299,4 +416,5 @@ DECODE_MODES = ("quantile", "median", "top_k")
 
 __all__ = ["OPS", "GRID_OPS", "DECODE_MODES",
            "DecryptedVector", "encode_clear", "decode", "output_size",
-           "encode_clear_tiles", "encode_clear_tiled"]
+           "encode_clear_tiles", "encode_clear_tiled", "grid_buckets",
+           "group_grid", "encode_clear_grouped", "decode_grouped"]

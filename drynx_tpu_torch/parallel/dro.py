@@ -39,6 +39,7 @@ import torch
 
 from ..crypto import elgamal as eg
 from ..resilience.policy import named_lock
+from ..utils.device import resolve
 
 # Slab width for chunked precompute / shuffle re-randomization (the
 # reference's, crypto/batching.py max_bucket).
@@ -230,11 +231,12 @@ def save_precompute(path: str, precomp) -> None:
              r=r.cpu().numpy().astype(np.uint32))
 
 
-def load_precompute(path: str, device="cpu"):
+def load_precompute(path: str, device=None):
     """A persisted precomputation (either package's) as int32 tensors on
-    `device`."""
+    `device` (the card unless the CPU is named)."""
+    dev = resolve(device)
     with np.load(path) as d:
-        return to_device(d["zero_ct"], d["r"], device)
+        return to_device(d["zero_ct"], d["r"], dev)
 
 
 def to_device(zero_ct, r, device):

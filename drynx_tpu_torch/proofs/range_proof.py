@@ -875,21 +875,74 @@ def verify_range_proof_payloads_joint(datas: list, ranges,
     """Joint verification from the DPs' raw payload bytes, on the device
     of `ca_pub_table`: each payload decodes in its own guard, so a
     malformed one fails only itself."""
-    device = ca_pub_table.device
-    lists, idx = [], []
     out = [False] * len(datas)
+    entries = _decode_payloads(datas, ca_pub_table.device, "survey")
+    if entries:
+        for (i, _lst), ok in zip(entries, verify_range_proof_lists_joint(
+                [lst for _i, lst in entries], ranges, sigs_pub_by_u,
+                ca_pub_table)):
+            out[i] = ok
+    return out
+
+
+def _decode_payloads(datas: list, device, what: str) -> list:
+    """(index, RangeProofList) for each payload that decodes; a malformed
+    one is left out (rejected), a fault of the program or the card
+    propagates."""
+    entries = []
     for i, d in enumerate(datas):
         try:
-            lists.append(RangeProofList.from_bytes(d, device))
-            idx.append(i)
+            entries.append((i, RangeProofList.from_bytes(d, device)))
         except Exception as e:
             if is_fault(e, device):
                 raise
-            log.warning("range payload %d: malformed bytes, rejected", i)
-    if lists:
-        for i, ok in zip(idx, verify_range_proof_lists_joint(
-                lists, ranges, sigs_pub_by_u, ca_pub_table)):
-            out[i] = ok
+            log.warning("%s range payload %d: malformed bytes, rejected",
+                        what, i)
+    return entries
+
+
+def verify_cross_survey_payloads_joint(payloads_by_sid: dict,
+                                       expected_by_sid: dict,
+                                       sigs_pub_by_u: dict,
+                                       ca_pub_table) -> dict:
+    """Joint verification across surveys, on the device of
+    `ca_pub_table`: every survey's well-formed batches of one (u, l) spec
+    concatenate into one RLC check (one final exponentiation for the whole
+    queue; the weights are drawn across the whole concatenation). If a
+    joint check fails, each survey is checked jointly on its own
+    (verify_range_proof_lists_joint, which falls back to each payload), so
+    a tampered survey costs its neighbours nothing. A survey whose
+    expected ranges are None (its CN no longer knows it) is all-False.
+    Returns {survey id: [bool per payload, in input order]}."""
+    device = ca_pub_table.device
+    out = {sid: [False] * len(datas)
+           for sid, datas in payloads_by_sid.items()}
+    lists_by_sid = {sid: _decode_payloads(datas, device, f"survey {sid}")
+                    for sid, datas in payloads_by_sid.items()
+                    if expected_by_sid.get(sid) is not None}
+    ok_struct: dict = {}
+    by_spec: dict = {}
+    for sid, entries in lists_by_sid.items():
+        ranges = expected_by_sid[sid]
+        ok_struct[sid] = {i: _list_structure_ok(lst, ranges, sigs_pub_by_u)
+                          for i, lst in entries}
+        for i, lst in entries:
+            if ok_struct[sid][i]:
+                for _ia, pb in lst.batches:
+                    by_spec.setdefault((pb.u, pb.l), []).append(pb)
+    joint_ok = all(
+        _safe_batch_verify(_concat_batches(pbs), sigs_pub_by_u[u],
+                           ca_pub_table)
+        for (u, _l), pbs in by_spec.items())
+    for sid, entries in lists_by_sid.items():
+        if joint_ok:
+            verdicts = [ok_struct[sid][i] for i, _lst in entries]
+        else:
+            verdicts = verify_range_proof_lists_joint(
+                [lst for _i, lst in entries], expected_by_sid[sid],
+                sigs_pub_by_u, ca_pub_table)
+        for (i, _lst), ok in zip(entries, verdicts):
+            out[sid][i] = ok
     return out
 
 
@@ -901,4 +954,5 @@ __all__ = ["RangeSig", "init_range_sig", "to_base", "sig_gt_table",
            "create_range_proof_lists_batched", "verify_range_proofs",
            "rlc_prelude", "rlc_total_single", "verify_range_proofs_batch",
            "verify_range_proof_list", "verify_range_proof_lists_joint",
-           "verify_range_proof_payloads_joint"]
+           "verify_range_proof_payloads_joint",
+           "verify_cross_survey_payloads_joint"]

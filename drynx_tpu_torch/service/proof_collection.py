@@ -13,10 +13,11 @@ it to the audit chain.
 In-process, delivery is a direct fan-out to each VerifyingNode (the fault
 plane of the reference's transport is not ported). A payload that makes its
 verifier raise fails for itself (BM_FALSE); a fault of the program or the
-card (`cuda_build.is_fault`) propagates out of `receive_proof`. The
-scheduler's held surveys and cross-survey flush wait for the server port
-(ROADMAP queue A, step 14), the quorum-degraded counters and a block from
-a subset of VNs for the fault plane (step 16).
+card (`cuda_build.is_fault`) propagates out of `receive_proof`. A held
+survey's range payloads stay buffered until `flush_ranges_cross` checks
+several held surveys in one RLC batch. The quorum-degraded counters and a
+block from a subset of VNs wait for the fault plane (ROADMAP queue A,
+step 16).
 """
 from __future__ import annotations
 
@@ -47,6 +48,9 @@ class SurveyProofState:
     expected_range: int = 0
     pending_range: dict = dataclasses.field(default_factory=dict)
     range_flushed: bool = False
+    # held: the buffered range payloads wait for a cross-survey flush
+    # (flush_ranges_cross) instead of flushing when the last one arrives
+    hold_range: bool = False
 
 
 # One payload verification at a time per process: verification throughput
@@ -153,10 +157,12 @@ class VerifyingNode:
     # -- reference HandleSurveyQueryToVN (service_skipchain.go:31-93)
     def register_survey(self, survey_id: str, expected_proofs: int,
                         thresholds: dict[str, float],
-                        expected_range: int = 0) -> None:
+                        expected_range: int = 0,
+                        hold_range: bool = False) -> None:
         with self._lock:
             self.surveys[survey_id] = SurveyProofState(
-                expected=expected_proofs, expected_range=expected_range)
+                expected=expected_proofs, expected_range=expected_range,
+                hold_range=hold_range)
             self.thresholds = getattr(self, "thresholds", {})
             self.thresholds[survey_id] = thresholds
 
@@ -231,7 +237,8 @@ class VerifyingNode:
                 return st.bitmap.get(req.storage_key(), rq.BM_RECVD)
             st.pending_range[req.storage_key()] = (req, sampled, bad_sig)
             pending = None
-            if len(st.pending_range) >= st.expected_range:
+            if (not st.hold_range
+                    and len(st.pending_range) >= st.expected_range):
                 st.range_flushed = True
                 pending = dict(st.pending_range)
         if pending is None:
@@ -276,14 +283,7 @@ class VerifyingNode:
                 log.warn(f"VN {self.name}: joint range verify raised: "
                          f"{traceback.format_exc(limit=8)}")
                 results = [False] * len(to_verify)
-        verdicts = dict(zip(to_verify, results))
-        for k in keys:
-            r, was_sampled, was_bad = pending[k]
-            if was_bad:
-                continue  # BM_BADSIG already recorded at arrival
-            code = (rq.BM_TRUE if verdicts.get(k)
-                    else rq.BM_FALSE) if was_sampled else rq.BM_RECVD
-            self._record(st, k, r.data, code)
+        self._record_verdicts(st, pending, dict(zip(to_verify, results)))
         if PhaseTimers.echo:
             import sys
 
@@ -291,6 +291,101 @@ class VerifyingNode:
                   f"{len(to_verify)}/{len(keys)} payloads: "
                   f"{time.perf_counter() - t0:.3f}s", file=sys.stderr,
                   flush=True)
+
+    def _record_verdicts(self, st: SurveyProofState, pending: dict,
+                         verdicts: dict) -> None:
+        """Record a flushed survey's codes: BM_TRUE or BM_FALSE for each
+        sampled payload by its verdict, BM_RECVD for one not sampled (a
+        bad signature was recorded at arrival)."""
+        for k in sorted(pending):
+            r, was_sampled, was_bad = pending[k]
+            if was_bad:
+                continue
+            code = (rq.BM_TRUE if verdicts.get(k)
+                    else rq.BM_FALSE) if was_sampled else rq.BM_RECVD
+            self._record(st, k, r.data, code)
+
+    def range_ready(self, survey_id: str) -> bool:
+        """True once every expected range payload is buffered (or the
+        survey needs no joint flush): the gate before a cross flush."""
+        st = self.surveys.get(survey_id)
+        if st is None:
+            return False
+        with self._lock:
+            if st.expected_range <= 1 or st.range_flushed:
+                return True
+            return len(st.pending_range) >= st.expected_range
+
+    def flush_ranges_cross(self, survey_ids: list) -> list:
+        """Flush several held surveys' buffered range payloads in one
+        cross-survey check (verify_fns["range_cross"]): one RLC batch and
+        one final exponentiation for the whole batch, the verdicts split
+        back out per survey. Without a cross function each survey flushes
+        jointly on its own. A survey not ready, unknown or already flushed
+        is skipped. If the check raises, every payload of this flush gets
+        BM_FALSE (never memoized); a fault of the program or the card
+        propagates. Returns the survey ids flushed here."""
+        cross = self.verify_fns.get("range_cross")
+        joint = self.verify_fns.get("range_joint")
+        snap: dict[str, dict] = {}
+        with self._lock:
+            for sid in survey_ids:
+                st = self.surveys.get(sid)
+                if st is None or st.range_flushed or st.expected_range <= 0:
+                    continue
+                if len(st.pending_range) < st.expected_range:
+                    continue
+                st.range_flushed = True
+                snap[sid] = dict(st.pending_range)
+        if not snap:
+            return []
+        if cross is None:
+            for sid, pending in snap.items():
+                self._flush_range(self.surveys[sid], sid, pending, joint)
+            return list(snap)
+        t0 = time.perf_counter()
+        to_verify = {sid: [k for k in sorted(p) if p[k][1]]
+                     for sid, p in snap.items()}
+        payloads = {sid: [snap[sid][k][0].data for k in keys]
+                    for sid, keys in to_verify.items() if keys}
+
+        def compute():
+            with _VERIFY_DEVICE_LOCK:
+                return cross(payloads)
+
+        verdicts_by_sid: dict[str, list] = {}
+        if payloads:
+            import hashlib
+
+            h = hashlib.sha256()
+            for sid in sorted(payloads):
+                h.update(sid.encode())
+                for data in payloads[sid]:
+                    h.update(hashlib.sha256(data).digest())
+            try:
+                verdicts_by_sid = self.verify_cache.get_or_compute(
+                    ("range_cross", h.digest()), compute)
+            except Exception as e:
+                if is_fault(e):
+                    raise
+                import traceback
+
+                log.warn(f"VN {self.name}: cross-survey range verify "
+                         f"raised: {traceback.format_exc(limit=8)}")
+                verdicts_by_sid = {sid: [False] * len(p)
+                                   for sid, p in payloads.items()}
+        for sid, pending in snap.items():
+            self._record_verdicts(self.surveys[sid], pending, dict(zip(
+                to_verify[sid], verdicts_by_sid.get(sid, []))))
+        if PhaseTimers.echo:
+            import sys
+
+            n_pay = sum(len(v) for v in payloads.values())
+            print(f"    [vn] {self.name} CROSS-SURVEY range verify of "
+                  f"{n_pay} payloads across {len(snap)} surveys: "
+                  f"{time.perf_counter() - t0:.3f}s", file=sys.stderr,
+                  flush=True)
+        return list(snap)
 
     def bitmap_for(self, survey_id: str) -> dict[str, int]:
         st = self.surveys[survey_id]
@@ -318,15 +413,28 @@ class VNGroup:
 
     def register_survey(self, survey_id: str, expected_proofs: int,
                         thresholds: dict[str, float],
-                        expected_range: int = 0) -> None:
+                        expected_range: int = 0,
+                        hold_range: bool = False) -> None:
         for vn in self.vns:
             vn.register_survey(survey_id, expected_proofs, thresholds,
-                               expected_range=expected_range)
+                               expected_range=expected_range,
+                               hold_range=hold_range)
 
     def deliver(self, req: rq.ProofRequest) -> list:
         """Star fan-out: every VN receives and verifies the proof; returns
         their codes."""
         return [vn.receive_proof(req) for vn in self.vns]
+
+    def flush_cross_survey(self, survey_ids: list) -> list:
+        """The cross-survey flush on every VN (held surveys only); the
+        shared verification cache makes VNs 2..n hits for the same batch.
+        Returns the root VN's flushed survey ids."""
+        out = []
+        for vn in self.vns:
+            flushed = vn.flush_ranges_cross(survey_ids)
+            if vn is self.root:
+                out = flushed
+        return out
 
     def end_verification(self, survey_id: str,
                          timeout: float = rp.VN_GROUP_WAIT_S):

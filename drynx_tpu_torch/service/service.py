@@ -23,6 +23,19 @@ on the main thread from one generator seeded by `seed`, in a fixed order,
 before any proof thread starts, so its payload bytes do not depend on
 thread scheduling.
 
+A grouped survey (`group_by`) encodes every DP's statistics per group of
+the query's group grid, flattens them group-major and proves group g's
+value i against the query's spec i; the querier decodes per group. A
+cutting factor cf > 1 tiles every DP's vector cf times (the reference's
+scale-test knob): every ciphertext and proof is made cf times, and the
+querier decodes the first replica.
+
+A held survey (`execute_survey(hold_range=True)`) keeps its DPs' range
+payloads at the VNs until `VNGroup.flush_cross_survey` checks several
+held surveys in one RLC batch (`range_proof.
+verify_cross_survey_payloads_joint`); `finalize_survey` flushes a held
+survey alone if no cross flush took it.
+
 The DRO noise phase (reference service.py:852-915) encrypts the
 deterministic noise list, passes it through every CN's shuffle and
 re-randomization in roster order, and adds one noise ciphertext to each
@@ -32,10 +45,8 @@ deleted), else from the persistent crypto pool (`LocalCluster(pool=...)`,
 slabs claimed once), else are computed fresh.
 
 Not ported yet, each raising NotImplementedError where it is asked for:
-group-by and cutting factors (steps 8-9), fault probing, responder sets and quorums
-(step 16), durable checkpoints and resumption (step 16), held range
-proofs and the cross-survey flush (step 14), the kernel warm-up registry
-(step 15).
+fault probing, responder sets and quorums (step 16), durable checkpoints
+and resumption (step 16), the kernel warm-up registry (step 15).
 
 Two free functions remain from the earlier slices and serve the cluster:
 `collect_with_range_proofs` (the DPs' encryption and range proofs, one
@@ -169,12 +180,15 @@ class DataProvider:
     """DP role: local data -> sufficient statistics (reference GenerateData,
     data_collection_protocol.go:178-374)."""
 
-    def __init__(self, ident: NodeIdentity, data=None):
+    def __init__(self, ident: NodeIdentity, data=None, groups=None):
         self.ident = ident
         self.data = data  # op-dependent host array (or (X, y) for log_reg)
+        self.groups = groups  # int64 (rows, n_attrs) group labels, or None
 
-    def local_stats(self, op: Operation, rng) -> torch.Tensor:
-        """The DP's (V,) int64 statistics vector, on the CPU."""
+    def local_stats(self, op: Operation, rng, group_by=None) -> torch.Tensor:
+        """The DP's int64 statistics on the CPU: (V,) ungrouped, (n_groups,
+        V) when the query groups (reference GenerateData encodes per group,
+        data_collection_protocol.go:254-267)."""
         if op.name == "log_reg":
             X, y = self.data
             return lr.encode_clear(X, y, op.lr_params)
@@ -182,6 +196,15 @@ class DataProvider:
         if data is None:  # dummy data like createFakeDataForOperation
             data = rng.integers(op.query_min, max(op.query_max, 1),
                                 size=(32,)).astype(np.int64)
+        if group_by:
+            groups = self.groups
+            if groups is None:  # dummy group labels (fake-data path)
+                groups = np.stack(
+                    [rng.choice(np.asarray(vals), size=len(data))
+                     for vals in group_by], axis=-1).astype(np.int64)
+            return st.encode_clear_grouped(op.name, data, groups,
+                                           st.group_grid(group_by),
+                                           op.query_min, op.query_max)
         return st.encode_clear(op.name, data, op.query_min, op.query_max)
 
 
@@ -194,17 +217,15 @@ class Survey:
         self.timers = PhaseTimers()
         self.proof_threads: list[threading.Thread] = []
         self.proof_errors: list[BaseException] = []
+        # a streaming engine's pane or advance survey: its range payloads
+        # verify through the engine's digest-keyed memo
+        self.stream = None
 
 
-def _unported(q: Query, group_by=None, responders=None, hold_range=False,
-              quorum=False) -> None:
+def _unported(responders=None, quorum=False) -> None:
     """Raise for the parts of a survey this port does not run yet."""
-    steps = [(bool(q.group_by or group_by), "group_by", 8),
-             (int(q.cutting_factor) > 1, "cutting_factor > 1", 9),
-             (responders is not None, "responder sets and fault probing", 16),
-             (quorum, "DP and VN quorums", 16),
-             (hold_range, "held range proofs and the cross-survey flush",
-              14)]
+    steps = [(responders is not None, "responder sets and fault probing", 16),
+             (quorum, "DP and VN quorums", 16)]
     for asked, what, step in steps:
         if asked:
             raise NotImplementedError(
@@ -311,17 +332,34 @@ class LocalCluster:
             survey = self.surveys.get(survey_id)
             if survey is None:
                 return False
+            if survey.stream is not None:
+                # a pane blob recurs across a stream's life: the engine's
+                # digest-keyed memo checks each once (service/streaming.py)
+                return survey.stream.verify_pane_blob(data)
             lst = rp.RangeProofList.from_bytes(data, self.device)
             return rp.verify_range_proof_list(
-                lst, list(survey.sq.query.ranges), self._sigs_pub_by_u(),
-                self.coll_tbl.table)
+                lst, self._ranges_per_value(survey.sq.query),
+                self._sigs_pub_by_u(), self.coll_tbl.table)
 
         def vrange_joint(datas: list, survey_id: str) -> list:
             survey = self.surveys.get(survey_id)
             if survey is None:
                 return [False] * len(datas)
             return verify_collected_range_proofs(
-                datas, list(survey.sq.query.ranges), self.range_sigs,
+                datas, self._ranges_per_value(survey.sq.query),
+                self.range_sigs, self.coll_tbl.table)
+
+        def vrange_cross(payloads_by_sid: dict) -> dict:
+            # several held surveys' payloads in one RLC check; a survey the
+            # CN no longer knows verifies all-False
+            expected_by_sid = {}
+            for sid in payloads_by_sid:
+                survey = self.surveys.get(sid)
+                expected_by_sid[sid] = (
+                    None if survey is None
+                    else self._ranges_per_value(survey.sq.query))
+            return rp.verify_cross_survey_payloads_joint(
+                payloads_by_sid, expected_by_sid, self._sigs_pub_by_u(),
                 self.coll_tbl.table)
 
         def vagg(data: bytes, _sid: str) -> bool:
@@ -362,8 +400,26 @@ class LocalCluster:
                         sv.timers.add("AllProofs", dt)
             return wrapped
 
+        def _timed_cross(fn):
+            # one check serves the batch: its time is split evenly over the
+            # batched surveys' timers
+            def wrapped(payloads_by_sid, _fn=fn):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(payloads_by_sid)
+                finally:
+                    share = ((time.perf_counter() - t0)
+                             / max(1, len(payloads_by_sid)))
+                    for sid in payloads_by_sid:
+                        sv = self.surveys.get(sid)
+                        if sv is not None:
+                            sv.timers.add("VerifyRange", share)
+                            sv.timers.add("AllProofs", share)
+            return wrapped
+
         return {"range": _timed("VerifyRange", vrange),
                 "range_joint": _timed("VerifyRange", vrange_joint),
+                "range_cross": _timed_cross(vrange_cross),
                 "aggregation": _timed("VerifyAggregation", vagg),
                 "obfuscation": _timed("VerifyObfuscation", vobf),
                 "keyswitch": _timed("VerifyKeySwitch", vks),
@@ -381,6 +437,13 @@ class LocalCluster:
                               survey_id: Optional[str] = None) -> SurveyQuery:
         op = choose_operation(op_name, query_min, query_max, dims,
                               cutting_factor, lr_params)
+        if group_by and op_name == "log_reg":
+            raise ValueError("group_by is not supported for log_reg")
+        if group_by and cutting_factor > 1 and proofs:
+            # the replica-major tiling of the statistics and the
+            # group-major tiling of the ranges would interleave differently
+            raise ValueError(
+                "cutting_factor > 1 with group_by and proofs is unsupported")
         if (op_name == "log_reg" and proofs and ranges
                 and len(set(map(tuple, ranges))) > 1):
             # the signed-encoding shift derives ONE offset from the spec;
@@ -398,7 +461,6 @@ class LocalCluster:
                   sigs_present=proofs == 1 and ranges is not None
                   and not all(u == 0 and l == 0 for (u, l) in ranges),
                   group_by=group_by)
-        _unported(q)
         sq = SurveyQuery(
             survey_id=survey_id or f"survey-{secrets.token_hex(4)}",
             query=q,
@@ -431,6 +493,15 @@ class LocalCluster:
             # first proof creation
             rp.sig_gt_pow_tables(self.range_sigs[u], self.device)
         return self.range_sigs[u]
+
+    @staticmethod
+    def _ranges_per_value(q) -> list:
+        """The (u, l) spec of every output index: the query's ranges, tiled
+        across the group-by groups (group g's value i takes spec i). The
+        query's ranges already span the cutting-factor replicas
+        (choose_operation multiplies nbr_output by cf, check_parameters
+        holds len(ranges) to it)."""
+        return list(q.ranges) * (q.n_groups() if q.group_by else 1)
 
     # ------------------------------------------------------------------
     # Not ported yet
@@ -576,7 +647,7 @@ class LocalCluster:
         """Phases through decrypt + decode; returns a PendingSurvey whose
         proof verification `finalize_survey` completes."""
         q = sq.query
-        _unported(q, responders=responders, hold_range=hold_range,
+        _unported(responders=responders,
                   quorum=bool(sq.min_dp_quorum) or sq.vn_quorum != 1.0)
         survey = Survey(sq)
         self.surveys[sq.survey_id] = survey
@@ -597,13 +668,20 @@ class LocalCluster:
                  "aggregation": sq.aggregation_proof_threshold,
                  "obfuscation": sq.obfuscation_proof_threshold,
                  "keyswitch": sq.key_switching_proof_threshold},
-                expected_range=nbrs[0])
+                expected_range=nbrs[0], hold_range=hold_range)
 
         # --- DP phase: encode + encrypt (+ range proofs) ----------------
         tm.start("DataCollectionProtocol")
         dp_stats = torch.stack([
-            self.dps[d.name].local_stats(op, self.rng)
-            for d in self.dp_idents]).to(dev)               # (n_dps, V)
+            self.dps[d.name].local_stats(op, self.rng, q.group_by)
+            for d in self.dp_idents])                # (n_dps, V) or (n_dps,G,Vg)
+        # group-major: group g's values at [g*Vg, (g+1)*Vg), so the
+        # element-wise homomorphic sum is the per-group aggregation
+        dp_stats = dp_stats.reshape(dp_stats.shape[0], -1)
+        cf = max(int(q.cutting_factor), 1)
+        # the cutting factor replicates every value, and so every
+        # ciphertext and proof, cf times (reference lib/structs.go:637-639)
+        dp_stats = dp_stats.repeat(1, cf).to(dev)
         n_dps, V = dp_stats.shape
         # Sound range proofs for signed encodings: log-reg coefficients can
         # be negative, which a [0, u^l) digit proof cannot express, so each
@@ -615,9 +693,10 @@ class LocalCluster:
             dp_stats = dp_stats + range_offset
         gen = torch.Generator(device=dev).manual_seed(seed)
         n_noise = (int(q.diffp.noise_list_size) if q.diffp.enabled() else 0)
+        ranges_v = self._ranges_per_value(q) if q.ranges else []
         (enc_rs, range_draws, ks_rs, ks_draws, obf_draws,
-         dro_draws) = self._draw(gen, n_dps, V, list(q.ranges or []),
-                                 proofs_on, q.obfuscation, n_noise)
+         dro_draws) = self._draw(gen, n_dps, V, ranges_v, proofs_on,
+                                 q.obfuscation, n_noise)
         cts = eg.encrypt_ints_with_tables(self.base_table,
                                           self.coll_tbl.table, dp_stats,
                                           enc_rs)           # (n_dps, V, 2,3,16)
@@ -625,7 +704,6 @@ class LocalCluster:
         tm.end("DataCollectionProtocol")
 
         if proofs_on:
-            ranges_v = list(q.ranges)
             sigs_by_u = {u: self.ensure_range_sigs(u)
                          for (u, _l) in rp.group_ranges(ranges_v)}
             # ONE device-batched creation for all DPs (their per-value
@@ -709,16 +787,7 @@ class LocalCluster:
 
         # --- Key switch to the querier's key ----------------------------
         tm.start("KeySwitchingPhase")
-        srv_x = torch.stack([eg.secret_to_limbs(c.secret)
-                             for c in self.cns]).to(dev)
-        # per-server contributions, batched over (ns, V):
-        # U = r·B,  W = r·Q − x·K (commuting; the sums replace the CN chain)
-        u_pts, w_pts = col.keyswitch_contribution(
-            work[None], srv_x[:, None, :], ks_rs, self.client_tbl.table,
-            self.base_table)
-        switched = col.keyswitch_finish(
-            work, flagship._tree_reduce_points(u_pts),
-            flagship._tree_reduce_points(w_pts))
+        srv_x, u_pts, w_pts, switched = self._key_switch(work, ks_rs)
         # the public aggregate shift (one offset per responder) times B
         total = range_offset * n_dps
         if total:
@@ -740,26 +809,61 @@ class LocalCluster:
 
         # --- Querier decrypt + decode -----------------------------------
         tm.start("Decryption")
-        xq = eg.secret_to_limbs(self.client.secret).to(dev)
-        pts = eg.decrypt_point(switched, xq)
-        vals, found = self.dlog.lookup(pts)
-        dec = st.DecryptedVector(
-            values=vals.cpu().numpy().astype(np.int64),
-            found=found.cpu().numpy(),
-            is_zero=C.is_infinity(pts).cpu().numpy())
+        dec = self._decrypt(switched)
+        if cf > 1:
+            # only the first replica is decoded (the others are the scale
+            # test's padding and decrypt to the same values)
+            v0 = V // cf
+            dec = st.DecryptedVector(values=dec.values[:v0],
+                                     found=dec.found[:v0],
+                                     is_zero=dec.is_zero[:v0])
         tm.end("Decryption")
 
         if op.name == "log_reg":
             tm.start("GradientDescent")
-            Ts = lr.unpack(vals.to(torch.int64), op.lr_params)
+            Ts = lr.unpack(torch.from_numpy(dec.values).to(dev),
+                           op.lr_params)
             result = lr.train(Ts, op.lr_params).cpu().numpy()
             tm.end("GradientDescent")
+        elif q.group_by:
+            # per-group decode at the querier (reference api.go:124-128)
+            result = st.decode_grouped(
+                op.name, dec, st.group_grid(q.group_by), op.query_min,
+                op.query_max,
+                dims=(op.nbr_input - 1) if op.name == "lin_reg" else 1)
         else:
             result = st.decode(op.name, dec, op.query_min, op.query_max,
                                dims=(op.nbr_input - 1)
                                if op.name == "lin_reg" else 1)
         return PendingSurvey(survey=survey, sq=sq, result=result,
-                             decrypted=dec, proofs_on=proofs_on)
+                             decrypted=dec, proofs_on=proofs_on,
+                             hold_range=hold_range and proofs_on)
+
+    def _key_switch(self, work, ks_rs):
+        """Switch (V, 2, 3, 16) ciphertexts under the collective key to the
+        querier's: each CN's contribution U = r B, W = r Q - x K, batched
+        over (CNs, V) (the contributions commute, so their sums replace the
+        CN chain). Returns (the CNs' secrets as limbs, U, W, the switched
+        ciphertexts)."""
+        srv_x = torch.stack([eg.secret_to_limbs(c.secret)
+                             for c in self.cns]).to(self.device)
+        u_pts, w_pts = col.keyswitch_contribution(
+            work[None], srv_x[:, None, :], ks_rs, self.client_tbl.table,
+            self.base_table)
+        switched = col.keyswitch_finish(
+            work, flagship._tree_reduce_points(u_pts),
+            flagship._tree_reduce_points(w_pts))
+        return srv_x, u_pts, w_pts, switched
+
+    def _decrypt(self, switched) -> st.DecryptedVector:
+        """The querier's decryption and discrete-log lookup."""
+        xq = eg.secret_to_limbs(self.client.secret).to(self.device)
+        pts = eg.decrypt_point(switched, xq)
+        vals, found = self.dlog.lookup(pts)
+        return st.DecryptedVector(
+            values=vals.cpu().numpy().astype(np.int64),
+            found=found.cpu().numpy(),
+            is_zero=C.is_infinity(pts).cpu().numpy())
 
     def finalize_survey(self, pending: "PendingSurvey") -> "SurveyResult":
         """Join the survey's proof threads, end VN verification, and
@@ -774,6 +878,9 @@ class LocalCluster:
                 t.join(timeout=pol.COLD_COMPILE_WAIT_S)
             if survey.proof_errors:
                 raise survey.proof_errors[0]
+            if pending.hold_range:
+                # a held survey that no cross flush took flushes alone
+                self.vns.flush_cross_survey([sid])
             block = self.vns.end_verification(
                 sid, timeout=pol.COLD_COMPILE_WAIT_S)
             log.lvl2(f"survey {sid}: audit block #{block.index} committed, "
@@ -853,6 +960,7 @@ class PendingSurvey:
     result: object
     decrypted: st.DecryptedVector
     proofs_on: bool
+    hold_range: bool = False
 
 
 @dataclasses.dataclass

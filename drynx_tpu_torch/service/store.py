@@ -4,7 +4,8 @@ The port's counterpart of drynx_tpu/service/store.py: `ProofDB` is the
 reference's pure-Python branch of its keyed byte store (an append-only log
 of length-prefixed key/value records, last write wins, reloaded on reopen:
 the same file layout), with the same API; the native C++ log is not built.
-`SurveyCheckpoint` is a copy. It replaces the reference's bbolt store
+`SurveyCheckpoint` and `pane_key` (a streaming pane's blob) are copies.
+It replaces the reference's bbolt store
 (services/service_skipchain.go:489, protocols/proof_collection_protocol.go
 :318-359).
 """
@@ -73,6 +74,16 @@ class ProofDB:
 
 _CKPT_PREFIX = b"ckpt:"
 
+# A streaming survey's sealed panes keep their range-proof blobs in the same
+# log, under a prefix no other path uses: a pane never changes, so every
+# window slide and a restarted engine reuse the stored blob as it is.
+_PANE_PREFIX = b"pane:"
+
+
+def pane_key(stream_id: str, pane_id: int, dp_name: str) -> bytes:
+    """ProofDB key of one (stream, pane, DP) range-proof blob."""
+    return _PANE_PREFIX + f"{stream_id}/{int(pane_id)}/{dp_name}".encode()
+
 
 @dataclasses.dataclass
 class SurveyCheckpoint:
@@ -119,4 +130,4 @@ class SurveyCheckpoint:
         return cls.from_bytes(raw) if raw else None
 
 
-__all__ = ["ProofDB", "SurveyCheckpoint"]
+__all__ = ["ProofDB", "SurveyCheckpoint", "pane_key"]

@@ -592,9 +592,11 @@ def test_kernel_faults_propagate_out_of_the_vns(survey, exc):
 
 
 def test_unported_options_raise(survey):
-    """Group-by, cutting factors, held ranges, quorums, probing and
-    checkpoints raise; DRO noise (ported) is accepted, with its shuffle
-    proofs counted and thresholded."""
+    """Responder sets, quorums, probing and checkpoints (step 16) raise;
+    DRO noise, group-by and cutting factors (ported) are accepted, with the
+    shuffle proofs counted and thresholded and the output sized by groups
+    and replicas. Grouped, cut and held surveys run in
+    tests/test_torch_groupby.py and tests/test_torch_held_range.py."""
     cluster = survey.cluster
     diffp = TQ.DiffPParams(noise_list_size=4, lap_scale=2.0, quanta=1.0,
                            scale=1.0, limit=8.0)
@@ -603,11 +605,12 @@ def test_unported_options_raise(survey):
                                        thresholds=0.5)
     assert sq.threshold == 0.5
     assert TQ.query_to_proofs_nbrs(sq)[1] == N_CNS
-    for kw in ({"group_by": [[0, 1]]}, {"cutting_factor": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cluster.generate_survey_query("sum", **kw)
-    with pytest.raises(NotImplementedError, match="step 14"):
-        cluster.execute_survey(survey.sq, hold_range=True)
+    grouped = cluster.generate_survey_query("sum", group_by=[[0, 1]])
+    assert grouped.query.n_groups() == 2
+    cut = cluster.generate_survey_query("mean", cutting_factor=2)
+    assert cut.query.operation.nbr_output == 4
+    with pytest.raises(NotImplementedError, match="step 16"):
+        cluster.execute_survey(survey.sq, responders=["dp0"])
     for kw in ({"min_dp_quorum": 1}, {"vn_quorum": 0.5}):
         with pytest.raises(NotImplementedError, match="step 16"):
             cluster.execute_survey(dataclasses.replace(survey.sq, **kw))

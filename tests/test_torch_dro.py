@@ -457,15 +457,59 @@ def test_chip_smoke_holds_kept_calls_against_plain(monkeypatch):
         cuda_ops.point_reduce_flat(torch.stack([p, q]).transpose(0, 1)
                                    .contiguous())
     assert cuda_ops.scalar_mul_flat is before
-    assert kept.hold() == {"fixed_base_mul": [7], "fp_inv": [7],
-                           "point_add": [7], "point_reduce": [(3, 5), (5, 2)],
-                           "scalar_mul": [7]}
-    out = kept.kept["scalar_mul_flat"][2]
-    for row in (0, 6):
+    assert kept.hold() == {"fixed_base_mul": [("", 7, (2,))],
+                           "fp_inv": [("", 7)], "point_add": [("", 7)],
+                           "point_reduce": [("", (3, 5)), ("", (5, 2))],
+                           "scalar_mul": [("", 7, (("n_windows", 1),))]}
+    # the kept rows of the 7-row call: 0, 1 and 5, 6
+    out = kept.kept[("scalar_mul_flat", "", (("n_windows", 1),))][2]
+    assert len(out) == 4
+    for row in (0, 3):
         out[row, 0, 0] ^= 1
-        with pytest.raises(SystemExit, match="scalar_mul_flat at 7 rows"):
+        with pytest.raises(SystemExit,
+                           match=r"scalar_mul_flat at \[\('', 7"):
             kept.hold()
         out[row, 0, 0] ^= 1
+
+
+def test_chip_smoke_kept_calls_of_tags_share_one_plain_run(monkeypatch):
+    """Phases 10-12's KeptCalls keep the pairing wrappers too, one largest
+    call per wrapper and tag, and hold the kept rows of every tag with the
+    same other arguments in one plain run (the Fp12 product: one run; the
+    slot maps: one a map)."""
+    from drynx_tpu_torch.crypto import cuda_pairing as CP
+    from drynx_tpu_torch.crypto import fp12 as TF12
+    from drynx_tpu_torch.crypto import params as TPAR
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "KEPT_EDGE", 2)
+    rng = np.random.default_rng(5)
+    a = TF12.from_ref_batch([tuple(
+        (int(rng.integers(1, 2 ** 62)) % TPAR.P,
+         int(rng.integers(1, 2 ** 62)) % TPAR.P) for _ in range(6))
+        for _ in range(6)])
+    plain_calls = []
+    mul_plain = CP.f12_mul_plain
+    monkeypatch.setattr(CP, "f12_mul_plain", lambda *x: plain_calls.append(
+        len(x[0])) or mul_plain(*x))
+    kept = cs.KeptCalls([w for w in cs.KeptCalls.PAIRING
+                         if w[1] in ("f12_mul_flat", "f12_slotmul_flat")])
+    with kept:
+        for tag, n in (("x", 3), ("y", 6), ("y", 5)):
+            kept.tag = tag
+            CP.f12_mul_flat(a[:n], a[:n])
+            for which in ("frob1", "conj6"):
+                CP.f12_slotmul_flat(a[:n], which)
+    plain_calls.clear()     # on the CPU the wrappers ran the plain version
+    assert kept.hold() == {
+        "f12_mul": [("x", 3), ("y", 6)],
+        "f12_slotmul": [("x", 3, ("conj6",)), ("y", 6, ("conj6",)),
+                        ("x", 3, ("frob1",)), ("y", 6, ("frob1",))]}
+    # 3 rows of tag x and the 4 edge rows of tag y's 6-row call
+    assert plain_calls == [3 + 4]
+    kept.kept[("f12_mul_flat", "y", ())][2][3, 0, 0, 0] ^= 1
+    with pytest.raises(SystemExit, match="f12_mul_flat at"):
+        kept.hold()
 
 
 @pytest.mark.slow

@@ -130,6 +130,25 @@ def test_range_proof_tables_and_decoders_need_cuda_unless_the_cpu_is_named(
         assert got == (batch if name == "batch_from_bytes" else payload)
 
 
+def test_load_precompute_needs_cuda_unless_the_cpu_is_named(monkeypatch,
+                                                             tmp_path):
+    """A persisted DRO precomputation loads onto the card by default, onto
+    the CPU only when it is named."""
+    from drynx_tpu_torch.parallel import dro
+
+    path = str(tmp_path / "precomp.npz")
+    zero_ct = torch.arange(2 * 2 * 3 * 16, dtype=torch.int32).reshape(
+        2, 2, 3, 16)
+    r = torch.arange(2 * 16, dtype=torch.int32).reshape(2, 16)
+    dro.save_precompute(path, (zero_ct, r))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dro.load_precompute(path)
+    got = dro.load_precompute(path, "cpu")
+    assert got[0].device.type == "cpu"
+    assert torch.equal(got[0], zero_ct) and torch.equal(got[1], r)
+
+
 def _gt(k):
     """gtB^k on the host: (6, 2, 16) limbs."""
     return F12.from_ref(refimpl.fp12_pow(refimpl.pair(refimpl.G1, refimpl.G2),
