@@ -133,13 +133,17 @@ Phases (any failed check exits non-zero; nothing is caught):
      digit proofs), counted: the four replicas decrypt equal, the first
      equal to the clear sums, the weights within 1e-3 of CPU GD, an
      all-BM_TRUE block. Print the wall times.
-  11. Run four of phase 7's surveys (survey seeds 0-3) with
-     `execute_survey(hold_range=True)`, wait until every VN holds their
-     range payloads (`range_ready`), flush them with one
-     `VNGroup.flush_cross_survey`, and finalize each, counted: four
+  11. Run four of phase 7's surveys (survey seeds 0-3) through
+     `server.SurveyServer(max_batch=4, pipeline=True)`: the first submit
+     takes the compile lane (the warm-up registry on the drain thread,
+     its seconds and `CompileStats` table printed), the other three the
+     fast lane; the four run as one group, held, flushed by one
+     `VNGroup.flush_cross_survey` (one `Pipeline.flush.*` span over the
+     four ids) and finalized on the `server-verify` thread, counted: four
      all-BM_TRUE blocks, every survey's decrypted statistics equal to the
      clear sums and its weights within 1e-3 of CPU GD, one RLC check of
-     54,000 digit proofs in the flush. Then the four surveys' 40 range
+     54,000 digit proofs in the flush, every kernel launched an entry of
+     the registry for the batch's profile. Then the four surveys' 40 range
      payloads from a VN's store, re-signed and held again at that VN with
      one Zv byte of DP 3's payload of the third survey changed, flushed as
      one cross batch: BM_FALSE for that envelope only, every other BM_TRUE.
@@ -157,15 +161,36 @@ Phases (any failed check exits non-zero; nothing is caught):
      advance's bytes and transcript and every pane's transcript
      reproduced); every block all BM_TRUE. Print the pane seal, advance
      and scratch times and their ratio.
+  13. The standing server and its load, on scripts/bench_load.py's
+     transcript cluster (2 CNs, 2 DPs, 2 VNs, seed 13, two values a DP):
+     (a) proofs-on sums s0, s1 (ranges (4, 2)) and s2 ((4, 3)) through
+     `SurveyServer` at one and at two verify workers, each on a fresh
+     cluster after `prewarm(s0)`: all three in the fast lane (s2's shape
+     names no entry that s0's warm-up left cold: the same base u), s0 and
+     s1 flushed together, s2 alone, equal transcripts across the worker
+     counts, every result the clear sum, all-BM_TRUE blocks, the pipeline
+     overlap and the server's spans printed (encode, payload wait, flush,
+     verify), no cold event (library load or table build) off the drain
+     thread and no table built inside a survey, exact launches; (b) a
+     closed loop of 16 proofs-off `sum` and `mean` surveys from two
+     tenants through `LoadGen` (concurrency 4): every offer completed or rejected with a
+     type, none lost, every answer the clear one, exact launches, the
+     throughput and latency percentiles printed; (c) `precompile(BENCH)`
+     on the warm process: every library loaded, every kernel entry
+     executed, no error.
+  Phases 7-12 warm their clusters' kernels in their first proofs-on
+  survey (`LocalCluster._warm_kernels`), whose PrecompileTraceExec
+  is printed beside its time; the warm-up's launches are its own
+  (`cuda_build.uncounted`), so every count above is the survey's.
   Phases 10-12 keep each kernel's largest call of each phase (KeptCalls,
-  all 14 kernels of the survey paths) and hold them, at the end, byte for
-  byte against the plain versions. Last, the kernels' times, launch counts
+  all 14 kernels of the survey paths; never a warm-up call) and hold
+  them, at the end, byte for byte against the plain versions. Last, the kernels' times, launch counts
   and bounds as one JSON line, the card's name and power limit, and the
   contract line {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --only 10a,10b,11,12
+    python3 chip_smoke.py --only 10a,10b,11,12,13
 
-builds the kernels and runs only the named phases of 10-12 (no JSON line).
+builds the kernels and runs only the named phases of 10-13 (no JSON line).
 
 It imports nothing of JAX and nothing of the drynx_tpu package.
 """
@@ -350,6 +375,19 @@ CUT, HELD = 4, 4
 # by 2 (51 panes)
 STREAM = dict(n_cns=2, n_dps=2, n_vns=2, seed=7, dlog=90_000, V=16,
               ranges=(16, 4), pw=12_500, w=48, data_seed=3, engine_seed=21)
+# the server and its load: the cluster of scripts/bench_load.py:389-430
+# (child_transcripts): 2 CNs, 2 DPs, 2 VNs, seed 13, dlog +-4,000, two
+# values a DP from default_rng(5) in [0, 4); proofs-on `sum` surveys over
+# [0, 15], s0 and s1 with ranges (4, 2), s2 with (4, 3); then a closed
+# loop of proofs-off `sum` and `mean` surveys from two tenants
+LOAD = dict(n_cns=2, n_dps=2, n_vns=2, seed=13, dlog=4000, data_seed=5,
+            rows=2, qmax=15, ranges=((4, 2), (4, 2), (4, 3)),
+            concurrency=4, total=16)
+# a proofs-off cluster survey's launches: encryption (three fixed-base
+# products, an add), the canonical aggregate (a reduce, a normalization),
+# the key switch (two fixed-base products, a ladder, an add, two reduces,
+# the finish's add) and decryption (a ladder, an add, a normalization)
+PROOFS_OFF_LAUNCHES = {**EXPECTED_LAUNCHES, "fp_inv": 2}
 # an advance's survey tail: the VNs' check of the CNs' aggregation proof (a
 # reduce over the window's folds), the key switch (two fixed-base products,
 # a ladder, an add, two reduces over the 2 CNs, the finish's add) and
@@ -974,8 +1012,8 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
     launches7 = launch_counts()
     rows7 = {k: dict(sorted(v.items()))
              for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
-    print(f"phase 7: first proofs-on cluster survey {first_s:.3f} s; "
-          f"launches {launches7}", flush=True)
+    print(f"phase 7: first proofs-on cluster survey {first_s:.3f} s, "
+          f"{warm_s(res.timers)}; launches {launches7}", flush=True)
     print(f"phase 7: launch shapes, {{kernel: {{rows: launches}}}}: {rows7}",
           flush=True)
     if launches7 != EXPECTED_LAUNCHES_CLUSTER:
@@ -1090,8 +1128,8 @@ def phase8(zero_launches, launch_counts):
         launches8 = launch_counts()
         rows8 = {k: dict(sorted(v.items()))
                  for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
-        print(f"phase 8: first obfuscated max survey {first_s:.3f} s; "
-              f"launches {launches8}", flush=True)
+        print(f"phase 8: first obfuscated max survey {first_s:.3f} s, "
+              f"{warm_s(res.timers)}; launches {launches8}", flush=True)
         print(f"phase 8: launch shapes, {{kernel: {{rows: launches}}}}: "
               f"{rows8}", flush=True)
         if launches8 != EXPECTED_LAUNCHES_MAX:
@@ -1186,7 +1224,9 @@ class KeptCalls:
     byte for byte against the plain versions on the card: the reduce one
     call a shape, a row-wise kernel the kept rows of every tag in one plain
     call for each set of its other arguments (row i of a row-wise kernel
-    does not depend on the others). Keeping launches nothing."""
+    does not depend on the others). Keeping launches nothing, and a call
+    that the warm-up registry makes (uncounted: `cuda_build.counting()` is
+    false) is not kept."""
 
     # (module, wrapper, the positional arguments indexed by row; None: the
     # reduce, whose output rows sum its input's)
@@ -1211,11 +1251,15 @@ class KeptCalls:
         self.wrappers = list(wrappers)
         self.mods = {m: importlib.import_module(f"drynx_tpu_torch.crypto.{m}")
                      for m, _, _ in self.wrappers}
+        self.cuda_build = importlib.import_module(
+            "drynx_tpu_torch.utils.cuda_build")
         self.kept, self.lock, self.tag = {}, threading.Lock(), ""
 
     def _keeper(self, orig, name, row_args):
         def call(*a, **k):
             out = orig(*a, **k)
+            if not self.cuda_build.counting():
+                return out       # the warm-up registry's launches
             with self.lock:
                 if row_args is None:
                     key = (name, self.tag, tuple(a[0].shape[:2]))
@@ -1422,8 +1466,8 @@ def phase9(zero_launches, launch_counts):
     try:
         # (a) fresh precomputation
         first, res, launches9, rows9, n0, _ = run(cluster, sq)
-        print(f"phase 9a: first noised sum {first:.3f} s; launches "
-              f"{launches9}", flush=True)
+        print(f"phase 9a: first noised sum {first:.3f} s, "
+              f"{warm_s(res.timers)}; launches {launches9}", flush=True)
         print(f"phase 9a: launch shapes, {{kernel: {{rows: launches}}}}: "
               f"{rows9}", flush=True)
         if launches9 != want[True]:
@@ -1567,7 +1611,7 @@ def phase9(zero_launches, launch_counts):
                 torch.cuda.synchronize()
                 fill_s = time.perf_counter() - t0
                 calls, st0 = dro.PRECOMPUTE_CALLS, pool.stats()
-                wall_c, _, launches_c, *_ = run(cp, sqp)
+                wall_c, res_c, launches_c, *_ = run(cp, sqp)
                 st = pool.stats()
                 if (launches_c != want[False] or dro.PRECOMPUTE_CALLS != calls
                         or st["consumed"] - st0["consumed"] != N_SERVERS
@@ -1578,6 +1622,7 @@ def phase9(zero_launches, launch_counts):
                 cp.close()
         print(f"phase 9c: refill_to filled {n_fill} slabs of {NOISE_SIZE} "
               f"in {fill_s:.3f} s; the pooled noised sum {wall_c:.3f} s "
+              f"({warm_s(res_c.timers)}) "
               f"consumed {N_SERVERS} (stats {st})", flush=True)
     finally:
         dro.shuffle_rerandomize = shuffle
@@ -1622,6 +1667,14 @@ def phase9(zero_launches, launch_counts):
           f"filled in {fill_s:.3f} s); each output a permutation of the "
           f"clear list", flush=True)
     return launches9, walls9
+
+
+def warm_s(timers):
+    """The kernel warm-up's seconds in a run's timers (LocalCluster's
+    first proofs-on survey runs `compilecache.precompile`)."""
+    t = dict(timers.items()).get("PrecompileTraceExec")
+    return ("no warm-up (the cluster was warm)" if t is None
+            else f"warm-up (PrecompileTraceExec) {t:.3f} s of it")
 
 
 def check_block(block, want_entries, what):
@@ -1720,8 +1773,8 @@ def phase10a(zero_launches, launch_counts, kept):
     rows = {k: dict(sorted(v.items()))
             for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
     want = survey_launches(digit_proofs, signed_offset=False)
-    print(f"phase 10a: first grouped survey {first:.3f} s; launches "
-          f"{launches}", flush=True)
+    print(f"phase 10a: first grouped survey {first:.3f} s, "
+          f"{warm_s(res.timers)}; launches {launches}", flush=True)
     print(f"phase 10a: launch shapes, {{kernel: {{rows: launches}}}}: {rows}",
           flush=True)
     if launches != want:
@@ -1802,8 +1855,8 @@ def phase10b(cluster, stats, params, zero_launches, launch_counts, kept):
     rows = {k: dict(sorted(v.items()))
             for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
     want = survey_launches(digit_proofs, signed_offset=True)
-    print(f"phase 10b: first cut survey {first:.3f} s; launches {launches}",
-          flush=True)
+    print(f"phase 10b: first cut survey {first:.3f} s, {warm_s(res.timers)}; "
+          f"launches {launches}", flush=True)
     print(f"phase 10b: launch shapes, {{kernel: {{rows: launches}}}}: {rows}",
           flush=True)
     if launches != want:
@@ -1821,13 +1874,17 @@ def phase10b(cluster, stats, params, zero_launches, launch_counts, kept):
 
 def phase11(cluster, stats, params, zero_launches, launch_counts, kept,
             verify_range_alone):
-    """Four of phase 7's surveys held, their range payloads flushed in one
-    cross-survey check, then finalized; the payloads replayed to one VN
-    with one tampered and flushed again. Returns (launches of the batch,
-    [its wall time, the replay's])."""
+    """Four of phase 7's surveys through `SurveyServer` (max_batch 4,
+    pipelined): the first submit takes the compile lane, the others the
+    fast lane; the four run as one group, their range payloads held and
+    flushed in one cross-survey check on the verify worker, then
+    finalized there; the payloads then replayed to one VN with one
+    tampered and flushed again. Returns (launches of the batch, [its wall
+    time, the replay's])."""
+    from drynx_tpu_torch import compilecache as cc
     from drynx_tpu_torch.proofs import range_proof as rp
     from drynx_tpu_torch.proofs import requests as rq
-    from drynx_tpu_torch.resilience import policy as pol
+    from drynx_tpu_torch.server import SurveyServer
     from drynx_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
@@ -1847,59 +1904,87 @@ def phase11(cluster, stats, params, zero_launches, launch_counts, kept,
         return batch_verify(pb, *a, **k)
 
     tampered = (sids[2], cluster.dp_idents[TAMPER_DP].name)
+    finalized = []
+
+    def finalize(p, _fn=cluster.finalize_survey):
+        finalized.append((p.sq.survey_id, threading.current_thread().name))
+        return _fn(p)
 
     def batch():
         for vn in cluster.vns.vns:
             vn.verify_cache.clear()
+        server = SurveyServer(cluster, max_batch=HELD, pipeline=True)
         zero_launches()
+        checks.clear()
+        rp.verify_range_proofs_batch = counted
+        cluster.finalize_survey = finalize
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pendings = [cluster.execute_survey(sq, seed=i, hold_range=True)
-                        for i, sq in enumerate(sqs)]
-            # the payloads are built on proof threads: wait until every VN
-            # holds every survey's, as the scheduler does, then flush
-            deadline = time.monotonic() + pol.COLD_COMPILE_WAIT_S
-            while not all(vn.range_ready(sid) for vn in cluster.vns.vns
-                          for sid in sids):
-                if time.monotonic() > deadline:
-                    raise SystemExit("held payloads never arrived")
-                time.sleep(pol.POLL_INTERVAL_S)
-            checks.clear()
-            rp.verify_range_proofs_batch = counted
-            t1 = time.perf_counter()
-            flushed = cluster.vns.flush_cross_survey(sids)
-            torch.cuda.synchronize()
-            flush_s = time.perf_counter() - t1
-            rp.verify_range_proofs_batch = batch_verify
-            results = [cluster.finalize_survey(p) for p in pendings]
+            # the first submit finds the shape cold; one scheduling step
+            # runs the compile lane (the warm-up on this thread), and the
+            # rest of the batch then finds it warm
+            lanes = [server.submit(sqs[0], seed=0).lane]
+            server._drain_step()
+            lanes += [server.submit(sq, seed=i).lane
+                      for i, sq in enumerate(sqs) if i]
+            out = server.drain()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
             rp.verify_range_proofs_batch = batch_verify
-        if sorted(flushed) != sorted(sids):
-            raise SystemExit(f"the cross flush took {flushed}, not {sids}")
+            del cluster.finalize_survey
+        if lanes != ["compile"] + ["fast"] * (HELD - 1):
+            raise SystemExit(f"admission lanes {lanes}")
+        bad = {k: v for k, v in out.items() if isinstance(v, Exception)}
+        if bad or sorted(out) != sorted(sids):
+            raise SystemExit(f"the server's results: {sorted(out)}, errors "
+                             f"{bad}")
+        flushes = [n for n, _, _ in server.timers.spans("Pipeline.flush.")]
+        if flushes != ["Pipeline.flush." + "+".join(sids)]:
+            raise SystemExit(f"the batch's flushes {flushes}, not one over "
+                             f"all {HELD} surveys")
+        if sorted(finalized) != sorted((sid, "server-verify")
+                                       for sid in sids):
+            raise SystemExit(f"finalized on {finalized}")
+        results = [out[sid] for sid in sids]
         for res in results:
             if not np.array_equal(res.decrypted.values, clear):
                 raise SystemExit("a held survey's decrypted statistics "
                                  "differ from phase 7's (the clear sums)")
             lr_weights_ok(res, params, "held survey")
-        return wall, flush_s, results, launch_counts(), list(checks)
+        (_, c0, c1), = server.timers.spans("Compile.")
+        (_, f0, f1), = server.timers.spans("Pipeline.flush.")
+        return (wall, f1 - f0, results, launch_counts(), list(checks),
+                server, c1 - c0)
 
     kept.tag = "11"
     with kept:
-        wall, flush_s, results, launches, checks1 = batch()
+        wall, flush_s, results, launches, checks1, server, compile_s = batch()
     rows = {k: dict(sorted(v.items()))
             for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
     want = {k: HELD * (v - EXPECTED_LAUNCHES_VERIFY[k])
             for k, v in EXPECTED_LAUNCHES_CLUSTER.items()}
     add_launches(want, verify_launches(digit_proofs))
-    print(f"phase 11: first held batch {wall:.3f} s; launches {launches}",
-          flush=True)
+    print(f"phase 11: the server's compile lane {compile_s:.3f} s on the "
+          f"drain thread; its warm-up entries:\n"
+          + server.compile_stats.table(), flush=True)
+    print(f"phase 11: first held batch through SurveyServer {wall:.3f} s "
+          f"({wall - compile_s:.3f} s without the compile lane); lanes "
+          f"compile, then fast x{HELD - 1}; one group, one flush; finalized "
+          f"on server-verify; launches {launches}", flush=True)
     print(f"phase 11: launch shapes, {{kernel: {{rows: launches}}}}: {rows}",
           flush=True)
     if launches != want:
         raise SystemExit(f"held batch launches {launches} differ from {want}")
+    names = {e.name for e in cc.build_registry(
+        server.admission.profile_for(sqs[0]), cluster)}
+    missing = sorted(f"kernel:{k}" for k in cuda_build.LAUNCH_ROWS
+                     if f"kernel:{k}" not in names)
+    if missing:
+        raise SystemExit(f"launches outside the registry: {missing}")
+    print(f"  every kernel the batch launched names an entry of the "
+          f"registry for its profile", flush=True)
     for res in results:
         check_block(res.block, N_VNS * (NUM_DPS + 2 * N_SERVERS),
                     "held survey")
@@ -2023,7 +2108,8 @@ def phase12(zero_launches, launch_counts, kept):
     eng = mk("hl", ProofDB(db_path))
     torch.cuda.synchronize()
     print(f"phase 12 setup: cluster and {W + 3} panes of {PW} rows a DP, "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s, the engine's "
+          f"{warm_s(eng.timers)}", flush=True)
     kept.tag = "12"
     with kept:
         a0, fill_s, l0 = timed(eng, {n: r[:W].reshape(-1)
@@ -2112,6 +2198,169 @@ def phase12(zero_launches, launch_counts, kept):
     cluster.close()
     tmp.cleanup()
     return l1, [adv_s]
+
+
+def phase13(zero_launches, launch_counts):
+    """The standing server and its load on the card: (a) chip_smoke's
+    LOAD surveys through `SurveyServer` at one and at two verify workers,
+    each on a fresh cluster; (b) a closed loop of proofs-off surveys from
+    two tenants through `LoadGen` on the second; (c) `precompile(BENCH)`
+    on the warm process. Returns (launches of (a) and (b), [(a)'s wall
+    times, (b)'s]."""
+    from drynx_tpu_torch import compilecache as cc
+    from drynx_tpu_torch.proofs import range_proof as rp
+    from drynx_tpu_torch.server import SurveyServer, pipeline_overlap
+    from drynx_tpu_torch.server.loadgen import LoadGen, ShapeMix
+    from drynx_tpu_torch.server.transcript import transcript_digest
+    from drynx_tpu_torch.service.service import LocalCluster
+
+    S = LOAD
+    sids = ("s0", "s1", "s2")
+
+    def boot():
+        cl = LocalCluster(n_cns=S["n_cns"], n_dps=S["n_dps"],
+                          n_vns=S["n_vns"], seed=S["seed"],
+                          dlog_limit=S["dlog"])
+        rng = np.random.default_rng(S["data_seed"])
+        for dp in cl.dps.values():
+            dp.data = rng.integers(0, 4, size=(S["rows"],)).astype(np.int64)
+        return cl
+
+    def queries(cl):
+        return [cl.generate_survey_query("sum", 0, S["qmax"], proofs=1,
+                                         ranges=[r], survey_id=sid)
+                for sid, r in zip(sids, S["ranges"])]
+
+    def digits(r):
+        return S["n_dps"] * r[1] * S["n_cns"]
+
+    # s0 and s1 held and flushed together, s2 alone
+    p0, p2 = digits(S["ranges"][0]), digits(S["ranges"][2])
+    want_a = survey_launches(p2, signed_offset=False)
+    add_launches(want_a, {k: v - verify_launches(p0).get(k, 0) for k, v in
+                          survey_launches(p0, signed_offset=False).items()},
+                 2)
+    add_launches(want_a, verify_launches(2 * p0))
+
+    digests, walls, keep = {}, [], None
+    for workers in (1, 2):
+        t0 = time.perf_counter()
+        cl = boot()
+        srv = SurveyServer(cl, max_batch=3, pipeline=True, workers=workers)
+        sqs = queries(cl)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        mark = cc.COLD_EVENTS.mark()
+        t0 = time.perf_counter()
+        pre = srv.prewarm(sqs[0])
+        prewarm_s = time.perf_counter() - t0
+        builds = dict(rp.SIG_BUILD_COUNTS)
+        zero_launches()
+        t0 = time.perf_counter()
+        lanes = [srv.submit(sq).lane for sq in sqs]
+        out = srv.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        events = cc.COLD_EVENTS.since(mark)
+        clear = sum(int(d.data.sum()) for d in cl.dps.values())
+        flushes = [n for n, _, _ in srv.timers.spans("Pipeline.flush.")]
+        overlap = pipeline_overlap(srv.timers)
+        timeline = ", ".join(f"{n} {a - t0:.3f}-{b - t0:.3f}"
+                             for n, a, b in sorted(srv.timers.spans(),
+                                                   key=lambda x: x[1]))
+        off = [e for e in events if e[2] != "MainThread"]
+        if (pre.lane != "fast" or lanes != ["fast", "fast", "fast"]
+                or flushes != ["Pipeline.flush.s0+s1"]):
+            raise SystemExit(f"13a (workers={workers}): prewarm {pre.lane}, "
+                             f"lanes {lanes}, flushes {flushes}")
+        for sid in sids:
+            res = out[sid]
+            if isinstance(res, Exception) or int(res.result) != clear:
+                raise SystemExit(f"13a: survey {sid} gave {res!r}, clear "
+                                 f"sum {clear}")
+            check_block(res.block, S["n_vns"] * (S["n_dps"]
+                                                 + 2 * S["n_cns"]),
+                        f"13a survey {sid}")
+        if off or dict(rp.SIG_BUILD_COUNTS) != builds:
+            raise SystemExit(f"13a: cold work off the drain thread {off}, "
+                             f"table builds {builds} -> "
+                             f"{rp.SIG_BUILD_COUNTS} inside the surveys")
+        if launches != want_a:
+            raise SystemExit(f"13a launches {launches} differ from {want_a}")
+        digests[workers] = {sid: transcript_digest(cl.vns, sid)
+                            for sid in sids}
+        walls.append(wall)
+        print(f"phase 13a (workers={workers}): cluster {boot_s:.2f} s, "
+              f"prewarm(s0) {prewarm_s:.3f} s (the compile lane); s0, s1 "
+              f"fast and flushed together, s2 fast (no cold entry) and "
+              f"alone; the three surveys {wall:.3f} s, pipeline overlap "
+              f"{overlap:.3f} s; results = the clear sum {clear}, blocks "
+              f"all BM_TRUE; cold events {len(events)}, all on the drain "
+              f"thread; launches {launches}\n  spans (s from submit): "
+              f"{timeline}", flush=True)
+        if keep is not None:
+            keep.close()
+        keep = cl
+    if digests[1] != digests[2]:
+        raise SystemExit(f"13a: transcripts differ across worker counts: "
+                         f"{digests}")
+    print(f"  transcripts equal at 1 and 2 workers: "
+          f"{ {s: d[:16] for s, d in digests[2].items()} }", flush=True)
+
+    # (b) a closed loop on the two-worker cluster: proofs-off surveys
+    cl = keep
+    clear = np.concatenate([d.data for d in cl.dps.values()])
+    truth = {"sum": int(clear.sum()), "mean": float(clear.mean())}
+    srv = SurveyServer(cl, max_batch=4, pipeline=True, workers=2)
+    shapes = [ShapeMix("sum", proofs=0), ShapeMix("mean", proofs=0)]
+    lg = LoadGen(srv, shapes=shapes, tenants={"t0": 1.0, "t1": 1.0},
+                 seed=13, query_fn=lambda sid, shape:
+                 cl.generate_survey_query(shape.name, 0, S["qmax"], proofs=0,
+                                          survey_id=sid))
+    zero_launches()
+    t0 = time.perf_counter()
+    rep = lg.run_closed(concurrency=S["concurrency"], n_total=S["total"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    launches_b = launch_counts()
+    out = srv.results()
+    r = rep["rejected"]
+    if (rep["lost"] or rep["errors"] or rep["completed"] != S["total"]
+            or rep["offered"] != rep["completed"] + sum(r.values())):
+        raise SystemExit(f"13b accounting: {rep}")
+    wrong = {rec.survey_id: out[rec.survey_id].result for rec in lg.records
+             if rec.outcome == "ok"
+             and out[rec.survey_id].result != truth[rec.shape]}
+    if wrong:
+        raise SystemExit(f"13b answers {wrong}, clear {truth}")
+    want_b = {k: v * S["total"] for k, v in PROOFS_OFF_LAUNCHES.items()}
+    if launches_b != want_b:
+        raise SystemExit(f"13b launches {launches_b} differ from {want_b}")
+    lat = rep["latency_s"]
+    print(f"phase 13b: closed loop, concurrency {S['concurrency']}, "
+          f"{S['total']} proofs-off sum and mean surveys from 2 tenants: "
+          f"offered {rep['offered']}, completed {rep['completed']}, rejected "
+          f"{r}, lost {rep['lost']}; every answer = the clear one; "
+          f"{load_s:.3f} s, throughput {rep['throughput_sps']} surveys/s, "
+          f"latency p50 {lat['p50']} s, p90 {lat['p90']} s, p99 {lat['p99']}"
+          f" s, max {lat['max']} s; per tenant {rep['per_tenant']}; "
+          f"launches {launches_b}", flush=True)
+    cl.close()
+
+    # (c) the warm-up of the reference's bench profile on the warm process
+    t0 = time.perf_counter()
+    stats = cc.precompile(cc.BENCH, stats=cc.CompileStats(),
+                          log=lambda m: None)
+    t = stats.totals()
+    n_kernels = sum(1 for e in cc.build_registry(cc.BENCH)
+                    if e.kind == "kernel")
+    print(f"phase 13c: precompile(BENCH) on the warm process "
+          f"{time.perf_counter() - t0:.3f} s:\n{stats.table()}", flush=True)
+    if (t["errors"] or t["loaded"] != len(cc.registry.LIBRARIES)
+            or t["executed"] != n_kernels + 1):
+        raise SystemExit(f"13c: {t}")
+    return add_launches(dict(want_a), launches_b), walls + [load_s]
 
 
 def new_phases(stats, X, y, params, zero_launches, launch_counts,
@@ -2217,8 +2466,12 @@ def main():
     print(f"setup: V={V} ciphertexts per DP, host keygen + tables "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if only is not None:
-        new_phases(stats, X, y, params, zero_launches, launch_counts,
-                   only=only)
+        rest = [p for p in only if p != "13"]
+        if rest:
+            new_phases(stats, X, y, params, zero_launches, launch_counts,
+                       only=rest)
+        if "13" in only:
+            phase13(zero_launches, launch_counts)
         return 0
     base = eg.BASE_TABLE.table.to(dev)
     mag, _ = eg.magnitude_limbs(stats.reshape(-1))
@@ -3137,6 +3390,13 @@ def main():
     new = new_phases(stats, X, y, params, zero_launches, launch_counts,
                      verify_range7)
 
+    # -- phase 13: the standing server and its load, counted -----------------
+    print(f"-- phase 13 at {time.perf_counter() - start:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    new["13"] = phase13(zero_launches, launch_counts)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s in all", flush=True)
+
     kernels = []
     for name, tot in summary.items():
         source, replaces = meta[name]
@@ -3158,8 +3418,9 @@ def main():
           "above, one launch each; launches: the survey's, the proofs-on "
           "collection's, the joint check's, the per-value check's, the "
           "proofs-on cluster survey's, the obfuscated max survey's, the "
-          "noised sum's, the grouped and the cut survey's, the held batch's "
-          "and the stream's 1-pane advance's)")
+          "noised sum's, the grouped and the cut survey's, the held batch's, "
+          "the stream's 1-pane advance's and phase 13's server surveys and "
+          "load)")
     print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))

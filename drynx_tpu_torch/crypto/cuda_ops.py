@@ -214,15 +214,15 @@ def point_add_plain(p, q):
 # Wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
-def _launch(kernel, entry, out, inputs, ints, shape=None):
+def _launch(kernel, entry, out, inputs, ints):
     """Launch csrc/g1_ops.cu's `entry` on the current stream into `out`
-    and count it, recording the launch's shape (its rows, out.shape[0],
-    unless given); raises if CUDA refused the launch."""
+    and count it, recording the launch's rows (`cuda_build.launch_rows` of
+    `inputs`, the wrapper's tensor arguments); raises if CUDA refused the
+    launch."""
     if out.shape[0] == 0:
         return out
     cuda_build.launch("g1_ops", entry, out, inputs, ints)
-    cuda_build.count(LAUNCHES, kernel,
-                     out.shape[0] if shape is None else shape)
+    cuda_build.count(LAUNCHES, kernel, cuda_build.launch_rows(kernel, inputs))
     return out
 
 
@@ -273,7 +273,7 @@ def point_reduce_flat(pts):
     if device.type == "cpu":
         return point_reduce_plain(pts)
     return _launch("point_reduce", "g1_point_reduce", _empty_points(n, device),
-                   (pts,), (R, n), shape=(R, n))
+                   (pts,), (R, n))
 
 
 def point_add_flat(p, q):

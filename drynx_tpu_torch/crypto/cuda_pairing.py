@@ -389,13 +389,14 @@ def miller_plain(px, py, qx, qy):
 
 def _launch(lib, kernel, shape, inputs, ints=()):
     """Launch `kernel` of csrc/<lib>.cu into a new int32 tensor of `shape`,
-    one element per row (then the kernel's int arguments), and count it."""
+    one element per row (then the kernel's int arguments), and count it,
+    recording its rows (`cuda_build.launch_rows` of `inputs`)."""
     out = torch.empty(shape, dtype=torch.int32, device=inputs[0].device)
     n = out.shape[0]
     if n == 0:
         return out
     cuda_build.launch(lib, kernel, out, inputs, (n, *ints))
-    cuda_build.count(LAUNCHES, kernel, n)
+    cuda_build.count(LAUNCHES, kernel, cuda_build.launch_rows(kernel, inputs))
     return out
 
 

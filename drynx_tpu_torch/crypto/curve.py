@@ -24,6 +24,7 @@ from . import field as F
 from . import params
 from .field import FP
 from .params import NUM_LIMBS
+from ..utils.shapes import broadcast_shape
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +79,7 @@ def double(p):
 
 
 def _flat_batch(p, k):
-    batch = torch.broadcast_shapes(p.shape[:-2], k.shape[:-1])
+    batch = broadcast_shape(p.shape[:-2], k.shape[:-1])
     pb = p.expand(batch + (3, NUM_LIMBS)).reshape(-1, 3, NUM_LIMBS)
     kb = k.expand(batch + (NUM_LIMBS,)).reshape(-1, NUM_LIMBS)
     return batch, pb, kb
@@ -86,7 +87,7 @@ def _flat_batch(p, k):
 
 def add(p, q):
     """Complete Jacobian addition, batched over broadcast leading dims."""
-    batch = torch.broadcast_shapes(p.shape[:-2], q.shape[:-2])
+    batch = broadcast_shape(p.shape[:-2], q.shape[:-2])
     shape = batch + (3, NUM_LIMBS)
     out = cuda_ops.point_add_flat(p.expand(shape).reshape(-1, 3, NUM_LIMBS),
                                   q.expand(shape).reshape(-1, 3, NUM_LIMBS))

@@ -230,9 +230,7 @@ class DecryptionTable:
     def __init__(self, limit: int = 10000, base=None):
         base = base or refimpl.G1
         pts, vals = [], []
-        acc = None
-        for m in range(1, limit + 1):
-            acc = refimpl.g1_add(acc, base)
+        for m, acc in enumerate(_multiples(base, limit), 1):
             pts.append(acc)
             vals.append(m)
             pts.append(refimpl.g1_neg(acc))
@@ -271,6 +269,47 @@ class DecryptionTable:
     def lookup(self, points):
         """Batched point -> int. Returns (values int32, found bool)."""
         return _table_lookup(self.keys, self.xs, self.ysign, self.vals, points)
+
+
+def _multiples(base, limit: int) -> list:
+    """[m * base for m in 1..limit] as affine int pairs (limit far below
+    the group order): Jacobian additions of the affine base along the
+    chain (madd-2007-bl; no term is +-base past 2 * base), then one
+    inversion for all the Z coordinates (Montgomery's batch trick) in
+    place of one a point. The same points as refimpl.g1_add's chain."""
+    P = params.P
+    if limit < 1:
+        return []
+    if limit == 1:
+        return [base]
+    x2, y2 = base
+    X, Y, Z = (*refimpl.g1_add(base, base), 1)
+    jac = [(X, Y, Z)]
+    for _ in range(3, limit + 1):
+        ZZ = Z * Z % P
+        H = (x2 * ZZ - X) % P
+        r = 2 * (y2 * Z * ZZ - Y) % P
+        HH = H * H % P
+        I = 4 * HH % P
+        J = H * I % P
+        V = X * I % P
+        X3 = (r * r - J - 2 * V) % P
+        Y, Z = (r * (V - X3) - 2 * Y * J) % P, ((Z + H) ** 2 - ZZ - HH) % P
+        X = X3
+        jac.append((X, Y, Z))
+    prefix, acc = [], 1
+    for _, _, z in jac:
+        prefix.append(acc)
+        acc = acc * z % P
+    inv = pow(acc, P - 2, P)
+    out = [None] * len(jac)
+    for i in range(len(jac) - 1, -1, -1):
+        X, Y, z = jac[i]
+        zi = inv * prefix[i] % P           # 1 / z
+        inv = inv * z % P
+        zi2 = zi * zi % P
+        out[i] = (X * zi2 % P, Y * zi2 * zi % P)
+    return [base] + out
 
 
 def _table_lookup(keys, xs, ysign, vals, points):

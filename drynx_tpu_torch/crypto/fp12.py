@@ -20,6 +20,7 @@ from . import fp2 as F2
 from . import params, refimpl
 from .field import _like, _wide
 from .params import NUM_LIMBS
+from ..utils.shapes import broadcast_shape
 
 
 def from_ref(x) -> torch.Tensor:
@@ -216,7 +217,7 @@ def pow_var(f, k_limbs, n_bits: int = 256):
     k = k_limbs.to(torch.int64)
     bits = (k[..., :, None] >> torch.arange(16, device=k.device)) & 1
     bits = bits.reshape(k.shape[:-1] + (16 * NUM_LIMBS,))[..., :n_bits]
-    batch = torch.broadcast_shapes(f.shape[:-3], k.shape[:-1])
+    batch = broadcast_shape(f.shape[:-3], k.shape[:-1])
     return _like(_pow_bits(_wide(f), bits.expand(batch + (n_bits,))), f)
 
 

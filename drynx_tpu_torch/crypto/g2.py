@@ -21,6 +21,7 @@ import torch
 from . import cuda_pairing
 from . import fp2 as F2
 from .params import NUM_LIMBS
+from ..utils.shapes import broadcast_shape
 
 
 def from_ref(pt) -> torch.Tensor:
@@ -73,7 +74,7 @@ def neg(p):
 
 def scalar_mul(p, k_limbs):
     """k * Q. k_limbs: (..., 16) plain (non-Montgomery) scalar limbs."""
-    batch = torch.broadcast_shapes(p.shape[:-3], k_limbs.shape[:-1])
+    batch = broadcast_shape(p.shape[:-3], k_limbs.shape[:-1])
     pb = p.expand(batch + (3, 2, NUM_LIMBS)).reshape(-1, 3, 2, NUM_LIMBS)
     kb = k_limbs.expand(batch + (NUM_LIMBS,)).reshape(-1, NUM_LIMBS)
     out = cuda_pairing.g2_scalar_mul_flat(pb, kb)

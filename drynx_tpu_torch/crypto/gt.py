@@ -19,6 +19,7 @@ from . import field as F
 from . import fp12 as F12
 from . import params
 from .params import NUM_LIMBS
+from ..utils.shapes import broadcast_shape
 
 GT_SHAPE = (6, 2, NUM_LIMBS)
 
@@ -29,7 +30,7 @@ def _flat(a):
 
 def gt_mul(a, b):
     """Elementwise GT product over broadcast leading dims (one kernel)."""
-    batch = torch.broadcast_shapes(a.shape[:-3], b.shape[:-3])
+    batch = broadcast_shape(a.shape[:-3], b.shape[:-3])
     out = CP.f12_mul_flat(_flat(a.expand(batch + GT_SHAPE)),
                           _flat(b.expand(batch + GT_SHAPE)))
     return out.reshape(batch + GT_SHAPE)
@@ -46,7 +47,7 @@ def gt_frob2(a):
 
 
 def _gt_pow(a, k, n_bits: int):
-    batch = torch.broadcast_shapes(a.shape[:-3], k.shape[:-1])
+    batch = broadcast_shape(a.shape[:-3], k.shape[:-1])
     k = k.expand(batch + (NUM_LIMBS,)).reshape(-1, NUM_LIMBS)
     out = CP.f12_wpow_flat(_flat(a.expand(batch + GT_SHAPE)), k,
                            n_bits=n_bits, cyc=True)

@@ -19,6 +19,7 @@ from . import fp12 as F12
 from . import params
 from .field import _like
 from .params import NUM_LIMBS
+from ..utils.shapes import broadcast_shape
 
 
 def _frob(f, which: str):
@@ -78,7 +79,7 @@ def miller_loop(p_aff, q_aff):
     affine Montgomery. A vertical line contributes 1."""
     xp, yp = (t.to(torch.int64) for t in p_aff)
     xq, yq = (t.to(torch.int64) for t in q_aff)
-    batch = torch.broadcast_shapes(xp.shape[:-1], xq.shape[:-2])
+    batch = broadcast_shape(xp.shape[:-1], xq.shape[:-2])
     xp, yp = (t.expand(batch + (NUM_LIMBS,)) for t in (xp, yp))
     xq, yq = (t.expand(batch + (2, NUM_LIMBS)) for t in (xq, yq))
     one2 = F2.one(xp.device).to(torch.int64).expand_as(xq)

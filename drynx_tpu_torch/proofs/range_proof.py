@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import pool as pool_mod
+from ..compilecache.stats import COLD_EVENTS
 from ..crypto import cuda_pairing as CP
 from ..crypto import curve as C
 from ..crypto import elgamal as eg
@@ -128,7 +129,8 @@ def _window_table(base) -> torch.Tensor:
 
 # Table-build counters: bumped only by REAL builds (the pairing
 # batch, the host window tables), never when a RangeSig or the persistent
-# store already holds the table. The pool tests assert they stay flat when
+# store already holds the table. Each build is also a cold event
+# (compilecache.stats.COLD_EVENTS), as is the gtB window table's. The pool tests assert they stay flat when
 # a fresh cluster reloads from a warm store.
 SIG_BUILD_COUNTS = {"gt_table": 0, "pow_table": 0}
 # Proof threads build sig tables concurrently; dict += is read-modify-
@@ -174,6 +176,7 @@ def sig_gt_table(sigs: list[RangeSig], device=None) -> torch.Tensor:
                     sg.gt = _i32(d["gt"])
     missing = [sg for sg in sigs if sg.gt is None]
     if missing:
+        COLD_EVENTS.note("table", "sig_gt_table")
         with _SIG_COUNT_LOCK:
             SIG_BUILD_COUNTS["gt_table"] += 1
     if missing and dev.type == "cuda":
@@ -214,6 +217,7 @@ def sig_gt_pow_tables(sigs: list[RangeSig], device=None) -> torch.Tensor:
                     [sg.u for sg in sigs])):
                 sg.gt_pow = T
         else:
+            COLD_EVENTS.note("table", "sig_gt_pow_tables")
             with _SIG_COUNT_LOCK:
                 SIG_BUILD_COUNTS["pow_table"] += 1
             gts = sig_gt_table(sigs, device)
@@ -238,6 +242,7 @@ def gt_base() -> torch.Tensor:
 @functools.cache
 def gt_base_table() -> torch.Tensor:
     """Window table of gtB powers, T[w][j] = gtB^(j 16^w), on the CPU."""
+    COLD_EVENTS.note("table", "gt_base_table")
     return _window_table(F12.to_ref(gt_base()))
 
 

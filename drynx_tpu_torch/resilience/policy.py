@@ -1,11 +1,14 @@
 """The waits and the named locks of the port's survey path.
 
 The part of drynx_tpu/resilience/policy.py that the in-process cluster
-uses: how long a verifying-node group waits for its proofs, how often it
-polls, the epsilon ledger's default budget, the streaming engine's pane
-width, window, epsilon per advance and slide pacing, and locks that carry
-a diagnostic name. The retry table and the fault plane are not ported
-(ROADMAP queue A, step 16).
+and the standing server use: how long a verifying-node group waits for
+its proofs, how often it polls, the epsilon ledger's default budget, the
+streaming engine's pane width, window, epsilon per advance and slide
+pacing, the server's worker pool, tenant quota, shedding, refill and
+resume constants, the load generator's call timeout and backoff jitter,
+and locks that carry a diagnostic name. The values equal the
+reference's. The retry table and the fault plane are not ported (ROADMAP
+queue A, step 16).
 """
 from __future__ import annotations
 
@@ -34,10 +37,35 @@ PANE_WIDTH = 4096
 STREAM_WINDOW_PANES = 8
 # Epsilon one window advance charges against each responding DP's budget.
 EPSILON_PER_ADVANCE = 0.01
-# Minimum seconds between a stream's window advances in the reference's
-# scheduler (0 disables pacing); kept equal to the reference's, read by
-# no code of the port until the server is ported.
+# Minimum seconds between a stream's window advances in the server's
+# advance lane (0 disables pacing).
 SLIDE_PACING_S = 0.0
+# A load-generator querier's wait for its own survey (server/loadgen.py).
+CALL_TIMEOUT_S = 900.0
+# +/- fraction of a retry wait drawn per attempt (the load generator's
+# re-offer after a rejection).
+BACKOFF_JITTER = 0.25
+# The standing server (server/scheduler.py). Verify worker pool width.
+VERIFY_WORKERS = 1
+# One tenant's queued surveys across all lanes (QuotaExceeded past it).
+TENANT_QUOTA = 8
+# Past ceil(SHED_FRACTION * max_depth) queued surveys submit() sheds with
+# Overloaded and a retry-after hint; 1.0 disables shedding.
+SHED_FRACTION = 0.75
+# Bounds on that hint (a server with no observed rate hints the max).
+SHED_RETRY_MIN_S = 0.05
+SHED_RETRY_MAX_S = 30.0
+# Completion events kept for the observed service rate.
+RATE_WINDOW_EVENTS = 64
+# The refill lane deposits slabs for the waiting need plus the observed
+# DRO consumption over this horizon, at most this many slabs a step.
+REFILL_HORIZON_S = 2.0
+REFILL_MAX_SLABS_STEP = 4
+# Survey resume: re-entries of a survey whose dispatch failed; with a
+# phase checkpoint, resumes from it, paced by the backoff.
+RESUME_MAX_RETRIES = 1
+CHECKPOINT_MAX_RESUMES = 3
+RESUME_BACKOFF_S = 0.5
 
 def named_lock(name: str, *, reentrant: bool = False):
     """A threading.Lock (or RLock). The name documents the call site; the
@@ -50,4 +78,9 @@ __all__ = ["named_lock", "VN_GROUP_WAIT_S",
            "POLL_INTERVAL_S", "COLD_COMPILE_WAIT_S",
            "END_VERIFICATION_TIMEOUT_S", "TREE_FANOUT_MIN", "TREE_FANOUT_MAX",
            "EPSILON_BUDGET", "PANE_WIDTH", "STREAM_WINDOW_PANES",
-           "EPSILON_PER_ADVANCE", "SLIDE_PACING_S"]
+           "EPSILON_PER_ADVANCE", "SLIDE_PACING_S", "CALL_TIMEOUT_S",
+           "BACKOFF_JITTER", "VERIFY_WORKERS", "TENANT_QUOTA",
+           "SHED_FRACTION", "SHED_RETRY_MIN_S", "SHED_RETRY_MAX_S",
+           "RATE_WINDOW_EVENTS", "REFILL_HORIZON_S", "REFILL_MAX_SLABS_STEP",
+           "RESUME_MAX_RETRIES", "CHECKPOINT_MAX_RESUMES",
+           "RESUME_BACKOFF_S"]

@@ -44,9 +44,16 @@ result. A CN's zero-encryptions come from its prewarmed entries
 deleted), else from the persistent crypto pool (`LocalCluster(pool=...)`,
 slabs claimed once), else are computed fresh.
 
+Before its first proofs-on survey a cluster on the card runs the kernel
+warm-up registry once (the reference's default, `precompile="auto"`):
+`compilecache.precompile` builds and loads the libraries, launches each
+kernel once and builds the range proofs' tables, on the calling thread,
+before any proof thread starts; the survey's `PrecompileTraceExec` timer
+holds its seconds.
+
 Not ported yet, each raising NotImplementedError where it is asked for:
 fault probing, responder sets and quorums (step 16), durable checkpoints
-and resumption (step 16), the kernel warm-up registry (step 15).
+and resumption (step 16).
 
 Two free functions remain from the earlier slices and serve the cluster:
 `collect_with_range_proofs` (the DPs' encryption and range proofs, one
@@ -243,12 +250,17 @@ class LocalCluster:
     `close()` removes. `pool` (a `pool.CryptoPool`) is activated before any
     table is built: it serves the fixed-base and signature tables and the
     DRO phase's zero-encryption slabs (reference service.py:143-151,
-    :202-209).
+    :202-209). On a CUDA device the warm-up registry runs before the
+    first proofs-on survey (where proofs are built on threads), as the
+    reference's "auto" default does on its kernel backend (reference
+    :128-134); a CPU cluster is warmed by calling `compilecache.precompile`
+    with it.
     """
 
     def __init__(self, n_cns: int = 3, n_dps: int = 5, n_vns: int = 3,
                  seed: int = 1, dlog_limit: int = 10000, device=None,
                  pool=None):
+        self._aot_warmed = False
         self.device = dev = resolve(device)
         self.pool = pool
         self._pool_digest: Optional[str] = None
@@ -514,9 +526,26 @@ class LocalCluster:
         raise NotImplementedError("DP liveness probing is not ported yet "
                                   "(ROADMAP queue A, step 16)")
 
+    # ------------------------------------------------------------------
+    # The kernel warm-up (reference :524-563)
+    # ------------------------------------------------------------------
     def _warm_kernels(self, tm: PhaseTimers, q) -> None:
-        raise NotImplementedError("the kernel warm-up registry is not "
-                                  "ported yet (ROADMAP queue A, step 15)")
+        """Run the warm-up registry for `q`'s shape once per cluster, on
+        the calling thread under the proof-device lock, before any proof
+        thread of the survey starts; its seconds go to the
+        `PrecompileTraceExec` timer. It runs on a CUDA device only, where
+        the proofs are built on threads."""
+        from .. import compilecache as cc
+
+        if self._aot_warmed or self.device.type != "cuda":
+            return
+        profile = cc.query_profile(self, q)
+        with self._proof_device_lock:
+            t0 = time.perf_counter()
+            cc.precompile(profile, mode="execute", cluster=self,
+                          log=lambda m: log.lvl2(f"precompile: {m}"))
+            tm.add("PrecompileTraceExec", time.perf_counter() - t0)
+            self._aot_warmed = True
 
     # ------------------------------------------------------------------
     # The shuffle precomputation (reference :435-482)
@@ -641,11 +670,12 @@ class LocalCluster:
         return enc_rs, range_draws, ks_rs, ks_draws, obf_draws, dro_draws
 
     def execute_survey(self, sq: SurveyQuery, seed: int = 0,
-                       hold_range: bool = False,
+                       hold_range: bool = False, tenant: str = "default",
                        responders: Optional[list] = None
                        ) -> "PendingSurvey":
         """Phases through decrypt + decode; returns a PendingSurvey whose
-        proof verification `finalize_survey` completes."""
+        proof verification `finalize_survey` completes. `tenant` tags the
+        PendingSurvey and SurveyResult for the server's fair queueing."""
         q = sq.query
         _unported(responders=responders,
                   quorum=bool(sq.min_dp_quorum) or sq.vn_quorum != 1.0)
@@ -669,6 +699,9 @@ class LocalCluster:
                  "obfuscation": sq.obfuscation_proof_threshold,
                  "keyswitch": sq.key_switching_proof_threshold},
                 expected_range=nbrs[0], hold_range=hold_range)
+            # the warm-up runs here, on the calling thread, before any
+            # proof thread of this survey exists
+            self._warm_kernels(tm, q)
 
         # --- DP phase: encode + encrypt (+ range proofs) ----------------
         tm.start("DataCollectionProtocol")
@@ -837,7 +870,8 @@ class LocalCluster:
                                if op.name == "lin_reg" else 1)
         return PendingSurvey(survey=survey, sq=sq, result=result,
                              decrypted=dec, proofs_on=proofs_on,
-                             hold_range=hold_range and proofs_on)
+                             hold_range=hold_range and proofs_on,
+                             tenant=tenant)
 
     def _key_switch(self, work, ks_rs):
         """Switch (V, 2, 3, 16) ciphertexts under the collective key to the
@@ -889,7 +923,7 @@ class LocalCluster:
             f"{k}={v:.3f}s" for k, v in tm.items()))
         return SurveyResult(result=pending.result,
                             decrypted=pending.decrypted, block=block,
-                            timers=tm, survey_id=sid)
+                            timers=tm, survey_id=sid, tenant=pending.tenant)
 
     # ------------------------------------------------------------------
     def _async_proof(self, survey: Survey, ptype: str, ident: NodeIdentity,
@@ -961,6 +995,7 @@ class PendingSurvey:
     decrypted: st.DecryptedVector
     proofs_on: bool
     hold_range: bool = False
+    tenant: str = "default"    # the server's fair-queueing key
 
 
 @dataclasses.dataclass
@@ -970,6 +1005,7 @@ class SurveyResult:
     block: object
     timers: PhaseTimers
     survey_id: str
+    tenant: str = "default"
 
 
 __all__ = ["make_range_sigs", "signed_offset", "collect_with_range_proofs",

@@ -41,9 +41,9 @@ transcripts byte for byte, and an engine on another stream id with the
 same seed produces the same pane ciphertexts. The bytes cannot equal the
 reference's, whose draws come from JAX's generator.
 
-The reference engine's first call warms its compiled programs
-(`cluster._warm_kernels`); the port has no kernel warm-up registry yet
-(ROADMAP queue A, step 15), so the first pane builds the kernels it runs.
+A proofs-on engine warms its cluster's kernels when it is built, as the
+reference's does (`cluster._warm_kernels`): the registry's entries for the
+prototype query's shape, once per cluster.
 """
 from __future__ import annotations
 
@@ -197,6 +197,7 @@ class StreamEngine:
         if self.proofs_on:
             for u, _l in rp.group_ranges(self._ranges_v):
                 cluster.ensure_range_sigs(u)
+            cluster._warm_kernels(self.timers, q)
 
     # -- feeding and sealing ------------------------------------------------
 

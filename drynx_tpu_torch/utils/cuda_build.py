@@ -17,10 +17,18 @@ that time versions of a kernel side by side.
 A kernel that cannot be built, loaded or launched raises `KernelError`. It
 is a fault of the program, never a verdict on the data, so the verifiers'
 exception containment lets it through.
+
+Every counted launch records its rows (`launch_rows`, the one reading of a
+wrapper's arguments) in the wrapper module's `LAUNCHES` and in
+`LAUNCH_ROWS`, unless the launching thread is inside `uncounted`, as the
+warm-up registry's launches are (`compilecache.precompile`). A library
+that `load` builds or opens is a cold event
+(`compilecache.stats.COLD_EVENTS`).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -170,6 +178,15 @@ def build_copies(copies) -> list[tuple[ctypes.CDLL, str]]:
     return built
 
 
+def build(name: str) -> None:
+    """Build csrc/<name>.cu with nvcc unless its library is on disk; loads
+    nothing (the toolkit is needed, not the card)."""
+    with _LOCK:
+        started = _start_source(name)
+        if started is not None:
+            _finish_source(name, started)
+
+
 def ptxas_report(name: str) -> str:
     path = _report_path(name)
     return path.read_text() if path.exists() else ""
@@ -181,6 +198,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
+        from ..compilecache.stats import COLD_EVENTS
+
+        COLD_EVENTS.note("library", name)
         started = _start_source(name)
         if started is not None:
             _finish_source(name, started)
@@ -260,13 +280,50 @@ LAUNCH_ROWS: dict[str, collections.Counter] = collections.defaultdict(
     collections.Counter)
 
 
+_LOCAL = threading.local()
+
+
+def launch_rows(kernel: str, args):
+    """The rows of a launch of `kernel`, read from its wrapper's positional
+    arguments (or its launch inputs, which begin the same way): a reduce's
+    (R, N), its summands and columns; the fixed-base ladder's scalars
+    (after its table); every other kernel's first argument's rows."""
+    if kernel == "point_reduce":
+        return (int(args[0].shape[0]), int(args[0].shape[1]))
+    return int(args[1 if kernel == "fixed_base_mul" else 0].shape[0])
+
+
 def count(launches: dict, kernel: str, rows) -> None:
     """Add one launch of `kernel` on `rows` rows (an int, or a shape
-    tuple) to a wrapper module's counts and to LAUNCH_ROWS; proof threads
+    tuple) to a wrapper module's counts and to LAUNCH_ROWS, or to the
+    sink of `uncounted` when this thread is inside one; proof threads
     launch beside the main thread, so the adds hold a lock."""
+    sink = getattr(_LOCAL, "sink", None)
     with _COUNT_LOCK:
+        if sink is not None:
+            sink[(kernel, rows)] += 1
+            return
         launches[kernel] += 1
         LAUNCH_ROWS[kernel][rows] += 1
+
+
+@contextlib.contextmanager
+def uncounted(sink: collections.Counter):
+    """Inside the block, this thread's launches go to `sink`, as
+    {(kernel, rows): launches}, and to no wrapper module's LAUNCHES nor to
+    LAUNCH_ROWS; other threads count as before."""
+    prev = getattr(_LOCAL, "sink", None)
+    _LOCAL.sink = sink
+    try:
+        yield sink
+    finally:
+        _LOCAL.sink = prev
+
+
+def counting() -> bool:
+    """Whether this thread's launches are counted (not inside
+    `uncounted`)."""
+    return getattr(_LOCAL, "sink", None) is None
 
 
 def reset_launch_rows() -> None:
@@ -293,6 +350,7 @@ def launch(name: str, entry: str, out, inputs, ints) -> None:
 
 
 __all__ = ["KernelError", "LAUNCH_ROWS", "build_all", "build_copies", "load",
-           "check", "check_operands", "count", "reset_launch_rows", "is_fault",
+           "build", "check", "check_operands", "count", "counting", "launch_rows",
+           "uncounted", "reset_launch_rows", "is_fault",
            "check_shape", "launch", "ptxas_report", "library_path",
            "nvcc_path", "BUILD_DIR"]

@@ -29,6 +29,7 @@ class PhaseTimers:
         self._lock = named_lock("timers_lock")
         self._open: dict[str, float] = {}
         self._acc: dict[str, float] = {}
+        self._spans: list[tuple[str, float, float]] = []
 
     def start(self, name: str) -> None:
         with self._lock:
@@ -42,6 +43,7 @@ class PhaseTimers:
                 return 0.0
             dt = now - t0
             self._acc[name] = self._acc.get(name, 0.0) + dt
+            self._spans.append((name, t0, now))
         if PhaseTimers.echo:
             import sys
 
@@ -62,11 +64,27 @@ class PhaseTimers:
             print(f"    [phase] {name}: +{dt:.3f}s", file=sys.stderr,
                   flush=True)
 
+    def span(self, name: str, t0: float, t1: float) -> None:
+        """Record an absolute (perf_counter) interval beside its
+        accumulated total. The caller owns the clock, so overlapping spans
+        of concurrent pipeline stages record correctly (the overlap
+        measures of server/scheduler.py intersect them)."""
+        with self._lock:
+            self._acc[name] = self._acc.get(name, 0.0) + (t1 - t0)
+            self._spans.append((name, t0, t1))
+
+    def spans(self, prefix: str = "") -> list:
+        """Absolute (name, t0, t1) records, ordered by start time."""
+        with self._lock:
+            out = [s for s in self._spans if s[0].startswith(prefix)]
+        return sorted(out, key=lambda s: s[1])
+
     def clear(self) -> None:
         """Drop accumulated spans (benchmarks isolating a timed window)."""
         with self._lock:
             self._open.clear()
             self._acc.clear()
+            self._spans.clear()
 
     def __getitem__(self, name: str) -> float:
         return self._acc.get(name, 0.0)

@@ -16,6 +16,7 @@ under it. The port's plain versions run on one torch thread here (beside
 JAX's threads torch's pool makes them 2-3x slower), in inference mode
 where no gradient is taken.
 """
+import collections
 import contextlib
 import dataclasses
 import importlib.util
@@ -31,6 +32,7 @@ import pytest
 import torch
 
 from drynx_tpu.crypto import params, refimpl
+from drynx_tpu_torch import compilecache as cc
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as TC
 from drynx_tpu_torch.crypto import elgamal as TE
@@ -40,6 +42,7 @@ from drynx_tpu_torch.encoding import tiles as TTI
 from drynx_tpu_torch.models import logreg as TLR
 from drynx_tpu_torch.proofs import aggregation as TAG
 from drynx_tpu_torch.proofs import keyswitch as TKS
+from drynx_tpu_torch.proofs import range_proof as TRP
 from drynx_tpu_torch.proofs import requests as TRQ
 from drynx_tpu_torch.proofs import schnorr as TSCH
 from drynx_tpu_torch.proofs.safe_pickle import safe_loads
@@ -50,6 +53,7 @@ from drynx_tpu_torch.service import skipchain as TSK
 from drynx_tpu_torch.service import store as TSTORE
 from drynx_tpu_torch.service import topology as TTOP
 from drynx_tpu_torch.service.api import DrynxClient
+from drynx_tpu_torch.utils import cuda_build
 from drynx_tpu_torch.utils.cuda_build import KernelError
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -116,15 +120,19 @@ def reference():
                     delattr(sys.modules[parent], attr)
 
 
-def _count_wrapper_calls(mp) -> dict:
+def _count_wrapper_calls(mp, rows=None) -> dict:
     """Count the calls of every kernel wrapper, by kernel: on the CPU the
-    counts that the wrappers keep in `LAUNCHES` on the card."""
+    counts that the wrappers keep in `LAUNCHES` on the card; with `rows`
+    (a Counter) also each call's (kernel, rows), as `cuda_build.
+    launch_rows` reads them for `LAUNCH_ROWS`."""
     counts = {}
     for mod in (cuda_ops, cuda_pairing):
         for name in mod.LAUNCHES:
             def counted(*a, _fn=getattr(mod, f"{name}_flat"), _name=name,
                         **k):
                 counts[_name] += 1
+                if rows is not None:
+                    rows[(_name, cuda_build.launch_rows(_name, a))] += 1
                 return _fn(*a, **k)
             counts[name] = 0
             mp.setattr(mod, f"{name}_flat", counted)
@@ -137,8 +145,10 @@ def _chip_smoke():
 
 @pytest.fixture(scope="module")
 def survey(reference):
-    """One proofs-on `mean` survey on the port's cluster, its kernel
-    wrapper calls counted."""
+    """One proofs-on `mean` survey on the port's cluster after the warm-up
+    registry's pass for its shape (on the CPU: the tables), its kernel
+    wrapper calls counted with their rows, and the cold events of the
+    warm-up and of the survey."""
     cluster = TSV.LocalCluster(n_cns=N_CNS, n_dps=N_DPS, n_vns=N_VNS,
                                seed=SEED, dlog_limit=300, device="cpu")
     rng = np.random.default_rng(SEED)
@@ -147,12 +157,24 @@ def survey(reference):
         dp.data = x
     sq = cluster.generate_survey_query("mean", query_min=0, query_max=15,
                                        proofs=1, ranges=[(U, L)] * 2)
+    profile = cc.query_profile(cluster, sq.query)
+    rows = collections.Counter()
     with pytest.MonkeyPatch.context() as mp, torch.inference_mode():
-        cluster.ensure_range_sigs(U)
-        counts = _count_wrapper_calls(mp)
+        mark = cc.COLD_EVENTS.mark()
+        warm = cc.precompile(profile, cluster=cluster,
+                             stats=cc.CompileStats(), log=lambda m: None)
+        warm_events = cc.COLD_EVENTS.since(mark)
+        sig_builds = dict(TRP.SIG_BUILD_COUNTS)
+        counts = _count_wrapper_calls(mp, rows)
+        mark = cc.COLD_EVENTS.mark()
         res = cluster.run_survey(sq, seed=SEED)
+        survey_events = cc.COLD_EVENTS.since(mark)
     yield SimpleNamespace(cluster=cluster, sq=sq, res=res, data=data,
-                          counts=dict(counts))
+                          counts=dict(counts), rows=rows, profile=profile,
+                          warm=warm, warm_events=warm_events,
+                          survey_events=survey_events,
+                          sig_builds=(sig_builds,
+                                      dict(TRP.SIG_BUILD_COUNTS)))
     cluster.close()
 
 
@@ -543,6 +565,36 @@ def test_proofs_on_survey_launches_match_chip_smoke(survey):
             for k, v in cs.EXPECTED_LAUNCHES_CLUSTER.items()}
     want["f12_mulreduce8"] -= 2 * (5 - 2)
     assert survey.counts == want
+
+
+def test_registry_names_every_launch_of_the_survey(survey):
+    """Each kernel the survey launched names an entry of the warm-up
+    registry for its shape (the admission's profile), and the registry
+    names no kernel the survey does not launch; every call's rows were
+    read by `cuda_build.launch_rows`."""
+    names = {e.name for e in cc.build_registry(survey.profile)
+             if e.kind == "kernel"}
+    got = {f"kernel:{k}" for k, _ in survey.rows}
+    assert sum(survey.rows.values()) == sum(survey.counts.values())
+    assert got == names, sorted(got ^ names)
+
+
+def test_warm_up_builds_the_tables_and_the_survey_none(survey):
+    """On the CPU the warm-up builds the signature tables of base u on the
+    calling thread and skips every kernel and library entry; the survey
+    after it builds no table."""
+    rows = survey.warm.rows
+    assert rows[f"table:range_sigs@u{U}"]["status"] == "executed"
+    assert rows["table:gt_base"]["status"] == "executed"
+    assert all(r["status"] == "skipped" for n, r in rows.items()
+               if not n.startswith("table:"))
+    assert survey.warm.count("error") == 0
+    assert ("table", "sig_gt_pow_tables", "MainThread") in \
+        survey.warm_events
+    assert {t for _, _, t in survey.warm_events} == {"MainThread"}
+    assert survey.survey_events == []
+    assert survey.sig_builds[0] == survey.sig_builds[1]
+    assert sum(survey.warm.launches.values()) == 0
 
 
 def test_tampered_aggregation_payload_is_recorded_false(survey):

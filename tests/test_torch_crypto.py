@@ -92,6 +92,19 @@ def test_copied_module_code_and_constants_equal(jmod, tmod):
         assert getattr(tmod, name) == val, name
 
 
+@pytest.mark.parametrize("limit", [1, 2, 3, 700])
+def test_decryption_table_equals_the_reference(limit):
+    """The port builds its discrete-log table's multiples by Jacobian
+    additions and one batch inversion; the sorted arrays equal the
+    reference's, which adds affine points one inversion a step."""
+    mine, ref = TE.DecryptionTable(limit=limit), JE.DecryptionTable(
+        limit=limit)
+    for name in ("keys", "xs", "ysign", "vals"):
+        assert np.array_equal(getattr(mine, name).numpy(),
+                              np.asarray(getattr(ref, name))), name
+    assert TE._multiples(tref.G1, 0) == []
+
+
 def test_refimpl_copy_computes_the_same():
     k1, k2 = _rand(2, N)
     assert tref.g1_mul(tref.G1, k1) == jref.g1_mul(jref.G1, k1)

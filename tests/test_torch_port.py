@@ -26,6 +26,7 @@ from chip_smoke import (POW_BITS, REDUCE_RS, SLOTMUL_NS, WPOW_BITS,
                         crafted_pow_cases, crafted_reduce_cases,
                         crafted_slotmul_cases, crafted_wpow_cases,
                         fp_inv_edge_inputs)
+from drynx_tpu_torch import compilecache as cc
 from drynx_tpu_torch import flagship
 from drynx_tpu_torch.crypto import cuda_ops, cuda_pairing
 from drynx_tpu_torch.crypto import curve as C
@@ -74,6 +75,46 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     assert out.stdout.startswith("clean")
 
 
+@pytest.mark.parametrize("shapes", [
+    ((), ()), ((3,), ()), ((4, 1), (3,)), ((1, 5), (2, 1)), ((0,), (1,)),
+    ((2, 3, 1), (3, 7)), ((3,), (4,)), ((0,), (3,)), ((2, 1), (5, 3)),
+])
+def test_broadcast_shape_equals_torchs(shapes):
+    from drynx_tpu_torch.utils.shapes import broadcast_shape
+
+    try:
+        want = tuple(torch.broadcast_shapes(*shapes))
+    except RuntimeError:
+        with pytest.raises(RuntimeError):
+            broadcast_shape(*shapes)
+    else:
+        assert broadcast_shape(*shapes) == want
+
+
+def test_batched_group_operations_import_no_symbolic_shapes():
+    """The batched wrappers' shape arithmetic imports no symbolic shapes
+    (a first torch.broadcast_shapes imports them, and sympy: seconds
+    inside a cold survey)."""
+    code = (
+        "import sys, torch\n"
+        "from drynx_tpu_torch.crypto import curve as C, gt, refimpl\n"
+        "from drynx_tpu_torch.proofs import range_proof as rp\n"
+        "p = C.from_ref(refimpl.G1)[None]\n"
+        "C.add(p, p)\n"
+        "k = torch.ones((1, 16), dtype=torch.int32)\n"
+        "C.scalar_mul_short(p, k, n_bits=4)\n"
+        "a = rp.gt_base()[None]\n"
+        "gt.gt_mul(a, a)\n"
+        "bad = [m for m in sys.modules if m.startswith(('sympy', "
+        "'torch.fx.experimental.symbolic_shapes'))]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
 @pytest.mark.parametrize("call", [
     lambda: flagship.SurveySetup.create(n_servers=1, dlog_limit=2),
     lambda: flagship.SurveySetup.from_numpy(
@@ -87,8 +128,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     lambda: svc.make_range_sigs(u=4, n_servers=1),
     lambda: svc.LocalCluster(n_cns=1, n_dps=1, n_vns=0, dlog_limit=2),
     lambda: api.DrynxClient(n_cns=1, n_dps=1, n_vns=0, dlog_limit=2),
+    lambda: cc.precompile(cc.BENCH, log=lambda m: None),
 ], ids=["create", "from_numpy", "make_inputs", "entry", "range_sigs",
-        "cluster", "client"])
+        "cluster", "client", "precompile"])
 def test_entry_points_need_cuda_unless_the_cpu_is_named(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -812,3 +854,23 @@ def test_proofs_on_survey_on_the_card_commits_a_clean_block(cuda):
     assert after["miller"] > before["miller"]
     assert after["g2_scalar_mul"] > before["g2_scalar_mul"]
     cluster.close()
+
+
+@pytest.mark.gpu
+def test_precompile_on_the_card_leaves_the_launch_counts(cuda):
+    """The warm-up registry's BENCH profile on the card: every library
+    loaded, every kernel entry executed, no error, and the wrappers'
+    counts and recorded rows as they were (its launches are its own)."""
+    before = ({**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES},
+              {k: dict(v) for k, v in cuda_build.LAUNCH_ROWS.items()})
+    stats = cc.precompile(cc.BENCH, stats=cc.CompileStats(),
+                          log=lambda m: None)
+    after = ({**cuda_ops.LAUNCHES, **cuda_pairing.LAUNCHES},
+             {k: dict(v) for k, v in cuda_build.LAUNCH_ROWS.items()})
+    t = stats.totals()
+    assert t["errors"] == 0, stats.table()
+    assert t["loaded"] == len(cc.registry.LIBRARIES)
+    kernels = [e for e in cc.build_registry(cc.BENCH) if e.kind == "kernel"]
+    assert t["executed"] == len(kernels) + 1      # and table:gt_base
+    assert after == before
+    assert sum(stats.launches.values()) >= len(kernels)
