@@ -40,7 +40,10 @@ Phases (any failed check exits non-zero; nothing is caught):
      loop's smaller N, each a prefix of a main shape's rows, against the
      first N rows of that shape's one plain run; the fixed-base ladder's N
      against one run at 900 for each W; the crafted rows of the Fp12
-     inverse and power, alone and tiled, against one run of those rows);
+     inverse and power, alone and tiled, against one run of those rows;
+     the variable-base ladder's 64-window main shapes and crafted rows
+     against one plain run over all their rows, the Fp inverse's cluster
+     shapes against one run at 13,500);
      the Fp12 power on
      crafted rows (exponents 0, 1, 2^n_bits - 1, bits only at or above
      n_bits; 1, the unit slots w^j, a GPhi12 member, a value outside it)
@@ -103,8 +106,8 @@ Phases (any failed check exits non-zero; nothing is caught):
      parameters of simul/runner.py:133-136 and a 10,000-value noise list
      (the TIFS diffPri.py's first non-zero size, SURVEY.md:434), through
      `LocalCluster.run_survey`, counted as above: (a) with fresh
-     precomputation, a first run, a same-seed run with an equal
-     transcript, then one warm run; (b) after `prewarm_dro`, a first
+     precomputation, a first run, then a same-seed run with an equal
+     transcript, timed as the warm run; (b) after `prewarm_dro`, a first
      run and a warm run, the precompute
      counter flat and every precompute file deleted; (c) once through a
      `CryptoPool` filled by `replenish.refill_to`, whose slabs the survey
@@ -132,7 +135,8 @@ Phases (any failed check exits non-zero; nothing is caught):
   10b. Run phase 7's survey at cutting factor 4 (360 values a DP, 54,000
      digit proofs), counted: the four replicas decrypt equal, the first
      equal to the clear sums, the weights within 1e-3 of CPU GD, an
-     all-BM_TRUE block. Print the wall times.
+     all-BM_TRUE block. Print its wall time (the cluster's first survey,
+     its warm-up in it).
   11. Run four of phase 7's surveys (survey seeds 0-3) through
      `server.SurveyServer(max_batch=4, pipeline=True)`: the first submit
      takes the compile lane (the warm-up registry on the drain thread,
@@ -178,22 +182,46 @@ Phases (any failed check exits non-zero; nothing is caught):
      throughput and latency percentiles printed; (c) `precompile(BENCH)`
      on the warm process: every library loaded, every kernel entry
      executed, no error.
+  14. The in-process fault plane (a plan installed for the sub-phase
+     alone and cleared after it, whatever happens; 14a and 14c run after
+     phase 12, 14b after 13): (a) phase 7's survey
+     on phases 10b and 11's cluster with dp9 and vn2 killed,
+     min_dp_quorum 9 and vn_quorum 2/3, counted: responders dp0..dp8,
+     absent dp9, the decrypted aggregate equal to the nine responders'
+     clear sums, the weights within 1e-3 of CPU GD on them, one RLC check
+     of 12,150 digit proofs, a block of vn0's and vn1's entries only, all
+     BM_TRUE, every phase entered once and no resume; a query asking for
+     all ten DPs refused with the quorum error; its phase timers beside
+     phase 7's; (b) a proofs-off sum on phase 13's transcript cluster
+     through `SurveyServer`, its checkpoints in a durable store, with a
+     one-shot refused connect to dp1: the first dispatch fails its
+     quorum, the resume lane re-probes and re-enters once, the result
+     equals an undisturbed run's over dp0 and dp1, one resume, the
+     record read back from the store, exact launches; (c) the encrypted
+     prediction of 768 Pima-shaped records of 8 integer features under
+     the querier's key with phase 7's weights, counted: every decrypted
+     margin equal to the integer formula and found, the probabilities
+     within 0.02 of the clear ones, the G1 kernels' calls kept with
+     phases 10-12's.
   Phases 7-12 warm their clusters' kernels in their first proofs-on
   survey (`LocalCluster._warm_kernels`), whose PrecompileTraceExec
   is printed beside its time; the warm-up's launches are its own
   (`cuda_build.uncounted`), so every count above is the survey's.
-  Phases 10-12 keep each kernel's largest call of each phase (KeptCalls,
-  all 14 kernels of the survey paths; never a warm-up call) and hold
-  them, at the end, byte for byte against the plain versions. Last, the kernels' times, launch counts
+  Phases 10-12 and 14c keep each kernel's largest call of each phase
+  (KeptCalls, all 14 kernels of the survey paths; never a warm-up call)
+  and hold them, after 14c, byte for byte against the plain versions. Last, the kernels' times, launch counts
   and bounds as one JSON line, the card's name and power limit, and the
   contract line {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --only 10a,10b,11,12,13
+    python3 chip_smoke.py --only 10a,10b,11,12,13,14a,14b,14c
 
-builds the kernels and runs only the named phases of 10-13 (no JSON line).
+builds the kernels and runs only the named phases of 10-14 (no JSON line;
+14c then scores with GD's weights from the clear sums, and holds its kept
+calls itself when no phase of 10-12 runs).
 
 It imports nothing of JAX and nothing of the drynx_tpu package.
 """
+import contextlib
 import functools
 import json
 import re
@@ -383,6 +411,21 @@ STREAM = dict(n_cns=2, n_dps=2, n_vns=2, seed=7, dlog=90_000, V=16,
 LOAD = dict(n_cns=2, n_dps=2, n_vns=2, seed=13, dlog=4000, data_seed=5,
             rows=2, qmax=15, ranges=((4, 2), (4, 2), (4, 3)),
             concurrency=4, total=16)
+# the degraded survey: phase 7's with dp9 and vn2 killed by a fault plan,
+# over the nine responders (min_dp_quorum 9: 12,150 digit proofs) with a
+# block from two of the three VNs (vn_quorum 2/3); a second query asking
+# for all ten DPs is refused
+DEGRADED_KILLED = ("dp9", "vn2")
+DEGRADED_QUORUM, DEGRADED_VN_QUORUM = NUM_DPS - 1, 2 / 3
+# the encrypted prediction: 768 records of Pima's 8 features rounded to
+# integers, encrypted under the querier's key (encryption seed 17), scored
+# with phase 7's weights at fixed-point precision 100; its launches: the
+# features' products (one ladder), their sum (one reduce), w0'B (a
+# fixed-base product) and its add, then the decryption (a ladder, an add,
+# a normalization)
+PREDICT_RECORDS, PREDICT_PRECISION, PREDICT_SEED = 768, 100.0, 17
+PREDICT_LAUNCHES = {"fixed_base_mul": 1, "scalar_mul": 2, "point_reduce": 1,
+                    "point_add": 2, "fp_inv": 1}
 # a proofs-off cluster survey's launches: encryption (three fixed-base
 # products, an add), the canonical aggregate (a reduce, a normalization),
 # the key switch (two fixed-base products, a ladder, an add, two reduces,
@@ -863,6 +906,28 @@ def prefixes(plain_max):
     return at
 
 
+def shared_plain(plain, parts, *args):
+    """One plain run over several calls' rows, concatenated in order, and
+    shared: `part(i)` gives a plain call that returns call i's rows of that
+    run (row i of a row-wise kernel does not depend on the others).
+    `parts()` gives each call's row-indexed arguments; `args` are the
+    arguments they share."""
+    box = {}
+
+    def part(i):
+        def call():
+            if "out" not in box:
+                calls = parts()
+                box["at"] = np.cumsum([0] + [len(c[0]) for c in calls])
+                box["out"] = plain(*(torch.cat([t.to(ts[0].dtype)
+                                                for t in ts])
+                                     for ts in zip(*calls)), *args)
+            at = box["at"]
+            return box["out"][at[i]:at[i + 1]]
+        return call
+    return part
+
+
 def cuda_ms(fn, reps):
     """Mean device time of fn() over reps runs, after one warm-up."""
     fn()
@@ -969,7 +1034,7 @@ class HostTimer:
 def phase7(stats, X, y, params, zero_launches, launch_counts):
     """The proofs-on survey of bench.py:_proofs_on_cluster through the
     port's LocalCluster on the card. Returns (launches, [the warm wall
-    time], the warm run's VerifyRange)."""
+    time], the warm run's VerifyRange, the warm run's SurveyResult)."""
     import pickle
 
     from drynx_tpu_torch.proofs import schnorr
@@ -1062,7 +1127,8 @@ def phase7(stats, X, y, params, zero_launches, launch_counts):
           f"over threads); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     cluster.close()
-    return launches7, [wall], dict(res.timers.items()).get("VerifyRange")
+    return (launches7, [wall], dict(res.timers.items()).get("VerifyRange"),
+            res)
 
 
 def phase8(zero_launches, launch_counts):
@@ -1498,7 +1564,9 @@ def phase9(zero_launches, launch_counts):
               f"{res.result} = clear {clear} + noise {n0}; the same "
               f"transcript {digest[:16]} from a second run "
               f"({again[0]:.3f} s)", flush=True)
-        walls9 = report("a", first, run(cluster, sq))
+        # the same-seed second run is the warm run timed (its kept copies
+        # are a few thousand rows)
+        walls9 = report("a", first, again)
 
         # a shuffle proof with one z changed, through a VN's receive path
         vn, other = cluster.vns.vns[1], cluster.vns.vns[0]
@@ -1861,15 +1929,14 @@ def phase10b(cluster, stats, params, zero_launches, launch_counts, kept):
           flush=True)
     if launches != want:
         raise SystemExit(f"cut survey launches {launches} differ from {want}")
-    warm, res2, _, _ = run()
     print(f"  {CUT} replicas of {V} values decrypt equal; the first equals "
           f"the clear sums exactly; weights max abs err vs CPU GD {err:.3g}; "
           f"audit block of {len(res.block.data.bitmap)} entries, all BM_TRUE",
           flush=True)
-    print(f"phase 10b: cut survey wall time {first:.4f} s cold, {warm:.4f} s "
-          f"warm; phase timers (warm): " + phase_timers([res2]), flush=True)
+    print(f"phase 10b: cut survey wall time {first:.4f} s (the cluster's "
+          f"first survey); phase timers: " + phase_timers([res]), flush=True)
     del cluster._decrypt
-    return launches, [first, warm]
+    return launches, [first]
 
 
 def phase11(cluster, stats, params, zero_launches, launch_counts, kept,
@@ -2363,21 +2430,302 @@ def phase13(zero_launches, launch_counts):
     return add_launches(dict(want_a), launches_b), walls + [load_s]
 
 
+@contextlib.contextmanager
+def fault_plan_installed(plan):
+    """`plan` as the port's process-wide fault plan for the body; cleared
+    afterwards, whatever the body does."""
+    from drynx_tpu_torch.resilience import faults
+
+    faults.set_fault_plan(plan)
+    try:
+        yield plan
+    finally:
+        faults.set_fault_plan(None)
+
+
+def phase14a(cluster, stats, params, zero_launches, launch_counts,
+             timers7):
+    """Phase 7's survey on `cluster` (phase 7's configuration) with dp9 and
+    vn2 killed: the nine responders' survey and a block from vn0 and vn1;
+    then a query asking for all ten DPs, refused. Returns (launches,
+    [wall time])."""
+    from drynx_tpu_torch.proofs import range_proof as rp
+    from drynx_tpu_torch.resilience import faults
+
+    t0 = time.perf_counter()
+    V = stats.shape[1]
+    n_resp = NUM_DPS - 1
+    sq = cluster.generate_survey_query(
+        "log_reg", proofs=1, lr_params=params, ranges=[(U, L)] * V,
+        thresholds=1.0, min_dp_quorum=DEGRADED_QUORUM,
+        vn_quorum=DEGRADED_VN_QUORUM)
+    strict = cluster.generate_survey_query(
+        "log_reg", proofs=1, lr_params=params, ranges=[(U, L)] * V,
+        thresholds=1.0, min_dp_quorum=NUM_DPS)
+    digit_proofs = n_resp * V * L * N_SERVERS
+    clear = stats[:n_resp].sum(0).cpu().numpy()
+    plan = faults.FaultPlan(seed=0)
+    for name in DEGRADED_KILLED:
+        plan.kill(name)
+    checks, batch_verify = [], rp.verify_range_proofs_batch
+
+    def counted(pb, *a, **k):
+        checks.append(pb.n_values * pb.l * pb.n_servers)
+        return batch_verify(pb, *a, **k)
+
+    print(f"phase 14a setup: {plan.describe()}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for vn in cluster.vns.vns:
+        vn.verify_cache.clear()
+    with fault_plan_installed(plan):
+        rp.verify_range_proofs_batch = counted
+        try:
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cluster.run_survey(sq, seed=SURVEY_SEED)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        finally:
+            rp.verify_range_proofs_batch = batch_verify
+        try:
+            cluster.run_survey(strict, seed=SURVEY_SEED)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+    if faults.fault_plan() is not None:
+        raise SystemExit("the fault plan outlived phase 14a")
+    absent = [n for n in DEGRADED_KILLED if n.startswith("dp")]
+    want_refusal = (f"survey {strict.survey_id}: only {n_resp}/{NUM_DPS} "
+                    f"DPs responded (quorum {NUM_DPS}); absent: {absent}")
+    if refused != want_refusal:
+        raise SystemExit(f"the ten-DP query: {refused!r}, not the quorum "
+                         f"refusal")
+    want_resp = [f"dp{i}" for i in range(n_resp)]
+    if res.responders != want_resp or res.absent != absent:
+        raise SystemExit(f"responders {res.responders}, absent {res.absent}")
+    if (not res.decrypted.found.all()
+            or not np.array_equal(res.decrypted.values, clear)):
+        raise SystemExit("the degraded survey's decrypted aggregate differs "
+                         "from the responders' clear sums")
+    err, tol = lr_weights_ok(res, params, "degraded survey")
+    bitmap = res.block.data.bitmap
+    check_block(res.block, 2 * (n_resp + 2 * N_SERVERS), "degraded survey")
+    if {k.split(":")[0] for k in bitmap} != {"vn0", "vn1"}:
+        raise SystemExit(f"the degraded block's VNs: "
+                         f"{sorted({k.split(':')[0] for k in bitmap})}")
+    if checks != [digit_proofs]:
+        raise SystemExit(f"digit proofs checked {checks}, want "
+                         f"[{digit_proofs}]")
+    want = survey_launches(digit_proofs, signed_offset=True)
+    if launches != want:
+        raise SystemExit(f"degraded survey launches {launches} differ from "
+                         f"{want}")
+    if res.resumes != 0 or set(res.phases.values()) != {1}:
+        raise SystemExit(f"resumes {res.resumes}, phases {res.phases}")
+    print(f"  responders dp0..dp{n_resp - 1}, absent {absent}; decrypted = "
+          f"the {n_resp} responders' clear sums; weights max abs err vs CPU GD "
+          f"{err:.3g} (tolerance {tol:.3g}); block of {len(bitmap)} entries "
+          f"from vn0 and vn1, all BM_TRUE; {checks[0]} digit proofs checked "
+          f"in one RLC check; phases {res.phases}, resumes {res.resumes}; "
+          f"the ten-DP query refused: {refused}", flush=True)
+    print(f"phase 14a: degraded survey wall time {wall:.4f} s (warm "
+          f"cluster); launches {launches}; phase timers: "
+          + phase_timers([res]), flush=True)
+    print(f"phase 14a: phase 7's timers beside them: {timers7}", flush=True)
+    return launches, [wall]
+
+
+def phase14b(zero_launches, launch_counts):
+    """A proofs-off sum on phase 13's transcript cluster through
+    `SurveyServer`, its checkpoints in a durable store: a one-shot refused
+    connect to dp1 fails the first dispatch's quorum, the resume lane
+    re-probes and re-enters once, and the result equals an undisturbed
+    run's. Returns (launches, [wall time])."""
+    import tempfile
+
+    from drynx_tpu_torch.resilience import faults
+    from drynx_tpu_torch.resilience.policy import RESUME_BACKOFF_S
+    from drynx_tpu_torch.server import SurveyServer
+    from drynx_tpu_torch.service.service import LocalCluster
+    from drynx_tpu_torch.service.store import ProofDB, SurveyCheckpoint
+
+    S = LOAD
+    t0 = time.perf_counter()
+    cluster = LocalCluster(n_cns=S["n_cns"], n_dps=S["n_dps"],
+                           n_vns=S["n_vns"], seed=S["seed"],
+                           dlog_limit=S["dlog"])
+    rng = np.random.default_rng(S["data_seed"])
+    for dp in cluster.dps.values():
+        dp.data = rng.integers(0, 4, size=(S["rows"],)).astype(np.int64)
+    tmp = tempfile.TemporaryDirectory(prefix="drynx_ckpt_")
+    cluster.attach_checkpoint_store(f"{tmp.name}/ckpt.db")
+    clear = sum(int(d.data.sum()) for d in cluster.dps.values())
+
+    def query(sid):
+        return cluster.generate_survey_query("sum", 0, S["qmax"], proofs=0,
+                                             survey_id=sid)
+
+    def serve(sid):
+        srv = SurveyServer(cluster, pipeline=False)
+        srv.submit(query(sid))
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = srv.drain()[sid]
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, launch_counts()
+
+    baseline, base_s, _ = serve("r0")
+    print(f"phase 14b setup: cluster and an undisturbed run "
+          f"{time.perf_counter() - t0 - base_s:.1f} s + {base_s:.3f} s",
+          flush=True)
+    plan = faults.FaultPlan(seed=0)
+    plan.add(faults.FaultSpec(where="connect", kind="refuse", target="dp1",
+                              count=1))
+    with fault_plan_installed(plan):
+        res, wall, launches = serve("r1")
+    if isinstance(res, Exception):
+        raise SystemExit(f"the resumed survey failed: {res!r}")
+    stored = SurveyCheckpoint.load(ProofDB(f"{tmp.name}/ckpt.db"), "r1")
+    tmp.cleanup()
+    cluster.close()
+    if (res.result != baseline.result or int(res.result) != clear
+            or res.responders != ["dp0", "dp1"] or res.absent != []):
+        raise SystemExit(f"resumed survey: {res.result} over "
+                         f"{res.responders} (absent {res.absent}), the "
+                         f"undisturbed run {baseline.result}")
+    if (res.resumes != 1 or res.phases.get("probe") != 2
+            or {k: v for k, v in res.phases.items() if k != "probe"}
+            != {k: 1 for k in baseline.phases if k != "probe"}
+            or stored is None or stored.resumes != 1 or not stored.done
+            or stored.phase_entries != res.phases):
+        raise SystemExit(f"resume record: resumes {res.resumes}, phases "
+                         f"{res.phases}, from the store {stored}")
+    if plan.specs[0].fired != 1 or launches != PROOFS_OFF_LAUNCHES:
+        raise SystemExit(f"the refusal fired {plan.specs[0].fired} times; "
+                         f"launches {launches}")
+    print(f"  the first dispatch refused (dp1's connect), re-probed and "
+          f"re-entered once: result {res.result} = the undisturbed run's = "
+          f"the clear sum, responders {res.responders}, absent "
+          f"{res.absent}; phases {res.phases}, resumes {res.resumes}, the "
+          f"same record read back from the reopened store", flush=True)
+    print(f"phase 14b: resumed survey wall time {wall:.4f} s (the resume "
+          f"lane's {RESUME_BACKOFF_S} s backoff in it) against "
+          f"{base_s:.4f} s undisturbed; launches {launches}", flush=True)
+    return launches, [wall]
+
+
+def phase14c(X, params, w, zero_launches, launch_counts, kept=None):
+    """The encrypted prediction: the Pima records rounded to integers,
+    encrypted under the querier's key of phase 7's cluster configuration,
+    scored with the weights `w` through `logreg.predict_homomorphic`,
+    counted; the G1 kernels' calls kept (in `kept`, held with phases
+    10-12's, or held here) against their plain versions. Returns
+    (launches, [wall time])."""
+    from drynx_tpu_torch.crypto import elgamal as eg
+    from drynx_tpu_torch.models import logreg as lr
+    from drynx_tpu_torch.service.service import LocalCluster
+
+    t0 = time.perf_counter()
+    cluster = LocalCluster(n_cns=N_SERVERS, n_dps=NUM_DPS, n_vns=0,
+                           seed=CLUSTER_SEED, dlog_limit=DLOG_LIMIT)
+    dev = cluster.device
+    Xi = np.round(X[:PREDICT_RECORDS]).astype(np.int64)   # (768, 8)
+    means, stds = params.means, params.std_devs
+    gen = torch.Generator(device=dev).manual_seed(PREDICT_SEED)
+    r = eg.random_scalars(Xi.shape, gen, dev)
+    cts = eg.encrypt_ints_with_tables(cluster.base_table,
+                                      cluster.client_tbl.table,
+                                      torch.from_numpy(Xi).to(dev), r)
+    P = PREDICT_PRECISION
+    w0p, wp = lr.fold_affine(w, means, stds)
+    wi, w0i = [int(round(P * v)) for v in wp], int(round(P * w0p))
+    want = [sum(wi[j] * int(x[j]) for j in range(len(wi))) + w0i
+            for x in Xi.tolist()]
+    if max(abs(m) for m in want) > cluster.dlog.limit:
+        raise SystemExit("a margin lies outside the decryption table")
+    torch.cuda.synchronize()
+    print(f"phase 14c setup: {Xi.shape[0]} records x {Xi.shape[1]} integer "
+          f"features encrypted under the querier's key, margins within "
+          f"+-{max(abs(m) for m in want)}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    own = kept is None
+    if own:
+        kept = KeptCalls(KeptCalls.G1)
+    kept.tag = "14c"
+    decrypted = {}
+    decrypt_ints = eg.decrypt_ints
+
+    def recorded(*a, **k):
+        decrypted["v"] = decrypt_ints(*a, **k)
+        return decrypted["v"]
+
+    eg.decrypt_ints = recorded
+    try:
+        with kept:
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probs, preds, found = lr.predict_homomorphic(
+                cts, w, cluster.client.secret, cluster.dlog, means, stds, P)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+    finally:
+        eg.decrypt_ints = decrypt_ints
+    cluster.close()
+    margin = decrypted["v"][0].cpu().tolist()
+    clear = lr.predict_probs(Xi, w, means, stds).numpy()
+    probs = probs.cpu().numpy()
+    if not bool(found.all()) or margin != want:
+        raise SystemExit(f"decrypted margins differ from the integer "
+                         f"formula at {sum(a != b for a, b in zip(margin, want))}"
+                         f" records (found {int(found.sum())})")
+    err = float(np.abs(probs - clear).max())
+    if err > 0.02 or not np.array_equal(preds.cpu().numpy(),
+                                        (probs >= 0.5).astype(np.int64)):
+        raise SystemExit(f"encrypted probabilities differ from the clear "
+                         f"ones by {err}")
+    if launches != {**dict.fromkeys(launches, 0), **PREDICT_LAUNCHES}:
+        raise SystemExit(f"encrypted prediction launches {launches} differ "
+                         f"from {PREDICT_LAUNCHES}")
+    held = "kept, held with phases 10-12's"
+    if own:
+        t0 = time.perf_counter()
+        calls = kept.hold()
+        held = (f"byte-equal to their plain versions "
+                f"({time.perf_counter() - t0:.1f} s): {calls}")
+    print(f"  {len(want)} margins = sum_j round(P w'_j) x_j + round(P w0') "
+          f"exactly, all found; probabilities within {err:.3g} of the clear "
+          f"ones (tolerance 0.02); accuracy of the encrypted predictions "
+          f"against the clear ones "
+          f"{lr.accuracy(probs >= 0.5, clear >= 0.5):.4f}; the G1 kernels' "
+          f"calls at these sizes {held}", flush=True)
+    print(f"phase 14c: encrypted prediction of {len(want)} records "
+          f"{wall:.4f} s; launches {launches}", flush=True)
+    return launches, [wall]
+
+
 def new_phases(stats, X, y, params, zero_launches, launch_counts,
-               verify_range_alone=None, only=None):
-    """Phases 10-12 (`only`: some of "10a", "10b", "11", "12", run in
-    that order), each
-    keeping its kernels' largest calls; every kept call is then held
-    against its plain version. Returns {phase: (launches, walls)}."""
+               verify_range_alone=None, only=None, timers7="not measured",
+               w7=None):
+    """Phases 10-12, 14a and 14c (`only`: some of "10a", "10b", "11",
+    "12", "14a", "14c", run in that order; 14c scores with the weights
+    `w7`), 10-12 and 14c each keeping its kernels' largest calls; every
+    kept call is then held against its plain version. Returns {phase:
+    (launches, walls)}."""
     kept = KeptCalls(KeptCalls.G1 + KeptCalls.PAIRING)
     out, pima = {}, []
 
     def pima_cluster():
-        # phases 10b and 11 share one cluster of phase 7's configuration
+        # phases 10b, 11 and 14a share one cluster of phase 7's
+        # configuration
         if not pima:
             t0 = time.perf_counter()
             pima.append(cluster_pima(X, y))
-            print(f"phases 10b and 11: cluster keys, tables and "
+            print(f"phases 10b, 11 and 14a: cluster keys, tables and "
                   f"{N_SERVERS} signature sets of u={U} "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
         return pima[0]
@@ -2389,7 +2737,16 @@ def new_phases(stats, X, y, params, zero_launches, launch_counts,
                 pima_cluster(), stats, params, zero_launches, launch_counts,
                 kept, "not measured" if verify_range_alone is None
                 else f"{verify_range_alone:.4f} s"),
-            "12": lambda: phase12(zero_launches, launch_counts, kept)}
+            "12": lambda: phase12(zero_launches, launch_counts, kept),
+            "14a": lambda: phase14a(pima_cluster(), stats, params,
+                                    zero_launches, launch_counts, timers7),
+            "14c": lambda: phase14c(X, params, w7, zero_launches,
+                                    launch_counts,
+                                    kept if shared_hold else None)}
+    # 14c's kept calls join phases 10-12's hold when one of them runs (the
+    # hold needs every kernel of the survey paths kept)
+    shared_hold = bool(set(runs if only is None else only)
+                       & {"10a", "10b", "11", "12"})
     for name in runs if only is None else only:
         t0 = time.perf_counter()
         out[name] = runs[name]()
@@ -2397,11 +2754,13 @@ def new_phases(stats, X, y, params, zero_launches, launch_counts,
               flush=True)
     for c in pima:
         c.close()
+    if not shared_hold:
+        return out
     t0 = time.perf_counter()
     held = kept.hold()
-    print(f"phases 10-12: every kernel's largest call of each phase byte-equal"
-          f" to its plain version ({time.perf_counter() - t0:.1f} s): "
-          f"{held}", flush=True)
+    print(f"phases 10-12 and 14c: every kernel's largest call of each phase "
+          f"byte-equal to its plain version "
+          f"({time.perf_counter() - t0:.1f} s): {held}", flush=True)
     return out
 
 
@@ -2466,12 +2825,17 @@ def main():
     print(f"setup: V={V} ciphertexts per DP, host keygen + tables "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if only is not None:
-        rest = [p for p in only if p != "13"]
+        rest = [p for p in only if p not in ("13", "14b")]
         if rest:
+            # without phase 7, its weights' stand-in for 14c: GD on the CPU
+            # from the clear sums
+            w = lr.train(lr.unpack(stats.sum(0).cpu(), params), params)
             new_phases(stats, X, y, params, zero_launches, launch_counts,
-                       only=rest)
+                       only=rest, w7=w.numpy())
         if "13" in only:
             phase13(zero_launches, launch_counts)
+        if "14b" in only:
+            phase14b(zero_launches, launch_counts)
         return 0
     base = eg.BASE_TABLE.table.to(dev)
     mag, _ = eg.magnitude_limbs(stats.reshape(-1))
@@ -2576,14 +2940,35 @@ def main():
     # extra shapes) are held against: each such block is a prefix of the
     # main shape's rows, so its kernel call is compared with the first N
     # rows of the main shape's one plain run
-    ladder_main = prefixes(lambda: cuda_ops.scalar_mul_plain(
-        *ladder_rows[0][1:3], 64))
-    g2_main = prefixes(lambda: cuda_pairing.g2_scalar_mul_plain(g2_p, g2_k))
+    # the ladder's 64-window calls of phase 2 (the main shapes': the key
+    # switch's x K, decryption, the D equation, the key-switch check, c y;
+    # then the crafted scalars') are held against one plain run over their
+    # rows, and its partly filled blocks against the D equation's rows
+    ladder64 = shared_plain(cuda_ops.scalar_mul_plain, lambda: [
+        (pts_sv, secrets.reshape(-1, 16)), (pts_v, qx)] + [
+        (p, k) for w, p, k, _ in ladder_rows if w == 64] + [ladder_crafted],
+        64)
+    ladder_main = prefixes(ladder64(2))
+    # the Fp inverse's cluster shapes are prefixes of one set of rows
+    inv_main = prefixes(lambda: cuda_pairing.fp_inv_plain(inv_x))
+    # the G2 ladder's, the windowed power's and the Fp12 power's main
+    # shapes share one plain run with the crafted rows of the same
+    # arguments (and the power by u at N = 1 with the 63-bit a^r)
+    g2_shared = shared_plain(cuda_pairing.g2_scalar_mul_plain,
+                             lambda: [(g2_p, g2_k), g2_crafted])
+    g2_main = prefixes(g2_shared(0))
+    wpow63 = shared_plain(cuda_pairing.f12_wpow_plain, lambda: [
+        (gt_ca, r_w), (gt_a[:1], u_k), wpow_crafted], 63, True)
+    wpow128 = shared_plain(cuda_pairing.f12_wpow_plain, lambda: [
+        (gt_a, t1_k), wpow_crafted], 128, True)
+    pow_shared = {nb: shared_plain(cuda_pairing.f12_pow_plain,
+                                   lambda nb=nb: [(gt_a, g2_k),
+                                                  pow_crafted[nb]], nb)
+                  for nb in (48, 256)}
     mul_main = prefixes(lambda: cuda_pairing.f12_mul_plain(gt1, gt2))
     mr8_main = prefixes(lambda: cuda_pairing.f12_mulreduce8_plain(g_multi))
     miller_main = prefixes(lambda: cuda_pairing.miller_plain(*ml_in))
-    wpow_main = prefixes(lambda: cuda_pairing.f12_wpow_plain(gt_ca, r_w, 63,
-                                                             True))
+    wpow_main = prefixes(wpow63(0))
     cases = {
         # kernel: list of (label, wrapper call, plain call, mont muls/elem,
         #                  elements, bytes moved)
@@ -2619,17 +3004,17 @@ def main():
         "scalar_mul": [
             (f"W=64 N={N_SERVERS * V} (key switch xK)",
              lambda: cuda_ops.scalar_mul_flat(pts_sv, secrets.reshape(-1, 16)),
-             lambda: cuda_ops.scalar_mul_plain(pts_sv, secrets.reshape(-1, 16)),
+             ladder64(0),
              mm_scalar_mul(secrets.reshape(-1, 16), 64), N_SERVERS * V,
              N_SERVERS * V * (192 + 64 + 192)),
             (f"W=64 N={V} (decrypt)",
              lambda: cuda_ops.scalar_mul_flat(pts_v, qx.contiguous()),
-             lambda: cuda_ops.scalar_mul_plain(pts_v, qx.contiguous()),
+             ladder64(1),
              mm_scalar_mul(qx, 64), V, V * (192 + 64 + 192)),
         ] + [
             (f"W={w} N={len(k)} ({what})",
              (lambda p=p, k=k, w=w: cuda_ops.scalar_mul_flat(p, k, w)),
-             ladder_main(len(k)) if i == 0 else
+             ladder64(2 + i) if w == 64 else
              (lambda p=p, k=k, w=w: cuda_ops.scalar_mul_plain(p, k, w)),
              mm_scalar_mul(k, w), len(k), len(k) * (192 + 64 + 192))
             for i, (w, p, k, what) in enumerate(ladder_rows)
@@ -2664,7 +3049,7 @@ def main():
         ] + [
             (f"N={n} (cluster survey)",
              (lambda n=n: cuda_pairing.fp_inv_flat(inv_x[:n])),
-             (lambda n=n: cuda_pairing.fp_inv_plain(inv_x[:n])), MM_FP_INV,
+             inv_main(n), MM_FP_INV,
              n, 2 * n * 64)
             for n in sorted(CLUSTER_ROWS["fp_inv"]) if n != V
         ],
@@ -2732,7 +3117,7 @@ def main():
         "f12_wpow": [
             (f"N={n_proofs} 128 bits cyc (order gate)",
              lambda: cuda_pairing.f12_wpow_flat(gt_a, t1_k, 128, cyc=True),
-             lambda: cuda_pairing.f12_wpow_plain(gt_a, t1_k, 128, True),
+             wpow128(0),
              mm_wpow(128, True), n_proofs, 2 * f12_bytes + nbytes(t1_k)),
             (f"N={n_proofs} 63 bits cyc (a^r)",
              lambda: cuda_pairing.f12_wpow_flat(gt_ca, r_w, 63, cyc=True),
@@ -2740,7 +3125,7 @@ def main():
              2 * f12_bytes + nbytes(r_w)),
             ("N=1 63 bits cyc (final exp, power by u)",
              lambda: cuda_pairing.f12_wpow_flat(gt_a[:1], u_k, 63, cyc=True),
-             lambda: cuda_pairing.f12_wpow_plain(gt_a[:1], u_k, 63, True),
+             wpow63(1),
              mm_wpow(63, True), 1, 2 * 768 + 64),
         ],
         # square-and-multiply-always; the bound counts the squares and the
@@ -2748,7 +3133,7 @@ def main():
         "f12_pow": [
             (f"N={n_proofs} {n} bits", (lambda n=n: cuda_pairing.f12_pow_flat(
                 gt_a, g2_k, n)),
-             (lambda n=n: F12.pow_var(gt_a, g2_k, n)),
+             pow_shared[n](0),
              mm_pow(g2_k, n) / n_proofs, n_proofs,
              2 * f12_bytes + nbytes(g2_k))
             for n in (48, 256)
@@ -2792,8 +3177,9 @@ def main():
                  for nb, fk in pow_crafted.items()}
     # one plain run of the crafted rows at each POW_BITS: the tiled launch
     # is held against it tiled (a row-wise kernel)
-    pow_crafted_plain = {nb: prefixes(lambda fk=fk, nb=nb: cuda_pairing.
-                                      f12_pow_plain(*fk, nb))(len(fk[1]))
+    pow_crafted_plain = {nb: pow_shared[nb](1) if nb in pow_shared else
+                         prefixes(lambda fk=fk, nb=nb: cuda_pairing.
+                                  f12_pow_plain(*fk, nb))(len(fk[1]))
                          for nb, fk in pow_crafted.items()}
 
     def scalars(n, n_windows):
@@ -2906,7 +3292,7 @@ def main():
         # inputs (0 among them)
         "fp_inv": [
             (f"N={n}", (lambda n=n: cuda_pairing.fp_inv_flat(inv_x[:n])),
-             (lambda n=n: cuda_pairing.fp_inv_plain(inv_x[:n])), MM_FP_INV,
+             inv_main(n), MM_FP_INV,
              n, 2 * n * 64)
             for n in (1, 5, 21, 128, 129)
         ] + [
@@ -2937,6 +3323,7 @@ def main():
         "scalar_mul": [
             (f"crafted W={w}",
              (lambda w=w: cuda_ops.scalar_mul_flat(*ladder_crafted, w)),
+             ladder64(5) if w == 64 else
              (lambda w=w: cuda_ops.scalar_mul_plain(*ladder_crafted, w)),
              mm_scalar_mul(ladder_crafted[1], w), len(ladder_crafted[1]),
              len(ladder_crafted[1]) * (192 + 64 + 192))
@@ -2951,7 +3338,7 @@ def main():
         ],
         "g2_scalar_mul": [
             ("crafted", lambda: cuda_pairing.g2_scalar_mul_flat(*g2_crafted),
-             lambda: cuda_pairing.g2_scalar_mul_plain(*g2_crafted),
+             g2_shared(1),
              mm_g2_ladder(g2_crafted[1]), len(g2_crafted[1]),
              2 * nbytes(g2_crafted[0]) + nbytes(g2_crafted[1]))
         ] + [
@@ -2966,6 +3353,8 @@ def main():
             (f"crafted {nb} bits cyc={cyc}",
              (lambda nb=nb, cyc=cyc: cuda_pairing.f12_wpow_flat(
                  *wpow_crafted, nb, cyc=cyc)),
+             wpow63(2) if (nb, cyc) == (63, True) else
+             wpow128(1) if (nb, cyc) == (128, True) else
              (lambda nb=nb, cyc=cyc: cuda_pairing.f12_wpow_plain(
                  *wpow_crafted, nb, cyc)),
              mm_wpow(nb, cyc), len(wpow_crafted[0]),
@@ -3371,8 +3760,8 @@ def main():
     # -- phase 7: the proofs-on LocalCluster survey, counted -----------------
     print(f"-- phase 7 at {time.perf_counter() - start:.1f} s",
           flush=True)
-    launches7, walls7, verify_range7 = phase7(stats, X, y, params,
-                                              zero_launches, launch_counts)
+    launches7, walls7, verify_range7, res7 = phase7(
+        stats, X, y, params, zero_launches, launch_counts)
 
     # -- phase 8: the obfuscated max survey, counted --------------------------
     print(f"-- phase 8 at {time.perf_counter() - start:.1f} s",
@@ -3385,10 +3774,12 @@ def main():
     launches9, walls9 = phase9(zero_launches, launch_counts)
 
     # -- phases 10-12: grouped, cut, held and streaming surveys, counted ------
-    print(f"-- phases 10-12 at {time.perf_counter() - start:.1f} s",
+    print(f"-- phases 10-12, 14a and 14c at "
+          f"{time.perf_counter() - start:.1f} s",
           flush=True)
     new = new_phases(stats, X, y, params, zero_launches, launch_counts,
-                     verify_range7)
+                     verify_range7, timers7=phase_timers([res7]),
+                     w7=res7.result)
 
     # -- phase 13: the standing server and its load, counted -----------------
     print(f"-- phase 13 at {time.perf_counter() - start:.1f} s",
@@ -3396,6 +3787,12 @@ def main():
     t0 = time.perf_counter()
     new["13"] = phase13(zero_launches, launch_counts)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s in all", flush=True)
+
+    # -- phase 14b: a resumed survey through the server, counted ------------
+    print(f"-- phase 14b at {time.perf_counter() - start:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    new["14b"] = phase14b(zero_launches, launch_counts)
+    print(f"phase 14b: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
     kernels = []
     for name, tot in summary.items():
@@ -3419,8 +3816,9 @@ def main():
           "collection's, the joint check's, the per-value check's, the "
           "proofs-on cluster survey's, the obfuscated max survey's, the "
           "noised sum's, the grouped and the cut survey's, the held batch's, "
-          "the stream's 1-pane advance's and phase 13's server surveys and "
-          "load)")
+          "the stream's 1-pane advance's, phase 13's server surveys and "
+          "load, the degraded survey's, the resumed survey's and the "
+          "encrypted prediction's)")
     print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))

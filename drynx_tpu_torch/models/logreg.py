@@ -10,6 +10,13 @@ contribution reduces to the sign-weighted outer-power tensors
 computed as one einsum each. The querier trains by gradient descent on the
 polynomial cost, with the gradient from `torch.autograd`. The loop is plain
 torch: on the card each of its iterations is a few dozen small launches.
+
+The evaluation half (reference logreg.py:77, :199-319): prediction in the
+clear, encrypted prediction of encrypted raw records (the folded weights'
+scalar products of the features' ciphertexts, one ladder launch, summed
+by one reduce launch, plus w0'B on the C component; decrypted through the
+discrete-log table), the metrics and the CSV loader, which are numpy as
+in the reference.
 """
 from __future__ import annotations
 
@@ -62,6 +69,16 @@ def standardise(X, means=None, std_devs=None):
     sd = X.std(0, unbiased=False) if std_devs is None else torch.as_tensor(
         std_devs, dtype=torch.float64, device=X.device)
     return (X - mu) / sd
+
+
+def normalize(X, mins=None, maxs=None):
+    """Min-max scaling to [0, 1] per column; float64."""
+    X = torch.as_tensor(X, dtype=torch.float64)
+    lo = X.min(0).values if mins is None else torch.as_tensor(
+        mins, dtype=torch.float64, device=X.device)
+    hi = X.max(0).values if maxs is None else torch.as_tensor(
+        maxs, dtype=torch.float64, device=X.device)
+    return (X - lo) / (hi - lo)
 
 
 def augment(X):
@@ -169,8 +186,135 @@ def train(Ts, p: LRParams):
 
 
 # ---------------------------------------------------------------------------
+# Prediction and metrics (reference logistic_regression.go:821-899,
+# 1101-1164)
+# ---------------------------------------------------------------------------
+
+def sigmoid(z):
+    z = torch.as_tensor(z, dtype=torch.float64)
+    return 1.0 / (1.0 + torch.exp(-z))
+
+
+def predict_probs(X, w, means=None, std_devs=None):
+    Xa = augment(standardise(X, means, std_devs))
+    return sigmoid(Xa @ torch.as_tensor(w, dtype=torch.float64,
+                                        device=Xa.device))
+
+
+def predict(X, w, means=None, std_devs=None, threshold=0.5):
+    return (predict_probs(X, w, means, std_devs) >= threshold).to(
+        torch.int64)
+
+
+def fold_affine(w, means=None, std_devs=None):
+    """Fold standardisation into the weights so they act on raw records:
+    w.[(x - mu)/sd] + w0 == w'.x + w0'. Returns (w0', w' (d,)), numpy."""
+    if (means is None) != (std_devs is None):
+        raise ValueError("means and std_devs must be given together")
+    w = np.asarray(w, dtype=np.float64)
+    w0, wf = float(w[0]), w[1:]
+    if means is None:
+        return w0, wf
+    mu = np.asarray(means, dtype=np.float64)
+    sd = np.asarray(std_devs, dtype=np.float64)
+    return w0 - float(np.sum(wf * mu / sd)), wf / sd
+
+
+def predict_homomorphic_ct(cts, w, means=None, std_devs=None,
+                           precision=100.0):
+    """Encrypted margin ciphertexts from per-feature ciphertexts of raw
+    records (reference PredictHomomorphic, logistic_regression.go:869-899),
+    on the device of `cts`.
+
+    cts: (..., d, 2, 3, 16), one ciphertext per raw feature value. The
+    weights are folded with the standardisation and scaled to fixed point;
+    the margin is sum_j round(P w'_j) ct_j + Enc0(round(P w0')): one
+    ladder launch for the d products (a negative weight through its mod-n
+    scalar), one reduce launch for their sum, and w0'B from the fixed-base
+    ladder added to the C component only. Decrypt with a discrete-log
+    table and divide by `precision` for ~ w.x_std + w0."""
+    from ..crypto import cuda_ops
+    from ..crypto import curve as C
+    from ..crypto import elgamal as eg
+
+    dev = cts.device
+    w0p, wp = fold_affine(w, means, std_devs)
+    w_int = torch.from_numpy(np.round(np.asarray(wp) * precision).astype(
+        np.int64)).to(dev)
+    terms = eg.ct_scalar_mul(cts, eg.int_to_scalar(w_int))
+    d = terms.shape[-4]
+    margin = cuda_ops.point_reduce_flat(
+        terms.movedim(-4, 0).reshape(d, -1, 3, 16)).reshape(
+            cts.shape[:-4] + (2, 3, 16))
+    w0B = eg.fixed_base_mul(
+        eg.BASE_TABLE.table.to(dev), eg.int_to_scalar(torch.tensor(
+            [round(w0p * precision)], dtype=torch.int64, device=dev)))[0]
+    K, Cc = margin[..., 0, :, :], margin[..., 1, :, :]
+    return torch.stack([K, C.add(Cc, w0B)], dim=-3)
+
+
+def predict_homomorphic(cts, w, secret: int, table, means=None,
+                        std_devs=None, precision=100.0, threshold=0.5):
+    """Encrypted raw records -> (probs float64, preds int64, found bool),
+    tensors on the device of `cts`. `table` must cover the fixed-point
+    margins |P (w.x + w0)|; an entry with found False had no table hit and
+    its prob means nothing: the caller must check `found`."""
+    from ..crypto import elgamal as eg
+
+    mct = predict_homomorphic_ct(cts, w, means, std_devs, precision)
+    margin_int, found = eg.decrypt_ints(mct, secret, table)
+    probs = sigmoid(margin_int.to(torch.float64) / precision)
+    return probs, (probs >= threshold).to(torch.int64), found
+
+
+def accuracy(pred, actual):
+    pred, actual = np.asarray(pred), np.asarray(actual)
+    return float(np.mean(pred == actual))
+
+
+def precision(pred, actual):
+    pred, actual = np.asarray(pred), np.asarray(actual)
+    tp = int(np.sum((pred == 1) & (actual == 1)))
+    fp = int(np.sum((pred == 1) & (actual == 0)))
+    return tp / (tp + fp) if tp + fp else 0.0
+
+
+def recall(pred, actual):
+    pred, actual = np.asarray(pred), np.asarray(actual)
+    tp = int(np.sum((pred == 1) & (actual == 1)))
+    fn = int(np.sum((pred == 0) & (actual == 1)))
+    return tp / (tp + fn) if tp + fn else 0.0
+
+
+def f_score(pred, actual):
+    pr, rc = precision(pred, actual), recall(pred, actual)
+    return 2 * pr * rc / (pr + rc) if pr + rc else 0.0
+
+
+def auc(probs, actual):
+    """Area under the ROC curve (trapezoidal, like gonum integrate)."""
+    probs, actual = np.asarray(probs, float), np.asarray(actual)
+    order = np.argsort(-probs, kind="stable")
+    lab = actual[order]
+    P, Nn = int(lab.sum()), int((1 - lab).sum())
+    if P == 0 or Nn == 0:
+        return 0.0
+    tpr = np.concatenate([[0.0], np.cumsum(lab) / P])
+    fpr = np.concatenate([[0.0], np.cumsum(1 - lab) / Nn])
+    return float(np.trapezoid(tpr, fpr))
+
+
+# ---------------------------------------------------------------------------
 # Dataset helpers (numpy, shared with the reference's data)
 # ---------------------------------------------------------------------------
+
+def load_csv(path, label_column=0, sep=","):
+    """CSV -> (X float64 (n, d), y int64 (n,))."""
+    raw = np.loadtxt(path, delimiter=sep, ndmin=2)
+    y = raw[:, label_column].astype(np.int64)
+    X = np.delete(raw, label_column, axis=1)
+    return X, y
+
 
 def shard_for_dp(X, y, dp_id: int, num_dps: int):
     """Row-shard i % num_dps == dp_id."""
@@ -191,7 +335,10 @@ def synthetic_dataset(n=768, d=8, seed=0):
 
 
 __all__ = [
-    "MIN_AREA_COEFFS", "LRParams", "standardise", "augment",
+    "MIN_AREA_COEFFS", "LRParams", "standardise", "normalize", "augment",
     "approx_tensors", "encode_clear", "unpack", "cost", "closed_form_k1",
-    "train", "shard_for_dp", "synthetic_dataset",
+    "train", "sigmoid", "predict_probs", "predict", "fold_affine",
+    "predict_homomorphic_ct", "predict_homomorphic", "accuracy",
+    "precision", "recall", "f_score", "auc", "load_csv", "shard_for_dp",
+    "synthetic_dataset",
 ]

@@ -595,10 +595,11 @@ class SurveyServer:
 
     def _resume_budget(self, sid: str) -> int:
         """Retry cap for the resume lane: CHECKPOINT_MAX_RESUMES when the
-        cluster holds a phase checkpoint for this survey (re-entry resumes
-        mid-survey instead of restarting, so more attempts are cheap and
-        safe — the checkpoint's absolute counters keep VN gates and reply
-        caches idempotent), else the legacy RESUME_MAX_RETRIES."""
+        cluster holds a phase checkpoint for this survey
+        (`LocalCluster.checkpoint_for`: every survey that reached its
+        probe phase has one, durable with `attach_checkpoint_store`), as
+        a re-entry then counts a resume on that record; else
+        RESUME_MAX_RETRIES."""
         ckfor = getattr(self.cluster, "checkpoint_for", None)
         if ckfor is not None:
             try:
@@ -609,9 +610,11 @@ class SurveyServer:
         return rp.RESUME_MAX_RETRIES
 
     def _reprobe(self) -> tuple | None:
-        """The resume re-triage: the cluster's liveness probe (None, no
-        restriction, when the cluster has none or it fails: the port's
-        LocalCluster raises until step 16 ports the probe)."""
+        """The resume re-triage: the sorted DPs that the cluster's
+        liveness probe (`LocalCluster.probe_liveness`, through the fault
+        plane's hooks) finds alive, carried into the retry as its
+        responder set; None, no restriction, when the cluster has no
+        probe or the probe fails."""
         probe = getattr(self.cluster, "probe_liveness", None)
         if probe is None:
             return None

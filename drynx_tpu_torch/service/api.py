@@ -39,8 +39,10 @@ class DrynxClient:
 
     # -- VN/skipchain side (api_skipchain.go)
     def send_end_verification(self, survey_id: str,
-                              timeout: float = pol.END_VERIFICATION_TIMEOUT_S):
-        return self.cluster.vns.end_verification(survey_id, timeout=timeout)
+                              timeout: float = pol.END_VERIFICATION_TIMEOUT_S,
+                              quorum: float = 1.0):
+        return self.cluster.vns.end_verification(survey_id, timeout=timeout,
+                                                 quorum=quorum)
 
     def get_genesis(self):
         return self.cluster.vns.root.chain.genesis()

@@ -10,18 +10,20 @@ to codes, and a proofdb bucket of raw proof bytes; when the counter reaches
 zero the root VN aggregates every VN's bitmap into one DataBlock and appends
 it to the audit chain.
 
-In-process, delivery is a direct fan-out to each VerifyingNode (the fault
-plane of the reference's transport is not ported). A payload that makes its
-verifier raise fails for itself (BM_FALSE); a fault of the program or the
-card (`cuda_build.is_fault`) propagates out of `receive_proof`. A held
-survey's range payloads stay buffered until `flush_ranges_cross` checks
-several held surveys in one RLC batch. The quorum-degraded counters and a
-block from a subset of VNs wait for the fault plane (ROADMAP queue A,
-step 16).
+In-process, delivery is a direct fan-out to each VerifyingNode through
+`transport.local_call`, so an installed fault plan can kill, pause or delay
+a VN: a faulted VN never sees the proof. A payload that makes its verifier
+raise fails for itself (BM_FALSE); a fault of the program or the card
+(`cuda_build.is_fault`) propagates out of `receive_proof`. A held survey's
+range payloads stay buffered until `flush_ranges_cross` checks several
+held surveys in one RLC batch. A quorum-degraded survey lowers the
+counters to its responders (`adjust_expected`, or at registration), and
+`end_verification(quorum=)` commits a block from the VNs that reported.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 from typing import Callable, Optional
@@ -35,6 +37,7 @@ from ..utils.cuda_build import is_fault
 from ..utils.timers import PhaseTimers
 from .skipchain import DataBlock, SkipChain, bitmap_verifier
 from .store import ProofDB
+from . import transport as tr
 
 
 @dataclasses.dataclass
@@ -387,6 +390,34 @@ class VerifyingNode:
                   flush=True)
         return list(snap)
 
+    def adjust_expected(self, survey_id: str, drop: int,
+                        expected_range: Optional[int] = None) -> None:
+        """Quorum-degraded survey: `drop` DPs went absent, so their proofs
+        never come. Lowers the expected-proof counter and (when given) the
+        joint range flush's threshold to the responder set; fires the
+        joint flush if the buffered payloads already meet it, and the done
+        event if the bitmap already covers the counter (reference
+        proof_collection.py:399)."""
+        st = self.surveys.get(survey_id)
+        if st is None:
+            raise KeyError(f"unknown survey {survey_id!r}")
+        joint = self.verify_fns.get("range_joint")
+        pending = None
+        with self._lock:
+            st.expected = max(0, st.expected - int(drop))
+            if expected_range is not None:
+                st.expected_range = int(expected_range)
+            if (not st.range_flushed and not st.hold_range
+                    and joint is not None
+                    and 0 < st.expected_range <= len(st.pending_range)):
+                st.range_flushed = True
+                pending = dict(st.pending_range)
+        if pending is not None:
+            self._flush_range(st, survey_id, pending, joint)
+        with self._lock:
+            if st.expected - len(st.bitmap) <= 0:
+                st.done.set()
+
     def bitmap_for(self, survey_id: str) -> dict[str, int]:
         st = self.surveys[survey_id]
         return dict(st.bitmap)
@@ -410,6 +441,9 @@ class VNGroup:
             raise ValueError("empty VN roster")
         self.vns = vns
         self.root = vns[0]
+        # {survey id: names of the VNs a delivery of it did not reach}
+        self._missed: dict[str, set] = {}
+        self._missed_lock = rp.named_lock("vn_missed_lock")
 
     def register_survey(self, survey_id: str, expected_proofs: int,
                         thresholds: dict[str, float],
@@ -422,8 +456,22 @@ class VNGroup:
 
     def deliver(self, req: rq.ProofRequest) -> list:
         """Star fan-out: every VN receives and verifies the proof; returns
-        their codes."""
-        return [vn.receive_proof(req) for vn in self.vns]
+        their codes. Each delivery goes through `transport.local_call`, so
+        an installed fault plan can fault a VN: its slot is None, and its
+        counter for the survey stays up (the straggler that
+        `end_verification`'s quorum tolerates)."""
+        codes: list = []
+        for vn in self.vns:
+            try:
+                codes.append(tr.local_call(vn.name, req.proof_type,
+                                           vn.receive_proof, req))
+            except tr.TransportError as e:
+                log.warn(f"VN {vn.name}: delivery faulted: {e}")
+                with self._missed_lock:
+                    self._missed.setdefault(req.survey_id, set()).add(
+                        vn.name)
+                codes.append(None)
+        return codes
 
     def flush_cross_survey(self, survey_ids: list) -> list:
         """The cross-survey flush on every VN (held surveys only); the
@@ -437,25 +485,43 @@ class VNGroup:
         return out
 
     def end_verification(self, survey_id: str,
-                         timeout: float = rp.VN_GROUP_WAIT_S):
-        """Blocks until every VN's proof counter drained, then the root VN
-        funnels the VNs' bitmaps together and commits one audit block
-        (reference HandleEndVerification + the bitmap-aggregation
-        goroutine). All VNs share ONE deadline instead of a full timeout
-        each, so a straggler costs at most ``timeout``."""
+                         timeout: float = rp.VN_GROUP_WAIT_S,
+                         quorum: float = 1.0):
+        """Blocks until every VN's proof counter drained, or, with
+        ``quorum`` < 1.0, until that fraction of VNs is done; then the root
+        VN funnels the reporting VNs' bitmaps together and commits one
+        audit block (reference HandleEndVerification + the
+        bitmap-aggregation goroutine). All VNs share ONE deadline, so a
+        straggler costs at most ``timeout``. A VN that a delivery of this
+        survey did not reach never drains: once too few VNs are left to
+        meet the quorum, the wait raises at once (the reference waits out
+        its deadline), with the reference's TimeoutError naming the first
+        VN not done."""
+        # the epsilon guards float fractions: 2/3 * 3 == 2.0000000000000004,
+        # which a bare ceil would round up to all 3 VNs
+        need = max(1, math.ceil(quorum * len(self.vns) - 1e-9))
         deadline = time.monotonic() + timeout
         while True:
-            waiting = [vn for vn in self.vns
-                       if not vn.surveys[survey_id].done.is_set()]
-            if not waiting:
+            ready = [vn for vn in self.vns
+                     if vn.surveys[survey_id].done.is_set()]
+            if len(ready) >= len(self.vns):
                 break
-            if time.monotonic() >= deadline:
+            if need < len(self.vns) and len(ready) >= need:
+                break  # quorum met; don't serialize behind stragglers
+            with self._missed_lock:
+                lost = len(self._missed.get(survey_id, ()))
+            if (time.monotonic() >= deadline
+                    or len(self.vns) - lost < need):
+                if len(ready) >= need:
+                    break
+                straggler = next(vn for vn in self.vns
+                                 if not vn.surveys[survey_id].done.is_set())
                 raise TimeoutError(
-                    f"VN {waiting[0].name}: proofs incomplete for "
+                    f"VN {straggler.name}: proofs incomplete for "
                     f"{survey_id!r}")
             time.sleep(rp.POLL_INTERVAL_S)
         merged: dict[str, int] = {}
-        for vn in self.vns:
+        for vn in ready:
             for k, v in vn.bitmap_for(survey_id).items():
                 merged[f"{vn.name}:{k}"] = v
         # drynx: deterministic[sample_time is excluded from transcripts]

@@ -51,9 +51,17 @@ kernel once and builds the range proofs' tables, on the calling thread,
 before any proof thread starts; the survey's `PrecompileTraceExec` timer
 holds its seconds.
 
-Not ported yet, each raising NotImplementedError where it is asked for:
-fault probing, responder sets and quorums (step 16), durable checkpoints
-and resumption (step 16).
+Every DP dispatch and every delivery to a VN goes through
+`transport.local_call`, so an installed fault plan (`resilience.faults`)
+decides who answers, as a TCP dispatch would: a killed, refusing or
+dropped DP is absent, and the survey runs over the responders when they
+meet `min_dp_quorum` (the VNs' expected proof counts lowered to them); a
+faulted VN misses its proofs, and `vn_quorum` < 1 commits the block from
+the VNs that reported. Each survey keeps a phase checkpoint
+(`store.SurveyCheckpoint`: phase entries, responders, absent, resumes),
+durable with `attach_checkpoint_store`; a re-entry of the same survey id
+counts a resume. `probe_liveness` pings the DPs through the same hooks,
+for the server's resume lane.
 
 Two free functions remain from the earlier slices and serve the cluster:
 `collect_with_range_proofs` (the DPs' encryption and range proofs, one
@@ -90,12 +98,15 @@ from ..proofs import range_proof as rp
 from ..proofs import requests as rq
 from ..proofs import shuffle as shuffle_proof
 from ..proofs.safe_pickle import safe_loads
+from ..resilience import faults
 from ..resilience import policy as pol
 from ..utils import log
 from ..utils.device import resolve
 from ..utils.timers import PhaseTimers
 from . import topology as topo
+from . import transport as tr
 from .proof_collection import VerifyCache, VerifyingNode, VNGroup
+from .store import ProofDB, SurveyCheckpoint
 from .query import (DiffPParams, Operation, SurveyQuery, Query,
                     check_parameters, choose_operation, query_to_proofs_nbrs)
 
@@ -229,16 +240,6 @@ class Survey:
         self.stream = None
 
 
-def _unported(responders=None, quorum=False) -> None:
-    """Raise for the parts of a survey this port does not run yet."""
-    steps = [(responders is not None, "responder sets and fault probing", 16),
-             (quorum, "DP and VN quorums", 16)]
-    for asked, what, step in steps:
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue A, step {step})")
-
-
 class LocalCluster:
     """In-process roster: CNs, DPs (mapped to CNs round robin), VNs and the
     querier, on one device (the card unless the CPU is named).
@@ -321,6 +322,12 @@ class LocalCluster:
 
         self.range_sigs: dict[int, list[rp.RangeSig]] = {}
         self.surveys: dict[str, Survey] = {}
+        # per-survey phase checkpoints; attach_checkpoint_store makes them
+        # durable, and the server's resume lane reads them
+        self.checkpoints: dict[str, SurveyCheckpoint] = {}
+        self.checkpoint_db: Optional[ProofDB] = None
+        # (plan, monotonic time, {DP: alive}) of the last probe
+        self._probe_cache: Optional[tuple] = None
         # serializes proof threads' device work (see _async_proof)
         self._proof_device_lock = pol.named_lock("proof_device_lock")
 
@@ -446,6 +453,7 @@ class LocalCluster:
                               ranges=None, diffp: Optional[DiffPParams] = None,
                               lr_params=None, thresholds: float = 1.0,
                               cutting_factor: int = 0, group_by=None,
+                              min_dp_quorum: int = 0, vn_quorum: float = 1.0,
                               survey_id: Optional[str] = None) -> SurveyQuery:
         op = choose_operation(op_name, query_min, query_max, dims,
                               cutting_factor, lr_params)
@@ -487,7 +495,8 @@ class LocalCluster:
             obfuscation_proof_threshold=(thresholds if proofs and obfuscation
                                          else 0.0),
             range_proof_threshold=thresholds if proofs else 0.0,
-            key_switching_proof_threshold=thresholds if proofs else 0.0)
+            key_switching_proof_threshold=thresholds if proofs else 0.0,
+            min_dp_quorum=min_dp_quorum, vn_quorum=vn_quorum)
         ok, msg = check_parameters(sq, q.diffp.enabled())
         if not ok:
             raise ValueError(f"invalid survey parameters: {msg}")
@@ -516,15 +525,43 @@ class LocalCluster:
         return list(q.ranges) * (q.n_groups() if q.group_by else 1)
 
     # ------------------------------------------------------------------
-    # Not ported yet
+    # Checkpoints and liveness (reference :571-620)
     # ------------------------------------------------------------------
     def attach_checkpoint_store(self, path: str) -> None:
-        raise NotImplementedError("durable survey checkpoints are not "
-                                  "ported yet (ROADMAP queue A, step 16)")
+        """Make survey checkpoints durable: phase records persist to a
+        `store.ProofDB` at `path`, so a restarted root reads them back."""
+        self.checkpoint_db = ProofDB(path)
+
+    def checkpoint_for(self, survey_id: str) -> Optional[SurveyCheckpoint]:
+        """The survey's checkpoint, from memory or else the durable store
+        (None when neither holds one)."""
+        ck = self.checkpoints.get(survey_id)
+        if ck is None:
+            ck = SurveyCheckpoint.load(self.checkpoint_db, survey_id)
+            if ck is not None:
+                self.checkpoints[survey_id] = ck
+        return ck
 
     def probe_liveness(self) -> dict:
-        raise NotImplementedError("DP liveness probing is not ported yet "
-                                  "(ROADMAP queue A, step 16)")
+        """{DP name: alive}: one ping per DP over `transport.fan_out`, each
+        through `local_call`, so the installed fault plan's hooks decide
+        reachability; without a plan every DP is alive. The verdicts are
+        cached for `PROBE_TTL_S` and keyed to the plan object: a call
+        within it reuses them, a new plan probes again."""
+        names = [d.name for d in self.dp_idents]
+        plan = faults.fault_plan()
+        if plan is None:
+            return {n: True for n in names}
+        now = time.monotonic()
+        if (self._probe_cache is not None
+                and self._probe_cache[0] is plan
+                and now - self._probe_cache[1] < pol.PROBE_TTL_S):
+            return dict(self._probe_cache[2])
+        outs = tr.fan_out(
+            names, lambda n: tr.local_call(n, "ping", lambda: True))
+        alive = {n: err is None for n, (_, err) in zip(names, outs)}
+        self._probe_cache = (plan, time.monotonic(), alive)
+        return alive
 
     # ------------------------------------------------------------------
     # The kernel warm-up (reference :524-563)
@@ -675,39 +712,89 @@ class LocalCluster:
                        ) -> "PendingSurvey":
         """Phases through decrypt + decode; returns a PendingSurvey whose
         proof verification `finalize_survey` completes. `tenant` tags the
-        PendingSurvey and SurveyResult for the server's fair queueing."""
+        PendingSurvey and SurveyResult for the server's fair queueing.
+
+        `responders` restricts the DPs to the named ones (the server's
+        resume carries the live set of a probe); a DP outside it, or one
+        that the fault plan keeps from answering, is absent, and the
+        survey runs over the rest if they meet the query's
+        `min_dp_quorum` (all DPs when 0), else raises RuntimeError. Each
+        phase entered is recorded in the survey's checkpoint; a second
+        entry of a survey id not done counts a resume."""
         q = sq.query
-        _unported(responders=responders,
-                  quorum=bool(sq.min_dp_quorum) or sq.vn_quorum != 1.0)
         survey = Survey(sq)
         self.surveys[sq.survey_id] = survey
         op = q.operation
         tm = survey.timers
         dev = self.device
         proofs_on = q.proofs == 1 and self.vns is not None
+
+        ck = self.checkpoint_for(sq.survey_id)
+        if ck is None:
+            ck = SurveyCheckpoint(survey_id=sq.survey_id)
+            self.checkpoints[sq.survey_id] = ck
+        elif not ck.done:
+            ck.resumes += 1
+
+        def mark(phase: str) -> None:
+            ck.enter(phase)
+            ck.save(self.checkpoint_db)
+
+        mark("probe")
+        # the DP dispatch, through the fault plane's hooks: a DP the plan
+        # keeps from answering is absent (reference :663-708)
+        plan = faults.fault_plan()
+        allowed = None if responders is None else {str(n)
+                                                  for n in responders}
+        dp_idents: list = []
+        absent: list[str] = []
+        for d in self.dp_idents:
+            if allowed is not None and d.name not in allowed:
+                absent.append(d.name)
+                continue
+            if plan is not None:
+                try:
+                    tr.local_call(d.name, "survey_query", lambda: None)
+                except tr.TransportError:
+                    absent.append(d.name)
+                    continue
+            dp_idents.append(d)
+        responders = [d.name for d in dp_idents]
+        need = (sq.min_dp_quorum if sq.min_dp_quorum > 0
+                else len(self.dp_idents))
+        if len(responders) < need:
+            raise RuntimeError(
+                f"survey {sq.survey_id}: only {len(responders)}/"
+                f"{len(self.dp_idents)} DPs responded (quorum {need}); "
+                f"absent: {sorted(absent)}")
+        ck.responders = list(responders)
+        ck.absent = sorted(absent)
         log.lvl1(f"survey {sq.survey_id}: op={op.name} "
-                 f"dps={len(self.dp_idents)} cns={len(self.cns)} "
-                 f"proofs={int(proofs_on)} device={dev}")
+                 f"dps={len(responders)}/{len(self.dp_idents)} "
+                 f"cns={len(self.cns)} proofs={int(proofs_on)} "
+                 f"resumes={ck.resumes} device={dev}")
 
         if proofs_on:
             nbrs = query_to_proofs_nbrs(sq)
+            # an absent DP owes one range proof; the rest are the CNs'
             self.vns.register_survey(
-                sq.survey_id, sum(nbrs),
+                sq.survey_id, sum(nbrs) - len(absent),
                 {"range": sq.range_proof_threshold,
                  "shuffle": sq.threshold,
                  "aggregation": sq.aggregation_proof_threshold,
                  "obfuscation": sq.obfuscation_proof_threshold,
                  "keyswitch": sq.key_switching_proof_threshold},
-                expected_range=nbrs[0], hold_range=hold_range)
+                expected_range=nbrs[0] - len(absent), hold_range=hold_range)
             # the warm-up runs here, on the calling thread, before any
             # proof thread of this survey exists
             self._warm_kernels(tm, q)
 
         # --- DP phase: encode + encrypt (+ range proofs) ----------------
+        mark("collect")
         tm.start("DataCollectionProtocol")
         dp_stats = torch.stack([
             self.dps[d.name].local_stats(op, self.rng, q.group_by)
-            for d in self.dp_idents])                # (n_dps, V) or (n_dps,G,Vg)
+            for d in dp_idents])                     # (n_dps, V) or (n_dps,G,Vg)
         # group-major: group g's values at [g*Vg, (g+1)*Vg), so the
         # element-wise homomorphic sum is the per-group aggregation
         dp_stats = dp_stats.reshape(dp_stats.shape[0], -1)
@@ -745,11 +832,12 @@ class LocalCluster:
             dp_lists = _once(lambda: rp.create_range_proof_lists_batched(
                 dp_stats, enc_rs, cts, ranges_v, sigs_by_u,
                 self.coll_tbl.table, draws=range_draws))
-            for i, dp in enumerate(self.dp_idents):
+            for i, dp in enumerate(dp_idents):
                 self._async_proof(survey, "range", dp,
                                   lambda i=i: dp_lists()[i].to_bytes())
 
         # --- Aggregation phase (reference AggregationPhase :775) --------
+        mark("aggregate")
         tm.start("AggregationPhase")
         agg = topo.fold_cts(cts)                             # (V, 2, 3, 16)
         _sync(dev)
@@ -768,6 +856,7 @@ class LocalCluster:
         # takes the result
         work = agg
         if q.obfuscation:
+            mark("obfuscate")
             tm.start("ObfuscationPhase")
             for cn, (s, w) in zip(self.cns, obf_draws):
                 if proofs_on:
@@ -786,6 +875,7 @@ class LocalCluster:
         # re-randomization in roster order; one noise ciphertext is added
         # per result (service.go:600-604)
         if dro_draws is not None:
+            mark("dro")
             tm.start("DROPhase")
             d = q.diffp
             noise = dro.generate_noise_values(
@@ -819,6 +909,7 @@ class LocalCluster:
             tm.end("DROPhase")
 
         # --- Key switch to the querier's key ----------------------------
+        mark("keyswitch")
         tm.start("KeySwitchingPhase")
         srv_x, u_pts, w_pts, switched = self._key_switch(work, ks_rs)
         # the public aggregate shift (one offset per responder) times B
@@ -841,6 +932,7 @@ class LocalCluster:
                 self._async_proof(survey, "keyswitch", cn, ks_bytes)
 
         # --- Querier decrypt + decode -----------------------------------
+        mark("decrypt")
         tm.start("Decryption")
         dec = self._decrypt(switched)
         if cf > 1:
@@ -868,10 +960,13 @@ class LocalCluster:
             result = st.decode(op.name, dec, op.query_min, op.query_max,
                                dims=(op.nbr_input - 1)
                                if op.name == "lin_reg" else 1)
+        ck.done = True
+        mark("done")
         return PendingSurvey(survey=survey, sq=sq, result=result,
-                             decrypted=dec, proofs_on=proofs_on,
+                             decrypted=dec, responders=responders,
+                             absent=sorted(absent), proofs_on=proofs_on,
                              hold_range=hold_range and proofs_on,
-                             tenant=tenant)
+                             tenant=tenant, checkpoint=ck)
 
     def _key_switch(self, work, ks_rs):
         """Switch (V, 2, 3, 16) ciphertexts under the collective key to the
@@ -916,14 +1011,19 @@ class LocalCluster:
                 # a held survey that no cross flush took flushes alone
                 self.vns.flush_cross_survey([sid])
             block = self.vns.end_verification(
-                sid, timeout=pol.COLD_COMPILE_WAIT_S)
+                sid, timeout=pol.COLD_COMPILE_WAIT_S, quorum=sq.vn_quorum)
             log.lvl2(f"survey {sid}: audit block #{block.index} committed, "
                      f"{len(block.data.bitmap)} bitmap entries")
         log.lvl1(f"survey {sid}: done; phases: " + ", ".join(
             f"{k}={v:.3f}s" for k, v in tm.items()))
+        ck = pending.checkpoint
         return SurveyResult(result=pending.result,
                             decrypted=pending.decrypted, block=block,
-                            timers=tm, survey_id=sid, tenant=pending.tenant)
+                            timers=tm, survey_id=sid,
+                            responders=pending.responders,
+                            absent=pending.absent, tenant=pending.tenant,
+                            resumes=ck.resumes if ck else 0,
+                            phases=dict(ck.phase_entries) if ck else {})
 
     # ------------------------------------------------------------------
     def _async_proof(self, survey: Survey, ptype: str, ident: NodeIdentity,
@@ -996,6 +1096,10 @@ class PendingSurvey:
     proofs_on: bool
     hold_range: bool = False
     tenant: str = "default"    # the server's fair-queueing key
+    # which DPs contributed, and which were absent
+    responders: list = dataclasses.field(default_factory=list)
+    absent: list = dataclasses.field(default_factory=list)
+    checkpoint: Optional[SurveyCheckpoint] = None   # the phase record
 
 
 @dataclasses.dataclass
@@ -1005,7 +1109,14 @@ class SurveyResult:
     block: object
     timers: PhaseTimers
     survey_id: str
+    # which DPs contributed, and which were absent
+    responders: list = dataclasses.field(default_factory=list)
+    absent: list = dataclasses.field(default_factory=list)
     tenant: str = "default"
+    # re-entries of the survey, and its checkpoint's entries of each phase
+    # (a clean run: resumes 0, every phase entered once)
+    resumes: int = 0
+    phases: dict = dataclasses.field(default_factory=dict)
 
 
 __all__ = ["make_range_sigs", "signed_offset", "collect_with_range_proofs",

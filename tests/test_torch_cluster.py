@@ -643,12 +643,21 @@ def test_kernel_faults_propagate_out_of_the_vns(survey, exc):
         vn.verify_fns["keyswitch"] = saved
 
 
-def test_unported_options_raise(survey):
-    """Responder sets, quorums, probing and checkpoints (step 16) raise;
-    DRO noise, group-by and cutting factors (ported) are accepted, with the
+def test_step16_options_run_and_match_the_reference(reference, survey,
+                                                    tmp_path):
+    """Responder sets, both quorums, the liveness probe and the checkpoint
+    store (step 16) are accepted: a responder set below the quorum and a
+    quorum above the responders raise the reference's RuntimeError and
+    leave its checkpoint, the probe maps the DPs as the reference's does,
+    a VN quorum commits the survey's block, and the checkpoints persist.
+    DRO noise, group-by and cutting factors are accepted too, with the
     shuffle proofs counted and thresholded and the output sized by groups
     and replicas. Grouped, cut and held surveys run in
-    tests/test_torch_groupby.py and tests/test_torch_held_range.py."""
+    tests/test_torch_groupby.py and tests/test_torch_held_range.py; the
+    degraded surveys in tests/test_torch_quorum.py."""
+    from drynx_tpu.resilience import faults as JF
+    from drynx_tpu_torch.resilience import faults as TF
+
     cluster = survey.cluster
     diffp = TQ.DiffPParams(noise_list_size=4, lap_scale=2.0, quanta=1.0,
                            scale=1.0, limit=8.0)
@@ -661,15 +670,56 @@ def test_unported_options_raise(survey):
     assert grouped.query.n_groups() == 2
     cut = cluster.generate_survey_query("mean", cutting_factor=2)
     assert cut.query.operation.nbr_output == 4
-    with pytest.raises(NotImplementedError, match="step 16"):
-        cluster.execute_survey(survey.sq, responders=["dp0"])
-    for kw in ({"min_dp_quorum": 1}, {"vn_quorum": 0.5}):
-        with pytest.raises(NotImplementedError, match="step 16"):
-            cluster.execute_survey(dataclasses.replace(survey.sq, **kw))
-    for call in (cluster.probe_liveness,
-                 lambda: cluster.attach_checkpoint_store("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    quorum = cluster.generate_survey_query("mean", query_min=0,
+                                           query_max=15, min_dp_quorum=1,
+                                           vn_quorum=0.5)
+    assert (quorum.min_dp_quorum, quorum.vn_quorum) == (1, 0.5)
+
+    ref = reference.service.LocalCluster(n_cns=N_CNS, n_dps=N_DPS, n_vns=0,
+                                         seed=SEED, dlog_limit=2)
+    cluster.attach_checkpoint_store(str(tmp_path / "ckpt.db"))
+    out = []
+    try:
+        for cl, faults in ((ref, JF), (cluster, TF)):
+            rows = []
+            for sid, kw, responders in (
+                    ("step16-resp", {}, ["dp0"]),
+                    ("step16-quorum", {"min_dp_quorum": N_DPS + 1}, None)):
+                with pytest.raises(RuntimeError) as ei:
+                    cl.execute_survey(dataclasses.replace(
+                        survey.sq, survey_id=sid, **kw),
+                        responders=responders)
+                rows.append((str(ei.value),
+                             dataclasses.asdict(cl.checkpoint_for(sid))))
+            alive = [cl.probe_liveness()]
+            plan = faults.FaultPlan(seed=0)
+            plan.kill("dp1")
+            faults.set_fault_plan(plan)
+            alive.append(cl.probe_liveness())
+            faults.set_fault_plan(None)
+            out.append((rows, alive))
+    finally:
+        JF.set_fault_plan(None)
+        TF.set_fault_plan(None)
+    assert out[1] == out[0]
+    assert out[1][1] == [{"dp0": True, "dp1": True},
+                         {"dp0": True, "dp1": False}]
+    assert "only 1/2 DPs responded (quorum 2)" in out[1][0][0][0]
+    # the finished survey's block again, from a VN quorum of one half:
+    # every VN is done, so every VN's entries (earlier tests of this
+    # module recorded some tampered envelopes since)
+    sid = survey.sq.survey_id
+    block = cluster.vns.end_verification(sid, timeout=5.0, quorum=0.5)
+    assert set(block.data.bitmap) == set(survey.res.block.data.bitmap)
+    assert block.data.bitmap == {
+        f"{vn.name}:{k}": v for vn in cluster.vns.vns
+        for k, v in vn.bitmap_for(sid).items()}
+    assert survey.res.responders == [f"dp{i}" for i in range(N_DPS)]
+    assert (survey.res.absent, survey.res.resumes) == ([], 0)
+    assert set(survey.res.phases.values()) == {1}
+    stored = TSTORE.SurveyCheckpoint.load(
+        TSTORE.ProofDB(str(tmp_path / "ckpt.db")), "step16-resp")
+    assert dataclasses.asdict(stored) == out[1][0][0][1]
 
 
 def test_close_removes_the_vn_stores():

@@ -13,6 +13,8 @@ pairing's plain versions on the CPU (~25 s and ~90 s beside a 16 s
 fixture) and are `slow`; chip_smoke.py phase 11 runs the cross flush at
 full width on the card.
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -215,12 +217,15 @@ def test_finalize_flushes_a_held_survey_alone(tmp_path):
 
 
 def test_held_and_grouped_options_no_longer_refused():
-    """Only step 16's options are refused now."""
-    with pytest.raises(NotImplementedError, match="step 16"):
-        svc._unported(responders=["dp0"])
-    with pytest.raises(NotImplementedError, match="step 16"):
-        svc._unported(quorum=True)
-    svc._unported()
+    """No survey option is refused any more: the held, grouped, responder
+    and quorum options are the cluster's own arguments."""
+    assert not hasattr(svc, "_unported")
+    params = inspect.signature(svc.LocalCluster.execute_survey).parameters
+    assert {"hold_range", "responders", "tenant"} <= set(params)
+    params = inspect.signature(
+        svc.LocalCluster.generate_survey_query).parameters
+    assert {"group_by", "cutting_factor", "min_dp_quorum",
+            "vn_quorum"} <= set(params)
     assert torch.equal(torch.tensor(svc.LocalCluster._ranges_per_value(
         type("Q", (), {"ranges": [(2, 3), (4, 1)], "group_by": [[0, 1]],
                        "n_groups": lambda self: 2})())),

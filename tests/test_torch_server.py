@@ -486,19 +486,31 @@ def test_resume_budget_widens_for_checkpointed_surveys():
     assert len(cl.exec_kwargs) == 1 + TP.CHECKPOINT_MAX_RESUMES
 
 
-def test_port_cluster_reprobe_falls_back_to_no_restriction():
-    """The port's LocalCluster raises on probe_liveness (step 16); the
-    resume lane then retries with responders=None, which its
-    execute_survey accepts."""
+def test_port_cluster_reprobe_returns_the_live_set():
+    """The resume lane re-probes the port's LocalCluster: under a plan
+    that kills dp1 `_reprobe()` gives the sorted live DPs, and once the
+    survey has a checkpoint (its first dispatch refused) the budget is
+    CHECKPOINT_MAX_RESUMES."""
+    from drynx_tpu_torch.resilience import faults
     from drynx_tpu_torch.service.service import LocalCluster
 
-    cl = LocalCluster(n_cns=1, n_dps=1, n_vns=0, seed=1, dlog_limit=2,
+    cl = LocalCluster(n_cns=1, n_dps=3, n_vns=0, seed=1, dlog_limit=2,
                       device="cpu")
+    plan = faults.FaultPlan(seed=0)
+    plan.kill("dp1")
     try:
         srv = SurveyServer(cl, pipeline=False)
-        assert srv._reprobe() is None
+        assert srv._reprobe() == ("dp0", "dp1", "dp2")
         assert srv._resume_budget("x") == TP.RESUME_MAX_RETRIES
+        faults.set_fault_plan(plan)
+        assert srv._reprobe() == ("dp0", "dp2")
+        sq = cl.generate_survey_query("sum", query_min=0, query_max=3,
+                                      survey_id="x")
+        with pytest.raises(RuntimeError, match="only 2/3 DPs responded"):
+            cl.execute_survey(sq)
+        assert srv._resume_budget("x") == TP.CHECKPOINT_MAX_RESUMES
     finally:
+        faults.set_fault_plan(None)
         cl.close()
 
 
