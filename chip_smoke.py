@@ -154,7 +154,8 @@ Phases (any failed check exits non-zero; nothing is caught):
      Print the flush's time beside the surveys' VerifyRange.
   12. Run the stream of scripts/bench_stream.py's headline through
      `service.streaming.StreamEngine` (2 CNs, 2 DPs, 2 VNs, frequency_count
-     over [0, 15], ranges (16, 4), 12,500-row panes, a window of 48):
+     over [0, 15], ranges (16, 4), 12,500-row panes, a window of 16, a
+     third of the headline's 48, for the script's time limit):
      fill the window, advance by 1 pane and by 2, each counted: the result
      equal to the clear counts, the delta window's bytes equal to a
      from-scratch fold of its panes, a 1-pane advance making and checking
@@ -203,6 +204,27 @@ Phases (any failed check exits non-zero; nothing is caught):
      margin equal to the integer formula and found, the probabilities
      within 0.02 of the clear ones, the G1 kernels' calls kept with
      phases 10-12's.
+  15. The control plane over TCP. (a) Phase 7's survey through 16
+     `service.node.DrynxNode`s on 127.0.0.1 in this process (3 CNs, 10
+     DPs holding phase 7's Pima shards, 3 VNs), driven by a
+     `RemoteClient`: each DP encrypts and proves its own 90 values, the
+     root CN folds them up the tree overlay (fanout 4) or the star; a
+     cold survey, a warm one over the tree, a warm one over the star,
+     each with the decrypted aggregate equal to phase 7's integers, the
+     weights within 1e-3 of phase 7's, a block of 3 x 14 entries all
+     BM_TRUE; the warm runs' launches and rows equal to
+     `tcp_survey_launches` for the roster; first, the card's widen of
+     every narrowed wire dtype pair equal to the host's. Printed: the
+     wall times beside phase 7's, the root's received bytes, the wire
+     timers' host-glue seconds (the wire's card side is not timed), the
+     cold run's cold events by thread.
+     (b) The scenarios of test/client_run-survey and
+     test/client_run-survey-proofs (CLI_SCENARIOS, both at once, their
+     servers started before (a) so that they boot while it runs), every
+     node a `python -m drynx_tpu_torch.cmd.server run` process on the
+     card (its listening line naming the CUDA device), the roster and
+     survey built by piping `python -m drynx_tpu_torch.cmd.client`: sum
+     75; sum 15 with a clean bitmap; every server alive until killed.
   Phases 7-12 warm their clusters' kernels in their first proofs-on
   survey (`LocalCluster._warm_kernels`), whose PrecompileTraceExec
   is printed beside its time; the warm-up's launches are its own
@@ -213,11 +235,12 @@ Phases (any failed check exits non-zero; nothing is caught):
   and bounds as one JSON line, the card's name and power limit, and the
   contract line {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --only 10a,10b,11,12,13,14a,14b,14c
+    python3 chip_smoke.py --only 10a,10b,11,12,13,14a,14b,14c,15a,15b
 
-builds the kernels and runs only the named phases of 10-14 (no JSON line;
+builds the kernels and runs only the named phases of 10-15 (no JSON line;
 14c then scores with GD's weights from the clear sums, and holds its kept
-calls itself when no phase of 10-12 runs).
+calls itself when no phase of 10-12 runs; 15a holds its weights to GD's
+from the clear sums).
 
 It imports nothing of JAX and nothing of the drynx_tpu package.
 """
@@ -398,11 +421,12 @@ GROUP_ROWS = 8192
 CUT, HELD = 4, 4
 # the stream: the headline of scripts/bench_stream.py:241-258, 2 CNs, 2 DPs,
 # 2 VNs, LocalCluster seed 7, dlog +-90,000, frequency_count over [0, 15],
-# ranges (16, 4), 12,500-row panes, a window of 48 (600,000 rows a DP), rows
+# ranges (16, 4), 12,500-row panes, a window of 16 (200,000 rows a DP; the
+# headline's 48 cut to a third to keep the script in its time limit), rows
 # from default_rng(3), engine seed 21; filled, then advanced by 1 pane and
-# by 2 (51 panes)
+# by 2 (19 panes)
 STREAM = dict(n_cns=2, n_dps=2, n_vns=2, seed=7, dlog=90_000, V=16,
-              ranges=(16, 4), pw=12_500, w=48, data_seed=3, engine_seed=21)
+              ranges=(16, 4), pw=12_500, w=16, data_seed=3, engine_seed=21)
 # the server and its load: the cluster of scripts/bench_load.py:389-430
 # (child_transcripts): 2 CNs, 2 DPs, 2 VNs, seed 13, dlog +-4,000, two
 # values a DP from default_rng(5) in [0, 4); proofs-on `sum` surveys over
@@ -478,6 +502,120 @@ def survey_launches(digit_proofs, signed_offset):
     # phase 7's 13,500 digit proofs fold in five passes
     return add_launches(want, {"f12_mulreduce8": 2 * (
         fold_passes(digit_proofs) - 5)})
+
+
+def tcp_survey_launches(n_cns, n_dps, n_vns, V, digits, topology, fanout,
+                        signed_offset):
+    """A proofs-on survey's kernel launches over the TCP nodes (phase 15a),
+    derived from the roster: each DP's encryption and range proofs of its V
+    values (`digits` digits a value, one (u, l) spec), each relay's fold of
+    its subtree and its parent's check of the hop's aggregation proof (the
+    tree overlay of `fanout`, or the star), the root's fold, each CN's key
+    switch and its proof, the root's sums (and the signed offset's
+    correction), each VN's checks of the aggregation proof, of the CNs'
+    key-switch proofs (one each) and of the DPs' range payloads (one joint
+    check), and the querier's decryption. Returns ({kernel: launches},
+    Counter({(kernel, rows): launches}), with a reduce's rows (R, N))."""
+    import collections
+
+    from drynx_tpu_torch.service import topology as topo
+
+    rows = collections.Counter()
+
+    def add(kernel, n_rows, times=1):
+        rows[(kernel, n_rows)] += times
+
+    ns, l = n_cns, digits
+    nv = ns * V * l                       # one DP's digit proofs x CNs
+    for _ in range(n_dps):
+        # encryption: r B, |m| B, r P, and the add
+        add("fixed_base_mul", V, 3)
+        add("point_add", V)
+        # the range proofs: D (two fixed-base products and an add), the
+        # blinded signatures (the G2 ladder), the digit powers and gtB^t
+        # (two passes of the 8-way product each), their product, and the
+        # transcript's normalizations (the ciphertexts, D, the signatures)
+        add("fixed_base_mul", V, 2)
+        add("point_add", V)
+        add("g2_scalar_mul", nv)
+        for n in (nv, V * l):
+            add("f12_mulreduce8", 8 * n)
+            add("f12_mulreduce8", n)
+        add("f12_mul", nv)
+        add("fp_inv", 2 * V)
+        add("fp_inv", V)
+        add("f2_inv", nv)
+    if topology == "tree" and n_dps > 1:
+        n_roots = len(topo.roots(n_dps, fanout))
+        for i in range(n_dps):
+            k = 1 + len(topo.children(i, n_dps, fanout))
+            if k > 1:
+                # the relay's fold (a reduce, a normalization) and its
+                # parent's check of the hop's aggregation proof (a reduce)
+                add("point_reduce", (k, 2 * V), 2)
+                add("fp_inv", 2 * V)
+    else:
+        n_roots = n_dps
+    # the root's canonical fold, and each VN's check of its proof
+    if n_roots > 1:
+        add("point_reduce", (n_roots, 2 * V))
+    add("fp_inv", 2 * V)
+    add("point_reduce", (n_roots, 2 * V), n_vns)
+    for _ in range(n_cns):
+        # U = r B, r Q, x K and W = r Q - x K; the proof's r B, w B, x B in
+        # one launch, w Q, w K, its add and its transcript's normalization
+        add("fixed_base_mul", V, 3)
+        add("fixed_base_mul", 2 * V + 1)
+        add("scalar_mul", V, 2)
+        add("point_add", V, 2)
+        add("fp_inv", 6 * V + 2)
+        # each VN's check: z B (two scalars a row), z Q, one ladder over
+        # c U, z K, c W and c Y, two adds, the transcript's normalization
+        add("fixed_base_mul", 2 * V, n_vns)
+        add("fixed_base_mul", V, n_vns)
+        add("scalar_mul", 4 * V, n_vns)
+        add("point_add", 3 * V, n_vns)
+        add("point_add", V, n_vns)
+        add("fp_inv", 6 * V + 2, n_vns)
+    # the root's sums of the CNs' U and W and the add to C
+    add("point_add", V, 2 * (n_cns - 1) + 1)
+    if signed_offset:
+        add("fixed_base_mul", 1)
+        add("point_add", V)
+    # each VN's joint check of the DPs' payloads (verify_launches' kernels)
+    vt, dg = n_dps * V, n_dps * nv
+    for _ in range(n_vns):
+        add("fixed_base_mul", vt, 2)
+        add("fixed_base_mul", dg // ns)
+        add("scalar_mul", vt)
+        add("scalar_mul", ns * vt)
+        add("scalar_mul", dg)
+        add("point_add", vt, 2)
+        add("point_add", dg)
+        add("fp_inv", dg)
+        add("f2_inv", dg)
+        add("miller", dg)
+        add("f12_mul", dg)
+        add("f12_mul", 1, 17)
+        add("f12_slotmul", dg, 3)
+        add("f12_slotmul", 1, 14)
+        add("f12_wpow", dg, 2)
+        add("f12_wpow", 1, 3)
+        add("f12_inv", 1)
+        add("f12_csqr", 1, 4)
+        add("f12_mulreduce8", 8)
+        add("f12_mulreduce8", 1)
+        for _fold in range(2):
+            for p in range(fold_passes(dg) - 1, -1, -1):
+                add("f12_mulreduce8", 8 ** p)
+    # the querier's decryption: a ladder, an add, a normalization
+    add("scalar_mul", V)
+    add("point_add", V)
+    add("fp_inv", V)
+    counts = dict.fromkeys(EXPECTED_LAUNCHES_CLUSTER, 0)
+    for (kernel, _n), times in rows.items():
+        counts[kernel] += times
+    return counts, rows
 
 
 def stream_launches(sealed, proved, verified, payload_proofs, delta,
@@ -2708,6 +2846,361 @@ def phase14c(X, params, w, zero_launches, launch_counts, kept=None):
     return launches, [wall]
 
 
+def widen_on_card_ok():
+    """The card's widen of every narrowed wire segment (each of
+    transport.widen_pairs(), at the device decode's floor and below)
+    equals the host's, bit for bit. Returns the pairs checked."""
+    from drynx_tpu_torch.service import transport as tr
+
+    floor = tr.DEVICE_DECODE_MIN_BYTES
+    for narrow, wide in tr.widen_pairs():
+        info = np.iinfo(np.dtype(narrow))
+        for n in (floor // np.dtype(narrow).itemsize + 5, 7):
+            a = np.random.default_rng(n).integers(
+                info.min, int(info.max) + 1, size=n).astype(wide)
+            a[:2] = [info.min, info.max]
+            d = tr.decode_frame(tr.encode_frame({"a": tr.pack_array(a)},
+                                                2)[4:], 2)["a"]
+            got = tr.unpack_array_device(d, "cuda")
+            if (not isinstance(d["data"], tr.LazySeg)
+                    or d["data"].wire_dt != narrow
+                    or got.device.type != "cuda"
+                    or got.dtype != getattr(torch, wide)
+                    or not np.array_equal(got.cpu().numpy(), a)):
+                raise SystemExit(f"the card's widen {narrow} -> {wide} at "
+                                 f"{n} values differs from the host's")
+    return len(tr.widen_pairs())
+
+
+def phase15a(stats, X, y, params, zero_launches, launch_counts, res7=None,
+             wall7=None):
+    """Phase 7's survey over TCP: 16 DrynxNodes on 127.0.0.1 in this
+    process (3 CNs, 10 DPs holding phase 7's Pima shards, 3 VNs) driven
+    by a RemoteClient, proofs on, ranges (16, 5): a cold survey, a warm
+    one over the tree overlay and a warm one over the star, each held to
+    phase 7's integers and weights (`res7`; GD on the clear sums without
+    it). Returns (the warm tree run's launches, [its wall time])."""
+    import os
+    import tempfile
+
+    from drynx_tpu_torch.compilecache.stats import COLD_EVENTS
+    from drynx_tpu_torch.crypto import elgamal as eg
+    from drynx_tpu_torch.models import logreg as lr
+    from drynx_tpu_torch.proofs import requests as rq
+    from drynx_tpu_torch.resilience import policy as pol
+    from drynx_tpu_torch.service import topology as topo
+    from drynx_tpu_torch.service import transport as tr
+    from drynx_tpu_torch.service.node import (DrynxNode, RemoteClient,
+                                              Roster, RosterEntry)
+    from drynx_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    pairs = widen_on_card_ok()
+    rng = np.random.default_rng(CLUSTER_SEED)
+    tmp = tempfile.TemporaryDirectory(prefix="drynx_tcp_")
+    nodes, entries = [], []
+    for role, n in (("cn", N_SERVERS), ("dp", NUM_DPS), ("vn", N_VNS)):
+        for i in range(n):
+            name = f"{role}{i}"
+            x, pub = eg.keygen(rng)
+            node = DrynxNode(name, x, pub, db_path=f"{tmp.name}/{name}.db",
+                             data=(lr.shard_for_dp(X, y, i, NUM_DPS)
+                                   if role == "dp" else None))
+            node.start()
+            nodes.append(node)
+            entries.append(RosterEntry(name=name, role=role,
+                                       host=node.address[0],
+                                       port=node.address[1], public=pub))
+    client = RemoteClient(Roster(entries), rng)
+    client.broadcast_roster()
+    dlog = eg.DecryptionTable(limit=DLOG_LIMIT).to("cuda")
+    V = stats.shape[1]
+    clear = stats.sum(0).cpu().numpy()
+    w_ref = (torch.from_numpy(res7.result) if res7 is not None else
+             lr.train(lr.unpack(stats.sum(0).cpu(), params), params))
+    fanout = topo.tree_fanout(NUM_DPS)
+    want_entries = N_VNS * client.expected_proofs(NUM_DPS, N_SERVERS,
+                                                  False, False)
+    print(f"phase 15a setup: the card's widen equals the host's on all "
+          f"{pairs} widen pairs; {len(nodes)} nodes on 127.0.0.1 (tree "
+          f"fanout {fanout}, roots {topo.roots(NUM_DPS, fanout)}), the "
+          f"discrete-log table {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def run(sid, mode):
+        os.environ[topo.ENV_TOPOLOGY] = mode
+        tr.WIRE_TIMERS.clear()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            w, block = client.run_survey(
+                "log_reg", lr_params=params, proofs=True,
+                ranges=[(U, L)] * V, survey_id=sid, dlog=dlog,
+                timeout=pol.COLD_COMPILE_WAIT_S)
+        finally:
+            os.environ.pop(topo.ENV_TOPOLOGY, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        rows = {k: dict(v) for k, v in cuda_build.LAUNCH_ROWS.items() if v}
+        dec = client.last_decrypted
+        if not dec.found.all() or not np.array_equal(dec.values, clear):
+            raise SystemExit(f"TCP survey {sid}: the decrypted aggregate "
+                             f"differs from phase 7's integers")
+        err = float((torch.from_numpy(w) - w_ref).abs().max())
+        if w.shape != (D + 1,) or not np.isfinite(w).all() or err > 1e-3:
+            raise SystemExit(f"TCP survey {sid}: weights differ from phase "
+                             f"7's by {err}")
+        bitmap = block["bitmap"]
+        if (len(bitmap) != want_entries
+                or set(bitmap.values()) != {rq.BM_TRUE}):
+            raise SystemExit(f"TCP survey {sid}: block of {len(bitmap)} "
+                             f"entries (want {want_entries}), codes "
+                             f"{sorted(set(bitmap.values()))}")
+        if client.last_responders != [f"dp{i}" for i in range(NUM_DPS)]:
+            raise SystemExit(f"TCP survey {sid}: responders "
+                             f"{client.last_responders}")
+        return wall, launches, rows, err, dict(client.last_net)
+
+    mark = COLD_EVENTS.mark()
+    cold_s = run("tcp-cold", "tree")[0]
+    by_thread = {}
+    for kind, name, thread in COLD_EVENTS.since(mark):
+        by_thread.setdefault(thread, []).append(f"{kind}:{name}")
+    print(f"phase 15a: cold TCP survey {cold_s:.3f} s; cold events by "
+          f"thread: {by_thread}", flush=True)
+    out = {}
+    for mode in ("tree", "star"):
+        wall, launches, rows, err, net = run(f"tcp-{mode}", mode)
+        want, want_rows = tcp_survey_launches(
+            N_SERVERS, NUM_DPS, N_VNS, V, L, mode, fanout, True)
+        by_kernel = {}
+        for (k, n), c in want_rows.items():
+            by_kernel.setdefault(k, {})[n] = c
+        if launches != want or rows != by_kernel:
+            raise SystemExit(f"TCP survey ({mode}): launches {launches} "
+                             f"(want {want}), rows {rows} (want "
+                             f"{by_kernel})")
+        glue = tr.WIRE_TIMERS.split_summary()["host_glue_s"]
+        out[mode] = (wall, launches, net)
+        print(f"phase 15a: warm TCP survey over the {mode} {wall:.3f} s; "
+              f"decrypted = phase 7's integers, weights max abs err vs "
+              f"phase 7's {err:.3g}, block of {want_entries} entries all "
+              f"BM_TRUE; launches and rows = the roster's count "
+              f"{launches}; bytes received by the root cn0 "
+              f"{net['rx_by_node'].get('cn0')}, in all "
+              f"{net['bytes_total']} in {net['msgs_total']} frames; wire "
+              f"timers {dict(tr.WIRE_TIMERS.items())}, host glue {glue} s "
+              f"(the wire's card side is not timed)", flush=True)
+        if mode == "tree":
+            print(f"phase 15a: launch rows of the warm tree run "
+                  f"{dict(sorted(rows.items()))}", flush=True)
+    print(f"phase 15a: wall times cold {cold_s:.3f} s, warm tree "
+          f"{out['tree'][0]:.3f} s, warm star {out['star'][0]:.3f} s; "
+          f"phase 7's warm LocalCluster survey "
+          f"{'not run' if wall7 is None else f'{wall7:.3f} s'}; root "
+          f"bytes tree {out['tree'][2]['rx_by_node'].get('cn0')} vs star "
+          f"{out['star'][2]['rx_by_node'].get('cn0')}", flush=True)
+    for n in nodes:
+        n.stop()
+    tr.set_conn_pool(None)
+    tmp.cleanup()
+    return out["tree"][1], [out["tree"][0]]
+
+
+# the shell scenarios of test/client_run-survey (1 CN, 2 DPs holding 1..5
+# and 10..14: sum 75) and test/client_run-survey-proofs (2 CNs, 1 DP
+# holding 1..5, 1 VN, proofs on: sum 15 and a clean bitmap), each node a
+# `python -m drynx_tpu_torch.cmd.server run` process on the card
+CLI_SCENARIOS = {
+    "client_run-survey": (("cn0", "dp1", "dp2"), False, 75),
+    "client_run-survey-proofs": (("cn0", "cn1", "dp1", "vn0"), True, 15),
+}
+CLI_DATA = {"dp1": range(1, 6), "dp2": range(10, 15)}
+
+
+class CliNodes:
+    """The server processes of CLI_SCENARIOS: `server gen` for every node
+    (all at once), then `server run` for every node on the card, started
+    on entering (so they boot while phase 15a runs) and killed on exit,
+    whatever failed."""
+
+    def __init__(self):
+        import os
+
+        # each server's listening line and its seconds from the start of
+        # the servers, as a watcher thread sees them appear
+        self.lines, self.up = {}, {}
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ)
+        self.env["PYTHONPATH"] = root + (os.pathsep + self.env["PYTHONPATH"]
+                                         if self.env.get("PYTHONPATH")
+                                         else "")
+        self.procs, self.logs, self.addrs, self.cfgs = {}, {}, {}, {}
+        self.server = [sys.executable, "-m", "drynx_tpu_torch.cmd.server"]
+
+    def __enter__(self):
+        import os
+        import socket
+        import subprocess
+        import tempfile
+
+        self.tmp = tempfile.TemporaryDirectory(prefix="drynx_cli_")
+        try:
+            keys = [(sc, n) for sc, (nodes, _, _) in CLI_SCENARIOS.items()
+                    for n in nodes]
+            for key in keys:
+                s = socket.socket()
+                s.bind(("127.0.0.1", 0))
+                self.addrs[key] = f"127.0.0.1:{s.getsockname()[1]}"
+                s.close()
+            gens = {key: subprocess.Popen(
+                self.server + ["gen", "--address", self.addrs[key],
+                               "--name", key[1]],
+                stdout=subprocess.PIPE, text=True, env=self.env)
+                for key in keys}
+            for key, g in gens.items():
+                self.cfgs[key] = g.communicate(timeout=300)[0]
+                if g.returncode != 0:
+                    raise SystemExit(f"{key}: server gen exited "
+                                     f"{g.returncode}")
+            self.t0 = time.perf_counter()
+            for (sc, n) in keys:
+                path = os.path.join(self.tmp.name, f"{sc}-{n}")
+                with open(path + ".toml", "w") as f:
+                    f.write(self.cfgs[(sc, n)])
+                extra = []
+                if n in CLI_DATA:
+                    np.savetxt(path + ".data", np.asarray(CLI_DATA[n]),
+                               fmt="%d")
+                    extra = ["--data", path + ".data"]
+                if n.startswith("vn"):
+                    extra = ["--db", path + ".db"]
+                self.logs[(sc, n)] = path + ".log"
+                with open(path + ".toml") as fin, \
+                        open(path + ".log", "w") as ferr:
+                    self.procs[(sc, n)] = subprocess.Popen(
+                        self.server + ["run"] + extra, stdin=fin,
+                        stderr=ferr, stdout=subprocess.DEVNULL,
+                        env=self.env)
+            threading.Thread(target=self._watch, daemon=True).start()
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.procs.values():
+            p.kill()
+        for p in self.procs.values():
+            p.wait(timeout=60)
+        self.tmp.cleanup()
+        return False
+
+    def _watch(self):
+        """Note each server's listening line when it appears."""
+        while (len(self.lines) < len(self.procs)
+               and time.perf_counter() - self.t0 < 300):
+            for key, log in self.logs.items():
+                if key not in self.lines:
+                    text = open(log).read()
+                    if "listening" in text:
+                        self.up[key] = time.perf_counter() - self.t0
+                        self.lines[key] = text.strip().splitlines()[-1]
+            time.sleep(0.05)
+
+    def listening(self, sc):
+        """Wait for every server of scenario `sc` to print its listening
+        line: ({node: line}, {node: seconds from the servers' start})."""
+        nodes = CLI_SCENARIOS[sc][0]
+        while not all((sc, n) in self.lines for n in nodes):
+            for n in nodes:
+                if self.procs[(sc, n)].poll() is not None:
+                    raise SystemExit(
+                        f"{sc}: server {n} exited "
+                        f"{self.procs[(sc, n)].returncode}: "
+                        f"{open(self.logs[(sc, n)]).read()}")
+            if time.perf_counter() - self.t0 > 300:
+                raise SystemExit(f"{sc}: servers never listened")
+            time.sleep(0.05)
+        return ({n: self.lines[(sc, n)] for n in nodes},
+                {n: self.up[(sc, n)] for n in nodes})
+
+    def drive(self, sc):
+        """Scenario `sc` through the client pipeline, piped as the script
+        pipes it; returns its record, raises SystemExit on a failed
+        gate."""
+        import subprocess
+
+        from drynx_tpu_torch.cmd import toml_io
+
+        nodes, proofs, want = CLI_SCENARIOS[sc]
+        lines, up = self.listening(sc)
+        for n, line in lines.items():
+            if not line.startswith(f"drynx node {n} listening on "
+                                   f"{self.addrs[(sc, n)]} device cuda"):
+                raise SystemExit(f"{sc}: server {n} says {line!r}")
+        client = f"{sys.executable} -m drynx_tpu_torch.cmd.client"
+        stages = [f"{client} network new"]
+        for n in nodes:
+            node = toml_io.loads(self.cfgs[(sc, n)])["node"]
+            stages.append(f"{client} network add-node --role {n[:2]} "
+                          f"--address {self.addrs[(sc, n)]} --name {n} "
+                          f"--public {node['public_x']},{node['public_y']}")
+        stages.append(f"{client} survey new --operation sum --min 0 "
+                      f"--max 20" + (" --proofs" if proofs else ""))
+        stages.append(f"{client} survey run")
+        t1 = time.perf_counter()
+        r = subprocess.run(["bash", "-c", "set -o pipefail; "
+                            + " | ".join(stages)], capture_output=True,
+                           text=True, env=self.env, timeout=600)
+        wall = time.perf_counter() - t1
+        if r.returncode != 0:
+            raise SystemExit(f"{sc}: the client pipeline exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}")
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        if out.get("result") != want or (proofs and
+                                         out.get("bitmap_ok") is not True):
+            raise SystemExit(f"{sc}: {out}, want result {want}"
+                             + (" and a clean bitmap" if proofs else ""))
+        crashed = {n: self.procs[(sc, n)].returncode for n in nodes
+                   if self.procs[(sc, n)].poll() is not None}
+        if crashed:
+            raise SystemExit(f"{sc}: servers exited under the survey: "
+                             f"{crashed}")
+        return {"out": out, "listening_s": up, "lines": lines,
+                "survey_s": wall}
+
+
+def phase15b(cli):
+    """The CLI's multi-process scenarios on the card (CLI_SCENARIOS, both
+    at once) over `cli`'s server processes. Returns {scenario: its
+    record}."""
+    out, errors = {}, []
+
+    def one(sc):
+        try:
+            out[sc] = cli.drive(sc)
+        except BaseException as e:      # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(sc,))
+               for sc in CLI_SCENARIOS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for sc, rec in out.items():
+        print(f"phase 15b: {sc}: {rec['out']}; servers' seconds to "
+              f"listening (started with phase 15a) "
+              f"{{{', '.join(f'{n}: {v:.1f}' for n, v in rec['listening_s'].items())}}}; "
+              f"the client pipeline {rec['survey_s']:.1f} s; listening "
+              f"lines {list(rec['lines'].values())}", flush=True)
+    return out
+
+
 def new_phases(stats, X, y, params, zero_launches, launch_counts,
                verify_range_alone=None, only=None, timers7="not measured",
                w7=None):
@@ -2825,7 +3318,7 @@ def main():
     print(f"setup: V={V} ciphertexts per DP, host keygen + tables "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if only is not None:
-        rest = [p for p in only if p not in ("13", "14b")]
+        rest = [p for p in only if p not in ("13", "14b", "15a", "15b")]
         if rest:
             # without phase 7, its weights' stand-in for 14c: GD on the CPU
             # from the clear sums
@@ -2836,6 +3329,15 @@ def main():
             phase13(zero_launches, launch_counts)
         if "14b" in only:
             phase14b(zero_launches, launch_counts)
+        with contextlib.ExitStack() as stack:
+            # 15b's servers boot while 15a runs
+            cli = (stack.enter_context(CliNodes()) if "15b" in only
+                   else None)
+            if "15a" in only:
+                phase15a(stats, X, y, params, zero_launches, launch_counts)
+            if cli is not None:
+                phase15b(cli)
+        print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
         return 0
     base = eg.BASE_TABLE.table.to(dev)
     mag, _ = eg.magnitude_limbs(stats.reshape(-1))
@@ -3794,6 +4296,21 @@ def main():
     new["14b"] = phase14b(zero_launches, launch_counts)
     print(f"phase 14b: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
+    # -- phase 15: the survey over TCP, and the CLIs as processes ------------
+    print(f"-- phase 15a at {time.perf_counter() - start:.1f} s", flush=True)
+    with CliNodes() as cli:             # 15b's servers boot while 15a runs
+        t0 = time.perf_counter()
+        new["15a"] = phase15a(stats, X, y, params, zero_launches,
+                              launch_counts, res7, walls7[0])
+        print(f"phase 15a: {time.perf_counter() - t0:.1f} s in all",
+              flush=True)
+        print(f"-- phase 15b at {time.perf_counter() - start:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        phase15b(cli)
+        print(f"phase 15b: {time.perf_counter() - t0:.1f} s in all",
+              flush=True)
+
     kernels = []
     for name, tot in summary.items():
         source, replaces = meta[name]
@@ -3817,8 +4334,8 @@ def main():
           "proofs-on cluster survey's, the obfuscated max survey's, the "
           "noised sum's, the grouped and the cut survey's, the held batch's, "
           "the stream's 1-pane advance's, phase 13's server surveys and "
-          "load, the degraded survey's, the resumed survey's and the "
-          "encrypted prediction's)")
+          "load, the degraded survey's, the resumed survey's, the "
+          "encrypted prediction's and the TCP survey's warm tree run)")
     print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))

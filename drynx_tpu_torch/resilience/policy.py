@@ -30,12 +30,22 @@ BACKOFF_CAP_S = 5.0              # backoff never exceeds this per attempt
 # Health probe: a ping does no device work, so a node that cannot answer
 # quickly is taken as down.
 PING_TIMEOUT_S = 5.0
+# A verifying node's wait for its survey's proofs (end_verification), and
+# a root's wait for its own proof threads before it replies.
+VERIFY_WAIT_S = 300.0
+PROOF_DRAIN_S = 300.0
 # Extra budget over a remote peer's blocking wait, so the transport's
 # timeout always outlives the application timeout it wraps.
 STRAGGLER_GRACE_S = 60.0
 # Bounded roster fan-out: concurrent calls one fan_out may have in flight
 # (service/transport.py).
 FAN_OUT_WORKERS = 8
+# Idle connections the transport's pool keeps per peer, and in all (the
+# least recently pooled one is closed at the cap).
+CONN_POOL_MAX_IDLE = 4
+CONN_POOL_MAX = 1024
+# Finished surveys whose contribution a DP node keeps for replay.
+DP_REPLY_CACHE_MAX = 8
 # Lifetime of a liveness probe's verdicts (LocalCluster.probe_liveness):
 # within it a resume reuses the cached map, past it the probe runs again,
 # so a re-entry never dispatches on a view drawn before a healing fault
@@ -175,7 +185,8 @@ __all__ = ["RetryPolicy", "DEFAULT_POLICY", "is_idempotent", "named_lock",
            "lock_name", "LOCK_NAMES", "IDEMPOTENT_MTYPES",
            "CONTRIBUTION_MTYPES", "CONNECT_RETRIES", "CONNECT_BACKOFF_S",
            "BACKOFF_CAP_S", "PING_TIMEOUT_S", "STRAGGLER_GRACE_S",
-           "FAN_OUT_WORKERS",
+           "FAN_OUT_WORKERS", "VERIFY_WAIT_S", "PROOF_DRAIN_S",
+           "CONN_POOL_MAX_IDLE", "CONN_POOL_MAX", "DP_REPLY_CACHE_MAX",
            "PROBE_TTL_S", "VN_GROUP_WAIT_S",
            "POLL_INTERVAL_S", "COLD_COMPILE_WAIT_S",
            "END_VERIFICATION_TIMEOUT_S", "TREE_FANOUT_MIN", "TREE_FANOUT_MAX",

@@ -255,14 +255,22 @@ class LocalCluster:
     first proofs-on survey (where proofs are built on threads), as the
     reference's "auto" default does on its kernel backend (reference
     :128-134); a CPU cluster is warmed by calling `compilecache.precompile`
-    with it.
+    with it. `link` (a `transport.LinkModel`) sleeps a link's delay and
+    bandwidth time where the reference sends a message (the DPs' upload,
+    each proof's delivery); `share_verify_cache=False` gives each VN a
+    cache that keeps nothing, so every delivery is verified (reference
+    :127, :193-199).
     """
 
     def __init__(self, n_cns: int = 3, n_dps: int = 5, n_vns: int = 3,
                  seed: int = 1, dlog_limit: int = 10000, device=None,
-                 pool=None):
+                 pool=None, link=None, share_verify_cache: bool = True):
         self._aot_warmed = False
         self.device = dev = resolve(device)
+        # where the reference pays a network message (the DPs' ciphertext
+        # upload, a proof's delivery to the VNs), an active link model
+        # sleeps its delay and bandwidth time
+        self.link = link if link is not None else tr.LinkModel()
         self.pool = pool
         self._pool_digest: Optional[str] = None
         if pool is not None:
@@ -312,12 +320,15 @@ class LocalCluster:
             # payloads (the aggregation and key-switch bodies every CN
             # relays, the joint range flush) verify once per process, as
             # real VNs on separate machines would in parallel (see
-            # VerifyCache)
+            # VerifyCache); share_verify_cache=False caches nothing, so
+            # every delivery is verified
             shared_cache = VerifyCache()
             self.vns = VNGroup([
                 VerifyingNode(v.name, f"{self._vn_dir.name}/{v.name}.db",
                               pubs, verify_fns=self._verify_fns(), seed=i,
-                              verify_cache=shared_cache)
+                              verify_cache=(shared_cache
+                                            if share_verify_cache
+                                            else VerifyCache(maxsize=0)))
                 for i, v in enumerate(self.vn_idents)])
 
         self.range_sigs: dict[int, list[rp.RangeSig]] = {}
@@ -821,6 +832,10 @@ class LocalCluster:
                                           self.coll_tbl.table, dp_stats,
                                           enc_rs)           # (n_dps, V, 2,3,16)
         _sync(dev)
+        if self.link.active:
+            # the DPs upload on independent links at once: one delay and
+            # one payload's serialization (V ciphertexts of 128 bytes)
+            self.link.charge(V * 128)
         tm.end("DataCollectionProtocol")
 
         if proofs_on:
@@ -1046,6 +1061,10 @@ class LocalCluster:
             req = rq.new_proof_request(
                 ptype, survey.sq.survey_id, ident.name,
                 f"{ptype}-{ident.name}", 0, data, ident.secret)
+            if self.link.active:
+                # to the VNs on parallel links: one delay and one
+                # payload's serialization
+                self.link.charge(len(data))
             with lock:
                 self.vns.deliver(req)
 

@@ -64,6 +64,33 @@ class PhaseTimers:
             print(f"    [phase] {name}: +{dt:.3f}s", file=sys.stderr,
                   flush=True)
 
+    def add_split(self, phase: str, kind: str, dt: float) -> None:
+        """Attribute a span to the host_glue/device_compute split of a
+        phase, stored as "<phase>#<kind>" so the split rides every existing
+        surface; split_summary() aggregates it."""
+        self.add(f"{phase}#{kind}", dt)
+
+    def split_summary(self) -> dict:
+        """The "<phase>#<kind>" keys: per-phase seconds by kind, and the
+        host_glue_s / device_compute_s totals with the device's share."""
+        with self._lock:
+            items = list(self._acc.items())
+        phases: dict[str, dict] = {}
+        totals = {"host_glue": 0.0, "device_compute": 0.0}
+        for k, v in items:
+            if "#" not in k:
+                continue
+            phase, kind = k.rsplit("#", 1)
+            phases.setdefault(phase, {})[kind] = round(v, 6)
+            if kind in totals:
+                totals[kind] += v
+        denom = totals["host_glue"] + totals["device_compute"]
+        return {"phases": phases,
+                "host_glue_s": round(totals["host_glue"], 6),
+                "device_compute_s": round(totals["device_compute"], 6),
+                "device_share": (round(totals["device_compute"] / denom, 4)
+                                 if denom > 0 else None)}
+
     def span(self, name: str, t0: float, t1: float) -> None:
         """Record an absolute (perf_counter) interval beside its
         accumulated total. The caller owns the clock, so overlapping spans

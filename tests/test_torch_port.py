@@ -874,3 +874,27 @@ def test_precompile_on_the_card_leaves_the_launch_counts(cuda):
     assert t["executed"] == len(kernels) + 1      # and table:gt_base
     assert after == before
     assert sum(stats.launches.values()) >= len(kernels)
+
+
+@pytest.mark.gpu
+def test_wire_decode_lands_on_the_card_by_default(cuda):
+    """A node decodes a tensor field onto the card unless the CPU is
+    named: below the floor the host widen is uploaded, above it the narrow
+    view is uploaded and widened by the card's cast; both equal the host
+    decode bit for bit, for every narrowing the v2 wire makes."""
+    from drynx_tpu_torch.service import transport as tr
+
+    for narrow, wide in tr.widen_pairs():
+        info = np.iinfo(np.dtype(narrow))
+        isz = np.dtype(narrow).itemsize
+        for n in (7, tr.DEVICE_DECODE_MIN_BYTES // isz + 3):
+            a = np.random.default_rng(n).integers(
+                info.min, int(info.max) + 1, size=n).astype(wide)
+            a[:2] = [info.min, info.max]
+            d = tr.decode_frame(tr.encode_frame({"a": tr.pack_array(a)},
+                                                2)[4:], 2)["a"]
+            assert isinstance(d["data"], tr.LazySeg)
+            got = tr.unpack_array_device(d)
+            assert got.device.type == "cuda"
+            assert got.dtype == getattr(torch, wide)
+            assert np.array_equal(got.cpu().numpy(), a)
