@@ -225,6 +225,42 @@ Phases (any failed check exits non-zero; nothing is caught):
      card (its listening line naming the CUDA device), the roster and
      survey built by piping `python -m drynx_tpu_torch.cmd.client`: sum
      75; sum 15 with a clean bitmap; every server alive until killed.
+  16. The PR 19 slice (16a-c run after 14b, before 15a; 16d's scenarios
+     and 15b's servers start with 16a, 16d's LR survey waits until 15a
+     has ended, and 16d is awaited after 15b). (a) Encrypted LR on the Pima (768 x
+     8), PCS (1,500 x 6) and SPECTF (267 x 44, V = 2,070) shapes of
+     `data.datasets.generate(name, seed=3)`, written and read back
+     through `write_csv`/`load_csv`, through `flagship.build_pipeline`
+     (5 DPs, 3 servers, dlog +-40,000, tests/test_lr_datasets.py's
+     parameters), counted: the aggregate the clear sum, every value
+     found, the weights within 1e-3 of CPU GD, accuracy and AUC >= 0.6
+     and accuracy >= the clear exact-loss GD's - 0.1; then
+     `create_random_good_test_data`'s five payloads against a cluster of
+     phase 7's configuration, each accepted by the port's verifier for
+     its type, the range payload with a Zv byte changed rejected.
+     (b) `simul.runner.run_file` on the port's drynx.toml (three sums)
+     and minmax.toml (the max over 1,000 and 10,000 buckets), each row
+     counted: the clear answer from the row's default_rng(seed) draws,
+     every DP a responder, a clean block of VNs x (DPs + 2 CNs) entries;
+     the 10,000-bucket row's encryption in plan_tiles(10,000)'s 3 tiles
+     and its commit stage in proof_tile_shards(50,000, 4,096) = 13
+     dispatches, by the launches' rows; the CSV read back and timedata's
+     table printed; one DP's 10,000 values created tiled and monolithic
+     from the same draws, byte-equal, with both peak memories. (c) On a
+     mesh of one card: phase 5's collection with its commit over 4
+     shards, byte-equal, launches one creation's plus 3 commits'; phase
+     6's payloads through the sharded verifier (plane forced to 4), the
+     tampered DP rejected alone, no fallback; rlc_total_shards and
+     rlc_total_sharded byte-equal to rlc_total_single; `dryrun_step`
+     over 10 shards (the ring) equal to phase 3's sums and weights, its
+     launches by formula; the butterfly over 8 shards of phase 3's
+     ciphertexts equal to their sequential sum; the scalar product over
+     3 shards equal to the host's; obfuscation keeping zeros; phase 9's
+     DRO slabs' shard spans. (d) The port's scenarios
+     client_network-new, server_conf-and-run and
+     client_run-lr-survey-proofs as bash processes with every server on
+     the card: each OK, the LR weights within 1e-9 of the clear-text
+     twin with a clean bitmap.
   Phases 7-12 warm their clusters' kernels in their first proofs-on
   survey (`LocalCluster._warm_kernels`), whose PrecompileTraceExec
   is printed beside its time; the warm-up's launches are its own
@@ -235,15 +271,17 @@ Phases (any failed check exits non-zero; nothing is caught):
   and bounds as one JSON line, the card's name and power limit, and the
   contract line {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --only 10a,10b,11,12,13,14a,14b,14c,15a,15b
+    python3 chip_smoke.py --only 10a,10b,11,12,13,14a,14b,14c,15a,15b,16a,16b,16c,16d
 
-builds the kernels and runs only the named phases of 10-15 (no JSON line;
+builds the kernels and runs only the named phases of 10-16 (no JSON line;
+16c then makes phases 3 and 5's survey, signatures and payloads itself;
 14c then scores with GD's weights from the clear sums, and holds its kept
 calls itself when no phase of 10-12 runs; 15a holds its weights to GD's
 from the clear sums).
 
 It imports nothing of JAX and nothing of the drynx_tpu package.
 """
+import collections
 import contextlib
 import functools
 import json
@@ -359,6 +397,8 @@ CLUSTER_ROWS = {"point_reduce": {(10, 180): 2, (3, 90): 2},
 # thresholds 1.0: 5,000 range-proofed values (15,000 digit proofs) and 3
 # obfuscation proofs of 1,000 ciphertexts, 14 signed envelopes
 MAX_DPS, MAX_ROWS, MAX_QMAX, MAX_DLOG, MAX_DATA_SEED = 5, 64, 999, 25_000, 8
+# minmax.toml's second row: 10,000 buckets
+MINMAX_BIG = 10_000
 # its launches: phase 7's without the signed offset's correction (the
 # joint range check's folds again five passes, over 15,000 digit proofs),
 # and for each CN's obfuscation proof a ladder over s K, s C, w K, w C and
@@ -851,6 +891,25 @@ def crafted_g2_ladder_cases(G2, F, refimpl, device):
 
 
 WPOW_BITS = (1, 2, 3, 4, 63, 64, 128, 256)
+# phase 2's crafted rows of the windowed power held against the 128-bit
+# cyclotomic run (the rest of the cyclotomic ones have a run of their own
+# or share a main shape's; the generic ones share one 256-bit run), and
+# the Fp12 power's crafted rows held against its 256-bit run
+WPOW_FOLD_CYC = (1, 2, 3, 4, 64)
+
+
+def wpow_read(n_bits):
+    """The bits of k the windowed power reads at n_bits: whole 3-bit
+    windows."""
+    return 3 * -(-n_bits // 3)
+
+
+def low_bits(k, bits):
+    """(N, 16) plain scalar limbs masked to their low `bits` bits."""
+    lo = k.to(torch.int64)
+    w = torch.arange(16, device=k.device)
+    keep = ((bits - 16 * w).clamp(0, 16))
+    return (lo & ((1 << keep) - 1)).to(k.dtype)
 
 
 def crafted_wpow_cases(F, F12, params, refimpl, device):
@@ -873,6 +932,7 @@ def crafted_wpow_cases(F, F12, params, refimpl, device):
 
 
 POW_BITS = (1, 48, 63, 256)
+POW_FOLD = (1, 63)
 
 
 def crafted_pow_cases(F, F12, refimpl, n_bits, device):
@@ -3201,6 +3261,678 @@ def phase15b(cli):
     return out
 
 
+# the reference-shaped LR datasets of phase 16a (tests/test_lr_datasets.py
+# :63-67, :158-163): (name, precision, GD steps) at k = 2, 5 DPs, 3 servers,
+# dlog +-40,000; the generated proof payloads' (u, l)
+LR_DATASETS = (("pima", 1.0, 450), ("pcs", 0.1, 450), ("spectf", 0.1, 100))
+LR_DPS, LR_DLOG, LR_SEED = 5, 40_000, 3
+GEN_U, GEN_L = 4, 2
+# the runfiles phase 16b runs (their rows: drynx.toml's three sums and
+# minmax.toml's 1,000- and 10,000-bucket max)
+SIMUL_RUNFILES = ("drynx.toml", "minmax.toml")
+# phase 16c: the shard count of the forced plane and the butterfly's
+SHARDS_16C, BUTTERFLY_SHARDS = 4, 8
+# phase 16d: the port's scenarios run as bash processes on the card (15b
+# drives client_run-survey and client_run-survey-proofs itself)
+SCENARIOS_16D = ("client_network-new", "server_conf-and-run",
+                 "client_run-lr-survey-proofs")
+
+
+def clear_logreg(X, y, iters=3000, step=0.1, lam=1.0):
+    """Exact log-loss GD on standardized features (the reference test's
+    clear-text twin, tests/test_lr_datasets.py:_clear_logreg)."""
+    Xa = np.concatenate([np.ones((len(y), 1)),
+                         (X - X.mean(0)) / (X.std(0) + 1e-12)], axis=1)
+    w = np.zeros(Xa.shape[1])
+    for _ in range(iters):
+        p = 1.0 / (1.0 + np.exp(-Xa @ w))
+        g = Xa.T @ (p - y) / len(y) + lam * w / len(y)
+        w -= step * g
+    return w
+
+
+def phase16a(zero_launches, launch_counts, expected_launches):
+    """The reference-shaped datasets: encrypted LR on Pima, PCS and SPECTF
+    through the flagship survey (exact sums, GD against the CPU, the
+    reference's quality gates), then `create_random_good_test_data`'s five
+    payloads against a cluster of phase 7's configuration. Returns
+    (launches, walls)."""
+    import os
+    import tempfile
+
+    from drynx_tpu_torch import flagship
+    from drynx_tpu_torch.data import create_random_good_test_data
+    from drynx_tpu_torch.data import datasets
+    from drynx_tpu_torch.models import logreg as lr
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    setup = flagship.SurveySetup.create(n_servers=N_SERVERS,
+                                        dlog_limit=LR_DLOG, device=dev)
+    print(f"phase 16a setup: {N_SERVERS} servers' keys, the querier's and "
+          f"the discrete-log table of +-{LR_DLOG} "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    total, walls = {}, []
+    with tempfile.TemporaryDirectory(prefix="drynx_lr_") as tmp:
+        for name, precision, iters in LR_DATASETS:
+            X, y = datasets.generate(name, seed=LR_SEED)
+            path = os.path.join(tmp, f"{name}.csv")
+            datasets.write_csv(path, X, y)
+            X2, y2 = lr.load_csv(path)           # the loader path
+            if not (np.allclose(X2, X) and np.array_equal(y2, y)):
+                raise SystemExit(f"{name}: the CSV read back differs")
+            params = lr.LRParams(
+                k=2, precision=precision, lambda_=1.0, step=0.1,
+                max_iterations=iters, n_features=X2.shape[1],
+                n_records=len(y2), dtype="float32",
+                means=tuple(np.mean(X2, 0)), std_devs=tuple(np.std(X2, 0)))
+            stats, enc_rs, ks_rs = flagship.make_inputs(
+                X2, y2, params, LR_DPS, N_SERVERS, device=dev)
+            fn = flagship.build_pipeline(setup, params)
+            zero_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            w, dec, found = fn(stats, enc_rs, ks_rs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = launch_counts()
+            if launches != expected_launches:
+                raise SystemExit(f"{name}: launches {launches} differ from "
+                                 f"{expected_launches}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            V = stats.shape[1]
+            if (dec.shape != (V,) or not bool(found.all())
+                    or not torch.equal(dec.cpu().long(),
+                                       stats.sum(0).cpu())):
+                raise SystemExit(f"{name}: the decrypted aggregate is not the "
+                                 f"clear sum of the DPs' statistics")
+            w_cpu = lr.train(lr.unpack(dec.cpu(), params), params)
+            w_err = float((w.cpu() - w_cpu).abs().max())
+            w_tol = 1e-3 * max(1.0, float(w_cpu.abs().max()))
+            if not bool(torch.isfinite(w).all()) or w_err > w_tol:
+                raise SystemExit(f"{name}: weights differ from CPU GD by "
+                                 f"{w_err}")
+            w_np = w.cpu().double().numpy()
+            acc = lr.accuracy(lr.predict(X2, w_np, params.means,
+                                         params.std_devs), y2)
+            auc = lr.auc(lr.predict_probs(X2, w_np, params.means,
+                                          params.std_devs), y2)
+            acc_clear = lr.accuracy(lr.predict(X2, clear_logreg(X2, y2)), y2)
+            if acc < 0.6 or auc < 0.6 or acc < acc_clear - 0.1:
+                raise SystemExit(f"{name}: accuracy {acc}, AUC {auc}, clear "
+                                 f"accuracy {acc_clear}")
+            walls.append(wall)
+            print(f"phase 16a: {name} {X2.shape[0]} x {X2.shape[1]}, V = {V} "
+                  f"a DP, {LR_DPS} DPs: survey {wall:.4f} s (first run); "
+                  f"all {V} sums exact and found; weights max abs err vs "
+                  f"CPU GD {w_err:.3g} (tolerance {w_tol:.3g}); accuracy "
+                  f"{acc:.4f}, AUC {auc:.4f}, clear exact-loss GD's accuracy "
+                  f"{acc_clear:.4f}; launches {launches}", flush=True)
+
+    # five generated payloads against a cluster of phase 7's configuration
+    from drynx_tpu_torch.proofs import aggregation as agg_proof
+    from drynx_tpu_torch.proofs import keyswitch as ks_proof
+    from drynx_tpu_torch.proofs import obfuscation as obf_proof
+    from drynx_tpu_torch.proofs import range_proof as rp
+    from drynx_tpu_torch.proofs import shuffle as shuffle_proof
+    from drynx_tpu_torch.proofs.safe_pickle import safe_loads
+    from drynx_tpu_torch.service.service import LocalCluster
+
+    t0 = time.perf_counter()
+    cluster = LocalCluster(n_cns=N_SERVERS, n_dps=NUM_DPS, n_vns=N_VNS,
+                           seed=CLUSTER_SEED, dlog_limit=DLOG_LIMIT)
+    try:
+        zero_launches()
+        out = create_random_good_test_data(cluster, n_values=2, u=GEN_U,
+                                           l=GEN_L, seed=LR_SEED)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_launches = launch_counts()
+        for k, v in gen_launches.items():
+            total[k] = total.get(k, 0) + v
+        tbl = cluster.coll_tbl.table
+        sigs_pub = {GEN_U: [s.public for s in cluster.range_sigs[GEN_U]]}
+        ranges = [(GEN_U, GEN_L)] * 2
+        pr, a, b = safe_loads(out["shuffle"])
+        verdicts = {
+            "range": rp.verify_range_proof_list(
+                rp.RangeProofList.from_bytes(out["range"], dev), ranges,
+                sigs_pub, tbl),
+            "aggregation": bool(np.all(agg_proof.verify_aggregation_proof(
+                safe_loads(out["aggregation"]), dev))),
+            "obfuscation": bool(np.all(obf_proof.verify_obfuscation_proofs(
+                safe_loads(out["obfuscation"]), dev))),
+            "keyswitch": bool(np.all(ks_proof.verify_keyswitch_proofs(
+                safe_loads(out["keyswitch"]), cluster.client_tbl.table))),
+            "shuffle": shuffle_proof.verify_shuffle(
+                pr, torch.from_numpy(a).to(dev), torch.from_numpy(b),
+                cluster.coll_pt)}
+        bad = rp.RangeProofList.from_bytes(tamper_zv(out["range"]), dev)
+        bad_ok = rp.verify_range_proof_list(bad, ranges, sigs_pub, tbl)
+    finally:
+        cluster.close()
+    if verdicts != dict.fromkeys(verdicts, True) or bad_ok is not False:
+        raise SystemExit(f"generated payloads: verdicts {verdicts}, the "
+                         f"range payload with a Zv byte changed {bad_ok}")
+    print(f"phase 16a: create_random_good_test_data against a cluster of "
+          f"phase 7's configuration ({gen_s:.1f} s with the cluster and its "
+          f"u={GEN_U} signatures): all five payloads accepted by the port's "
+          f"verifier for their type {verdicts}; the range payload with one "
+          f"Zv byte changed rejected; launches of the generation "
+          f"{gen_launches}", flush=True)
+    return total, walls
+
+
+def simul_clear(cfg):
+    """The clear answer of a runner row, from its own default_rng(seed)
+    draws (simul/runner.py's data)."""
+    rng = np.random.default_rng(cfg["seed"])
+    datas = [rng.integers(cfg["query_min"], max(cfg["query_max"], 1),
+                          size=(cfg["rows_per_dp"],))
+             for _ in range(cfg["nbr_dps"])]
+    if cfg["operation"] == "sum":
+        return int(sum(int(d.sum()) for d in datas))
+    if cfg["operation"] == "max":
+        return int(max(int(d.max()) for d in datas))
+    raise SystemExit(f"no clear answer for {cfg['operation']}")
+
+
+def commit_slices(n_values, tile):
+    """The value slices of a tiled creation's commit stage."""
+    from drynx_tpu_torch.encoding import tiles
+    from drynx_tpu_torch.parallel import proof_plane as plane
+
+    return plane.shard_slices(n_values, tiles.proof_tile_shards(n_values,
+                                                                tile))
+
+
+def phase16b(zero_launches, launch_counts):
+    """The simulation harness: run_file on the port's drynx.toml and
+    minmax.toml (csv_out in a temporary directory), every row counted and
+    held to its clear answer, the 10,000-bucket row's tiles; then one DP's
+    10,000 values created tiled and monolithic from the same draws.
+    Returns (launches, walls)."""
+    import csv
+    import os
+    import tempfile
+
+    from drynx_tpu_torch.crypto import elgamal as eg
+    from drynx_tpu_torch.encoding import tiles
+    from drynx_tpu_torch.proofs import range_proof as rp
+    from drynx_tpu_torch.service import service as svc
+    from drynx_tpu_torch.simul import runner, timedata
+    from drynx_tpu_torch.utils import cuda_build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rows, total, walls = [], {}, []
+    run_simulation = runner.run_simulation
+
+    def counted(cfg, device=None):
+        zero_launches()
+        t0 = time.perf_counter()
+        res = run_simulation(cfg, device)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        shapes = {k: dict(sorted(v.items()))
+                  for k, v in sorted(cuda_build.LAUNCH_ROWS.items())}
+        rows.append((res, launches, shapes, wall))
+        return res
+
+    runner.run_simulation = counted
+    try:
+        with tempfile.TemporaryDirectory(prefix="drynx_simul_") as tmp:
+            for name in SIMUL_RUNFILES:
+                path = os.path.join(root, "drynx_tpu_torch", "simul",
+                                    "runfiles", name)
+                csv_out = os.path.join(tmp, name[:-5] + ".timedata.csv")
+                first = len(rows)
+                results = runner.run_file(path, csv_out=csv_out)
+                with open(csv_out) as f:
+                    text = f.read()
+                if text != runner.results_csv(results):
+                    raise SystemExit(f"{name}: the CSV differs from its "
+                                     f"results")
+                table = list(csv.DictReader(text.splitlines()))
+                if len(table) != len(results):
+                    raise SystemExit(f"{name}: {len(table)} CSV rows")
+                runs = [{k: float(v) for k, v in r.items()
+                         if k not in ("operation", "servers", "dps", "vns")}
+                        for r in table]
+                print(f"phase 16b: {name}: {len(results)} rows; timedata "
+                      f"(mean and best over the rows):\n"
+                      + timedata.render(timedata.aggregate(runs)).rstrip(),
+                      flush=True)
+                for res, launches, shapes, wall in rows[first:]:
+                    check_simul_row(res, launches, shapes, wall)
+    finally:
+        runner.run_simulation = run_simulation
+    for res, launches, shapes, wall in rows:
+        walls.append(wall)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # one DP's 10,000 values, tiled (tile=None: auto) and monolithic
+    # (tile=0) from the same draws: byte-equal payloads, both peaks
+    dev = torch.device("cuda")
+    n = MINMAX_BIG
+    gen = torch.Generator(device=dev).manual_seed(PROOF_SEED + 16)
+    sigs = svc.make_range_sigs(2, N_SERVERS, seed=SIG_SEED, device=dev)
+    _, pub = eg.keygen(np.random.default_rng(PROOF_SEED + 16))
+    tbl = eg.pub_table(pub).table.to(dev)
+    bits = torch.randint(0, 2, (n,), generator=gen, device=dev)
+    rs = eg.random_scalars((n,), gen, dev)
+    cts = eg.encrypt_ints_with_tables(eg.BASE_TABLE.table.to(dev), tbl, bits,
+                                      rs)
+    draws = [eg.random_scalars(s, gen, dev)
+             for s in ((n, 1), (n, 1), (n, 1), (N_SERVERS, n, 1))]
+    blobs, peaks, g2_rows = {}, {}, {}
+    for tile in (None, 0):
+        zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pb = rp.create_range_proofs(bits, rs, cts, sigs, 2, 1, tbl,
+                                    draws=draws, tile=tile)
+        torch.cuda.synchronize()
+        peaks[tile] = torch.cuda.max_memory_allocated() - base
+        g2_rows[tile] = dict(cuda_build.LAUNCH_ROWS["g2_scalar_mul"])
+        blobs[tile] = rp.RangeProofList(n, [(np.arange(n), pb)]).to_bytes()
+    want_rows = collections.Counter(N_SERVERS * (b - a) for a, b in
+                                    commit_slices(n, tiles.auto_tile(n)))
+    if blobs[None] != blobs[0]:
+        raise SystemExit("one DP's 10,000 values: the tiled payload differs "
+                         "from the monolithic one")
+    if g2_rows[None] != want_rows or g2_rows[0] != {N_SERVERS * n: 1}:
+        raise SystemExit(f"one DP's 10,000 values: commit shapes "
+                         f"{g2_rows}, want {dict(want_rows)} tiled")
+    print(f"phase 16b: one DP's {n} values (u=2, l=1, {N_SERVERS} servers): "
+          f"tiled (tile=None, {sum(want_rows.values())} commit dispatches, "
+          f"G2 ladder rows {g2_rows[None]}) and monolithic (tile=0) "
+          f"payloads byte-equal ({len(blobs[0])} bytes); peak device memory "
+          f"above the inputs {peaks[None] / 2**30:.3f} GiB tiled, "
+          f"{peaks[0] / 2**30:.3f} GiB monolithic", flush=True)
+    return total, walls
+
+
+def check_simul_row(res, launches, shapes, wall):
+    """One runner row on the card: the clear answer, the responders, a
+    clean block of the expected size, and above the tile threshold the
+    tiled encryption and commit stage in their exact launch shapes."""
+    from drynx_tpu_torch.encoding import tiles
+
+    cfg = res["config"]
+    want = simul_clear(cfg)
+    what = (f"{cfg['operation']} {cfg['nbr_dps']} DPs x "
+            f"{cfg['rows_per_dp']} rows over [{cfg['query_min']}, "
+            f"{cfg['query_max']}], proofs {cfg['proofs']}")
+    if res["result"] != want or not res["found"]:
+        raise SystemExit(f"{what}: result {res['result']} (found "
+                         f"{res['found']}), clear {want}")
+    dps = [f"dp{i}" for i in range(cfg["nbr_dps"])]
+    if res["responders"] != dps or res["absent"]:
+        raise SystemExit(f"{what}: responders {res['responders']}")
+    entries = (cfg["nbr_vns"] * (cfg["nbr_dps"] + 2 * cfg["nbr_servers"])
+               if cfg["proofs"] else 0)
+    if cfg["proofs"] and res["bitmap_codes"] != {1: entries}:
+        raise SystemExit(f"{what}: bitmap codes {res['bitmap_codes']}, want "
+                         f"{entries} entries of code 1")
+    V = cfg["query_max"] - cfg["query_min"] + 1 if cfg["operation"] in (
+        "max", "min") else 1
+    tile = tiles.auto_tile(V)
+    note = ""
+    if tile:
+        n_vals = cfg["nbr_dps"] * V
+        plan = tiles.plan_tiles(V, tile)
+        commit = collections.Counter(
+            cfg["nbr_servers"] * cfg["ranges_l"] * (b - a)
+            for a, b in commit_slices(n_vals, tiles.auto_tile(n_vals)))
+        enc = collections.Counter(cfg["nbr_dps"] * (b - a)
+                                  for a, b in plan.tiles)
+        got_enc = {r: c for r, c in shapes.get("fixed_base_mul", {}).items()
+                   if r in enc}
+        # each encryption tile: r B, |m| B and r P
+        if (shapes.get("g2_scalar_mul") != dict(commit)
+                or got_enc != {r: 3 * c for r, c in enc.items()}):
+            raise SystemExit(f"{what}: G2 ladder shapes "
+                             f"{shapes.get('g2_scalar_mul')} (want "
+                             f"{dict(commit)}), encryption shapes {got_enc} "
+                             f"(want three launches a tile of {dict(enc)})")
+        note = (f"; tiled: encryption in {plan.n_tiles} tiles "
+                f"{[b - a for a, b in plan.tiles]}, the commit stage in "
+                f"{sum(commit.values())} dispatches (G2 ladder rows "
+                f"{dict(commit)})")
+    t = res["timings"]
+    print(f"phase 16b: {what}: result {res['result']} = the clear answer; "
+          f"{len(dps)} responders; bitmap {res['bitmap_codes']}; "
+          f"{wall:.3f} s (JustExecution {t['JustExecution']:.3f} s){note}; "
+          f"launches {launches}", flush=True)
+    if tile:
+        print(f"phase 16b: launch shapes of that row, {{kernel: {{rows: "
+              f"launches}}}}: {shapes}", flush=True)
+
+
+def phase16c(ctx, zero_launches, launch_counts):
+    """The proof plane and the collectives on a mesh of one card: phase 5's
+    collection created over 4 shards, phase 6's payloads checked by the
+    sharded verifier, the RLC totals, the dry-run step over 10 shards, the
+    butterfly over 8, the scalar product and obfuscation over 3, and
+    phase 9's DRO slabs' spans. ctx: phase 3's and 5's tensors (see main).
+    Returns (launches, walls)."""
+    from drynx_tpu_torch import dryrun
+    from drynx_tpu_torch.crypto import curve as C
+    from drynx_tpu_torch.crypto import elgamal as eg
+    from drynx_tpu_torch.crypto import field as F
+    from drynx_tpu_torch.crypto import fp12 as F12
+    from drynx_tpu_torch.crypto import params as bn256
+    from drynx_tpu_torch.models import logreg as lr
+    from drynx_tpu_torch.parallel import collective as col
+    from drynx_tpu_torch.parallel import proof_mesh as pm
+    from drynx_tpu_torch.parallel import proof_plane as plane
+    from drynx_tpu_torch.proofs import range_proof as rp
+    from drynx_tpu_torch.service import service as svc
+
+    dev = torch.device("cuda")
+    stats, enc_rs, ks_rs, setup = (ctx["stats"], ctx["enc_rs"],
+                                   ctx["ks_rs"], ctx["setup"])
+    sigs, payloads, coll_tbl = ctx["sigs"], ctx["payloads"], \
+        setup.coll_pub_table
+    pubs = [s.public for s in sigs]
+    V = stats.shape[1]
+    n_vals = NUM_DPS * V
+    total, walls = {}, []
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    if plane.n_shards() != 1 or plane.enabled():
+        raise SystemExit(f"the plane is on with one card: "
+                         f"{plane.n_shards()} shards")
+
+    # (1) phase 5's collection, its commit stage over 4 shards
+    shifted = stats.to(torch.int64) + U ** L // 2
+    cts = eg.encrypt_ints_with_tables(eg.BASE_TABLE.table.to(dev), coll_tbl,
+                                      shifted, enc_rs).reshape(-1, 2, 3, 16)
+    secrets = shifted.reshape(-1)
+    rs = enc_rs.reshape(-1, 16)
+
+    def draws():
+        gen = torch.Generator(device=dev).manual_seed(PROOF_SEED)
+        return [eg.random_scalars(s, gen, dev)
+                for s in [(n_vals, L)] * 3 + [(N_SERVERS, n_vals, L)]]
+
+    def create(**kw):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb = rp.create_range_proofs(secrets, rs, cts, sigs, U, L, coll_tbl,
+                                    draws=draws(), **kw)
+        torch.cuda.synchronize()
+        return pb, launch_counts(), time.perf_counter() - t0
+
+    mono, mono_l, mono_s = create()
+    sharded, shard_l, shard_s = create(n_shards=SHARDS_16C)
+    zero_launches()
+    s_, t_, m_, v_ = draws()
+    dig = torch.from_numpy(rp.to_base(secrets.cpu().numpy(), U, L)).to(
+        dev, torch.int64)
+    rp._commit_kernel(dig, s_, t_, m_, v_,
+                      torch.stack([s.A for s in sigs]).to(dev), coll_tbl,
+                      rp.sig_gt_pow_tables(sigs, dev), U, L)
+    torch.cuda.synchronize()
+    commit_l = launch_counts()
+    add(shard_l)
+    got = [rp.RangeProofList(V, [(np.arange(V), rp._slice_batch(
+        sharded, np.arange(dp * V, (dp + 1) * V)))]).to_bytes()
+        for dp in range(NUM_DPS)]
+    want_l = {k: mono_l[k] + (SHARDS_16C - 1) * commit_l[k] for k in mono_l}
+    if got != payloads:
+        raise SystemExit("phase 5's collection over 4 shards: payloads differ")
+    if shard_l != want_l:
+        raise SystemExit(f"sharded creation launches {shard_l}, want "
+                         f"{want_l} (one commit's {commit_l} x "
+                         f"{SHARDS_16C})")
+    walls.append(shard_s)
+    print(f"phase 16c: phase 5's collection ({n_vals} values) with its "
+          f"commit stage over {SHARDS_16C} shards on cuda:0: the ten "
+          f"payloads byte-equal to phase 5's; {shard_s:.3f} s against "
+          f"{mono_s:.3f} s on one; launches {shard_l} = one creation's + "
+          f"{SHARDS_16C - 1} commits' ({commit_l})", flush=True)
+
+    # (2) phase 6's payloads through the sharded verifier, then the RLC
+    # totals under one weight draw
+    fallbacks = rp.SHARDED_FALLBACKS
+    ranges = [(U, L)] * V
+    plane.set_shards(SHARDS_16C)
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        ok = svc.verify_collected_range_proofs(payloads, ranges, {U: sigs},
+                                               coll_tbl)
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+        add(launch_counts())
+        verify_l = launch_counts()
+        ok_bad = svc.verify_collected_range_proofs(
+            ctx["bad"], ranges, {U: sigs}, coll_tbl)
+    finally:
+        plane.set_shards(None)
+    if ok != [True] * NUM_DPS or ok_bad != [dp != TAMPER_DP
+                                             for dp in range(NUM_DPS)]:
+        raise SystemExit(f"sharded joint check: {ok}; with DP {TAMPER_DP}'s"
+                         f" Zv changed {ok_bad}")
+    if rp.SHARDED_FALLBACKS != fallbacks:
+        raise SystemExit(f"{rp.SHARDED_FALLBACKS - fallbacks} sharded "
+                         f"checks fell back to one device")
+    walls.append(verify_s)
+    pb = rp._concat_batches([rp.RangeProofList.from_bytes(b, dev)
+                             .batches[0][1] for b in payloads])
+    pre_ok, r_int, gtb_s = rp.rlc_prelude(
+        pb, pubs, coll_tbl, rng=np.random.default_rng(PROOF_SEED))
+    single = rp.rlc_total_single(pb, pubs, r_int, gtb_s)
+    shards = pm.rlc_total_shards(pb, pubs, r_int, gtb_s,
+                                 n_shards=SHARDS_16C)
+    spmd = pm.rlc_total_sharded(col.make_mesh(SHARDS_16C), pb, pubs, r_int,
+                                gtb_s)
+    if not (pre_ok and torch.equal(shards, single)
+            and torch.equal(spmd, single)
+            and bool(F12.eq(single, F12.one((), dev)))):
+        raise SystemExit("the sharded RLC totals differ from the "
+                         "single-device one")
+    print(f"phase 16c: phase 6's ten payloads through the sharded verifier "
+          f"({SHARDS_16C} shards) {verify_s:.3f} s: {ok}; DP {TAMPER_DP}'s "
+          f"tampered payload rejected alone {ok_bad}; fallbacks to one "
+          f"device {rp.SHARDED_FALLBACKS - fallbacks}; launches {verify_l}; "
+          f"under one weight draw rlc_total_shards and rlc_total_sharded "
+          f"(the GT all-reduce over {SHARDS_16C} shards) byte-equal to "
+          f"rlc_total_single, which is one", flush=True)
+
+    # (3) the dry-run step at phase 3's width over 10 shards: the ring
+    mesh = col.make_mesh(NUM_DPS)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, dec, found = dryrun.dryrun_step(setup, ctx["params"], stats, enc_rs,
+                                       ks_rs, mesh=mesh)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    dry_l = launch_counts()
+    add(dry_l)
+    n = NUM_DPS
+    rounds = n.bit_length() - 1 if n & (n - 1) == 0 else n - 1
+    # per shard the flagship's kernels but its three reduces, then three
+    # all-reduces (the ciphertexts, the key switch's K and C)
+    want_dry = {**dict.fromkeys(dry_l, 0), "fixed_base_mul": 5 * n,
+                "scalar_mul": 2 * n, "point_add": 4 * n + 3 * rounds * n,
+                "fp_inv": n}
+    w_err = float((w.cpu() - ctx["w3"].cpu()).abs().max())
+    if (not bool(found.all()) or not torch.equal(dec.cpu(), ctx["dec3"].cpu())
+            or w_err > 1e-3 * max(1.0, float(ctx["w3"].abs().max()))):
+        raise SystemExit(f"dry-run step: sums or weights differ (weights "
+                         f"{w_err})")
+    if dry_l != want_dry:
+        raise SystemExit(f"dry-run launches {dry_l}, want {want_dry}")
+    walls.append(dry_s)
+    print(f"phase 16c: the dry-run step over {n} shards on "
+          f"{sorted({str(d) for d in mesh})} (the ring, {rounds} rounds): "
+          f"{dry_s:.3f} s; the {V} decrypted sums equal phase 3's, weights "
+          f"max abs err {w_err:.3g}; launches {dry_l}", flush=True)
+
+    # (4) the butterfly over 8 shards of phase 3's ciphertexts
+    cts3 = eg.encrypt_ints_with_tables(eg.BASE_TABLE.table.to(dev), coll_tbl,
+                                       stats, enc_rs)
+    xs = [cts3[i] for i in range(BUTTERFLY_SHARDS)]
+    zero_launches()
+    allr = col.allreduce_group_add(xs)
+    torch.cuda.synchronize()
+    bf_l = launch_counts()
+    add(bf_l)
+    seq = xs[0]
+    for x in xs[1:]:
+        seq = C.add(seq, x)
+    k = BUTTERFLY_SHARDS
+
+    def affine(t):
+        x, y, z = C.normalize(t)
+        return torch.stack([F.from_mont(x), F.from_mont(y)]), z
+
+    (ga, gz), (wa, wz) = affine(torch.stack(allr)), affine(
+        torch.stack([seq] * k))
+    if not (torch.equal(ga, wa) and torch.equal(gz, wz)):
+        raise SystemExit("the butterfly's totals differ from the "
+                         "sequential sum")
+    if bf_l["point_add"] != (k.bit_length() - 1) * k:
+        raise SystemExit(f"butterfly launches {bf_l}")
+
+    # (5) the scalar product over 3 shards and obfuscation
+    gen = torch.Generator(device=dev).manual_seed(PROOF_SEED + 5)
+    ss = [eg.random_scalars((V,), gen, dev) for _ in range(N_SERVERS)]
+    prods = col.allreduce_scalar_mul(ss)
+    host = [int(np.prod([int(v) for v in col_ints], dtype=object) % bn256.N)
+            for col_ints in zip(*[F.to_int(s.cpu()).tolist() for s in ss])]
+    if any(F.to_int(p.cpu()).tolist() != host for p in prods):
+        raise SystemExit("the all-reduced scalar product differs from the "
+                         "host's")
+    vals = torch.arange(V, device=dev, dtype=torch.int64) % 3
+    q_cts = eg.encrypt_ints_with_tables(
+        eg.BASE_TABLE.table.to(dev), setup.query_pub_table, vals,
+        eg.random_scalars((V,), gen, dev))
+    zero_launches()
+    obf = col.obfuscate_collective([q_cts] * N_SERVERS, ss)
+    add(launch_counts())
+    qx = eg.secret_to_limbs(setup.query_secret).to(dev)
+    zeros = [eg.decrypt_check_zero(o, qx).cpu() for o in obf]
+    if any(not torch.equal(z, (vals == 0).cpu()) for z in zeros):
+        raise SystemExit("obfuscation over 3 shards moved a zero")
+    print(f"phase 16c: allreduce_group_add over {k} shards of phase 3's "
+          f"ciphertexts (DPs 0-{k - 1}, the butterfly) equal to their "
+          f"sequential sum after normalize, launches {bf_l}; "
+          f"allreduce_scalar_mul over {N_SERVERS} shards equal to the host "
+          f"product mod n; obfuscate_collective keeps {int((vals == 0).sum())}"
+          f" zeros and {int((vals != 0).sum())} non-zeros", flush=True)
+
+    # (6) phase 9's DRO slabs went through the plane's dispatch
+    spans = sorted(k for k in plane.timers_snapshot()
+                   if k.startswith("DRO") and ".shard" in k)
+    if ctx.get("phase9") and not spans:
+        raise SystemExit("phase 9's DRO slabs did not go through "
+                         "dispatch_shards")
+    print(f"phase 16c: the plane's shard spans of phase 9's DRO slabs: "
+          f"{len(spans)} ({', '.join(spans[:6])}{', ...' if len(spans) > 6 else ''})",
+          flush=True)
+    return total, walls
+
+
+class Scenarios16d:
+    """The port's shell scenarios of SCENARIOS_16D as bash processes with
+    every server on the card, started on entering (so their servers boot
+    while phases 16a-c run) and awaited by `results`. The LR scenario's
+    survey waits for `open_gate` (after 15a's timed surveys, which it
+    would otherwise share the card with)."""
+
+    def __enter__(self):
+        import os
+        import subprocess
+        import tempfile
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.tmp = tempfile.mkdtemp(prefix="scen16d-")
+        self.gate = os.path.join(self.tmp, "go")
+        env = dict(os.environ, PYTHON=sys.executable,
+                   DRYNX_SCENARIO_GATE=self.gate)
+        env.pop("DRYNX_SCENARIO_CPU", None)
+        self.t0 = time.perf_counter()
+        self.t_gate = None
+        self.procs = {name: subprocess.Popen(
+            ["bash", os.path.join(root, "drynx_tpu_torch", "scenarios",
+                                  name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, start_new_session=True) for name in SCENARIOS_16D}
+        # each scenario's output and the seconds to its end, by a waiter
+        self.done = {}
+        self.waiters = [threading.Thread(target=self._wait, args=(n,),
+                                         daemon=True) for n in self.procs]
+        for t in self.waiters:
+            t.start()
+        return self
+
+    def _wait(self, name):
+        stdout, stderr = self.procs[name].communicate(timeout=900)
+        self.done[name] = (stdout, stderr, time.perf_counter() - self.t0)
+
+    def open_gate(self):
+        """Let the LR scenario's survey start."""
+        open(self.gate, "w").close()
+        self.t_gate = time.perf_counter() - self.t0
+
+    def results(self):
+        """{scenario: (stdout, seconds from the start to its end)}; raises
+        SystemExit unless every one exited 0 and printed OK."""
+        if self.t_gate is None:
+            self.open_gate()
+        out = {}
+        for t in self.waiters:
+            t.join()
+        for name, p in self.procs.items():
+            stdout, stderr, secs = self.done[name]
+            out[name] = (stdout, secs)
+            if p.returncode != 0 or "OK" not in stdout.split():
+                raise SystemExit(f"{name} exited {p.returncode}:\n{stdout}"
+                                 f"\n{stderr[-3000:]}")
+        return out
+
+    def __exit__(self, *exc):
+        import os
+        import signal
+
+        import shutil
+
+        for p in self.procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=60)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        return False
+
+
+def phase16d(scen):
+    """The scenarios' verdicts: each printed OK; the LR scenario's weights
+    within 1e-9 of its clear-text twin with a clean bitmap."""
+    out = scen.results()
+    lr_out = out["client_run-lr-survey-proofs"][0]
+    if ('"bitmap_ok": true' not in lr_out
+            or "weights match clear-text twin" not in lr_out):
+        raise SystemExit(f"LR scenario: {lr_out}")
+    for name, (stdout, secs) in out.items():
+        lines = [l for l in stdout.splitlines() if l.strip()]
+        print(f"phase 16d: {name} (bash, servers on the card): OK, done "
+              f"{secs:.1f} s after its start (with phase 16a; the LR "
+              f"survey's gate opened at {scen.t_gate:.1f} s, after 15a); "
+              f"{' | '.join(lines[-3:])[:400]}", flush=True)
+    return out
+
+
 def new_phases(stats, X, y, params, zero_launches, launch_counts,
                verify_range_alone=None, only=None, timers7="not measured",
                w7=None):
@@ -3255,6 +3987,45 @@ def new_phases(stats, X, y, params, zero_launches, launch_counts,
           f"byte-equal to its plain version "
           f"({time.perf_counter() - t0:.1f} s): {held}", flush=True)
     return out
+
+
+def run_16abc(new, ctx, zero_launches, launch_counts, start, names):
+    """Phases 16a, 16b and 16c (those of `names`), each timed; their
+    (launches, walls) go into `new`."""
+    runs = {"16a": lambda: phase16a(zero_launches, launch_counts,
+                                    EXPECTED_LAUNCHES),
+            "16b": lambda: phase16b(zero_launches, launch_counts),
+            "16c": lambda: phase16c(ctx, zero_launches, launch_counts)}
+    for name in names:
+        print(f"-- phase {name} at {time.perf_counter() - start:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        new[name] = runs[name]()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s in all; "
+              f"its launches {new[name][0]}", flush=True)
+
+
+def only_ctx(stats, enc_rs, ks_rs, setup, params, fn, need):
+    """Phase 16c's inputs when phases 3-6 do not run: phase 3's survey,
+    phase 5's signatures and payloads, phase 6's tampered copy."""
+    from drynx_tpu_torch.service import service as svc
+
+    ctx = dict(stats=stats, enc_rs=enc_rs, ks_rs=ks_rs, setup=setup,
+               params=params, phase9=False)
+    if not need:
+        return ctx
+    dev = torch.device("cuda")
+    ctx["w3"], ctx["dec3"], _ = fn(stats, enc_rs, ks_rs)
+    ctx["sigs"] = sigs = svc.make_range_sigs(U, N_SERVERS, seed=SIG_SEED,
+                                             device=dev)
+    _, lists = svc.collect_with_range_proofs(
+        stats, enc_rs, [(U, L)] * stats.shape[1], {U: sigs},
+        setup.coll_pub_table,
+        generator=torch.Generator(device=dev).manual_seed(PROOF_SEED))
+    ctx["payloads"] = [lst.to_bytes() for lst in lists]
+    ctx["bad"] = list(ctx["payloads"])
+    ctx["bad"][TAMPER_DP] = tamper_zv(ctx["payloads"][TAMPER_DP])
+    return ctx
 
 
 def main():
@@ -3318,7 +4089,8 @@ def main():
     print(f"setup: V={V} ciphertexts per DP, host keygen + tables "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if only is not None:
-        rest = [p for p in only if p not in ("13", "14b", "15a", "15b")]
+        rest = [p for p in only if p not in ("13", "14b", "15a", "15b")
+                and not p.startswith("16")]
         if rest:
             # without phase 7, its weights' stand-in for 14c: GD on the CPU
             # from the clear sums
@@ -3330,13 +4102,27 @@ def main():
         if "14b" in only:
             phase14b(zero_launches, launch_counts)
         with contextlib.ExitStack() as stack:
-            # 15b's servers boot while 15a runs
+            # 15b's servers and 16d's scenarios boot while 16a-c and 15a
+            # run; 16d's LR survey starts after 15a
             cli = (stack.enter_context(CliNodes()) if "15b" in only
                    else None)
+            scen = (stack.enter_context(Scenarios16d()) if "16d" in only
+                    else None)
+            sub16 = [p for p in ("16a", "16b", "16c") if p in only]
+            if sub16:
+                run_16abc({}, only_ctx(
+                    stats, enc_rs, ks_rs, setup, params,
+                    fn=flagship.build_pipeline(setup, params),
+                    need="16c" in sub16), zero_launches, launch_counts,
+                    start, sub16)
             if "15a" in only:
                 phase15a(stats, X, y, params, zero_launches, launch_counts)
+            if scen is not None:
+                scen.open_gate()
             if cli is not None:
                 phase15b(cli)
+            if scen is not None:
+                phase16d(scen)
         print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
         return 0
     base = eg.BASE_TABLE.table.to(dev)
@@ -3461,11 +4247,27 @@ def main():
     g2_main = prefixes(g2_shared(0))
     wpow63 = shared_plain(cuda_pairing.f12_wpow_plain, lambda: [
         (gt_ca, r_w), (gt_a[:1], u_k), wpow_crafted], 63, True)
+    # the crafted rows at bit counts no main shape has join a longer run:
+    # at nb bits the power reads the low 3 ceil(nb / 3) bits of k, and the
+    # longer chain over k masked to them begins with exact products of one
+    # (canonical residues), so its rows are byte-equal (held on the CPU
+    # with the plain versions, every crafted row, both squares)
     wpow128 = shared_plain(cuda_pairing.f12_wpow_plain, lambda: [
-        (gt_a, t1_k), wpow_crafted], 128, True)
+        (gt_a, t1_k), wpow_crafted] + [
+        (wpow_crafted[0], low_bits(wpow_crafted[1], wpow_read(nb)))
+        for nb in WPOW_FOLD_CYC], 128, True)
+    wpow256 = shared_plain(cuda_pairing.f12_wpow_plain, lambda: [
+        (wpow_crafted[0], low_bits(wpow_crafted[1], min(wpow_read(nb), 256)))
+        for nb in WPOW_BITS], 256, False)
+    # likewise the Fp12 power's crafted rows at 1 and 63 bits join the
+    # 256-bit run (square-and-multiply-always: a zero bit multiplies by one)
     pow_shared = {nb: shared_plain(cuda_pairing.f12_pow_plain,
                                    lambda nb=nb: [(gt_a, g2_k),
-                                                  pow_crafted[nb]], nb)
+                                                  pow_crafted[nb]] + (
+                                       [(pow_crafted[b][0],
+                                         low_bits(pow_crafted[b][1], b))
+                                        for b in POW_FOLD] if nb == 256
+                                       else []), nb)
                   for nb in (48, 256)}
     mul_main = prefixes(lambda: cuda_pairing.f12_mul_plain(gt1, gt2))
     mr8_main = prefixes(lambda: cuda_pairing.f12_mulreduce8_plain(g_multi))
@@ -3680,9 +4482,8 @@ def main():
     # one plain run of the crafted rows at each POW_BITS: the tiled launch
     # is held against it tiled (a row-wise kernel)
     pow_crafted_plain = {nb: pow_shared[nb](1) if nb in pow_shared else
-                         prefixes(lambda fk=fk, nb=nb: cuda_pairing.
-                                  f12_pow_plain(*fk, nb))(len(fk[1]))
-                         for nb, fk in pow_crafted.items()}
+                         pow_shared[256](2 + POW_FOLD.index(nb))
+                         for nb in pow_crafted}
 
     def scalars(n, n_windows):
         lim = min(refimpl.N, 16 ** n_windows)
@@ -3857,6 +4658,8 @@ def main():
                  *wpow_crafted, nb, cyc=cyc)),
              wpow63(2) if (nb, cyc) == (63, True) else
              wpow128(1) if (nb, cyc) == (128, True) else
+             wpow128(2 + WPOW_FOLD_CYC.index(nb)) if cyc and nb < 256 else
+             wpow256(WPOW_BITS.index(nb)) if not cyc else
              (lambda nb=nb, cyc=cyc: cuda_pairing.f12_wpow_plain(
                  *wpow_crafted, nb, cyc)),
              mm_wpow(nb, cyc), len(wpow_crafted[0]),
@@ -3994,6 +4797,7 @@ def main():
         raise SystemExit(f"weights differ from CPU GD: max abs err {w_err}")
     print(f"  all {V} sums exact and found; weights {w.cpu().tolist()}; max abs"
           f" err vs CPU GD {w_err:.3g} (tolerance {w_tol:.3g})", flush=True)
+    w3, dec3 = w, dec                   # phase 16c's dry run holds to them
 
     # -- phase 4: timings -------------------------------------------------------
     walls = []
@@ -4296,19 +5100,36 @@ def main():
     new["14b"] = phase14b(zero_launches, launch_counts)
     print(f"phase 14b: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
-    # -- phase 15: the survey over TCP, and the CLIs as processes ------------
-    print(f"-- phase 15a at {time.perf_counter() - start:.1f} s", flush=True)
-    with CliNodes() as cli:             # 15b's servers boot while 15a runs
+    # 15b's servers and 16d's scenarios boot while phases 16a-c and 15a
+    # run; 16d's LR survey starts after 15a's timed surveys
+    with CliNodes() as cli, Scenarios16d() as scen:
+        # -- phase 16a-c: datasets, the simulation harness, the proof plane -
+        ctx = dict(stats=stats, enc_rs=enc_rs, ks_rs=ks_rs, setup=setup,
+                   sigs=sigs, payloads=payloads, bad=bad, params=params,
+                   w3=w3, dec3=dec3, phase9=True)
+        run_16abc(new, ctx, zero_launches, launch_counts, start,
+                  ("16a", "16b", "16c"))
+
+        # -- phase 15: the survey over TCP, and the CLIs as processes --------
+        print(f"-- phase 15a at {time.perf_counter() - start:.1f} s",
+              flush=True)
         t0 = time.perf_counter()
         new["15a"] = phase15a(stats, X, y, params, zero_launches,
                               launch_counts, res7, walls7[0])
         print(f"phase 15a: {time.perf_counter() - t0:.1f} s in all",
               flush=True)
+        scen.open_gate()
         print(f"-- phase 15b at {time.perf_counter() - start:.1f} s",
               flush=True)
         t0 = time.perf_counter()
         phase15b(cli)
         print(f"phase 15b: {time.perf_counter() - t0:.1f} s in all",
+              flush=True)
+        print(f"-- phase 16d at {time.perf_counter() - start:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        phase16d(scen)
+        print(f"phase 16d: {time.perf_counter() - t0:.1f} s after 15b",
               flush=True)
 
     kernels = []
@@ -4335,7 +5156,8 @@ def main():
           "noised sum's, the grouped and the cut survey's, the held batch's, "
           "the stream's 1-pane advance's, phase 13's server surveys and "
           "load, the degraded survey's, the resumed survey's, the "
-          "encrypted prediction's and the TCP survey's warm tree run)")
+          "encrypted prediction's, the TCP survey's warm tree run and "
+          "phase 16a-c's)")
     print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))

@@ -15,7 +15,8 @@ independent, proofs/range_proof.py module docstring).
 
 Tiles are balanced (never more than `tile` wide, sizes within 1 of each
 other). A copy of drynx_tpu/encoding/tiles.py; the port tiles the grid
-encoders with it.
+encoders, the DPs' encryption and the range proofs' commit stage with
+it.
 """
 from __future__ import annotations
 
@@ -106,5 +107,16 @@ def plan_tiles(n: int, tile: int | None = None) -> TilePlan:
     return TilePlan(n=n, tile=int(tile), tiles=tuple(out))
 
 
+def proof_tile_shards(v: int, tile: int) -> int:
+    """Shard count that tiles a V-wide proof value axis at `tile`:
+    create_range_proofs runs its commit stage through
+    _commit_kernel_sharded with this count, so each per-tile dispatch is
+    bounded by the tile. 1 means no tiling."""
+    v, tile = int(v), int(tile)
+    if tile <= 0 or v <= tile:
+        return 1
+    return -(-v // tile)
+
+
 __all__ = ["DEFAULT_TILE", "TILE_THRESHOLD", "ENV_TILE", "TilePlan",
-           "plan_tiles", "auto_tile", "tile_width"]
+           "plan_tiles", "auto_tile", "tile_width", "proof_tile_shards"]

@@ -20,10 +20,12 @@ batched add over both components. The shuffle proof lives in
 proofs/shuffle.py.
 
 Above CHUNK elements the precompute and the re-randomization run in
-CHUNK-wide slabs, one after another on the tensors' device (the reference
-dispatches them over its proof plane's devices, which is not ported). The
-permutation is drawn once and every per-element step is element-wise, so
-chunked output equals unchunked output byte for byte.
+CHUNK-wide slabs dispatched over the proof plane's shards
+(`proof_plane.dispatch_shards`: with the plane enabled slab i runs on
+`shard_device(i, <the caller's device>)`, else every slab on the caller's
+device, one after another; the slabs come back to the caller's device).
+The permutation is drawn once and every per-element step
+is element-wise, so chunked output equals unchunked output byte for byte.
 
 API convention: `FixedBase` objects stop at the encryption boundary
 (encrypt_noise, dro_pipeline); the shuffle/precompute layer takes raw
@@ -191,13 +193,26 @@ PRECOMPUTE_CALLS = 0
 _PRECOMPUTE_COUNT_LOCK = named_lock("precompute_count_lock")
 
 
-def _encrypt_zeros(r, pub_tbl, base_tbl, chunk):
+def _zeros(r, pub_tbl, base_tbl):
+    return torch.stack([eg.fixed_base_mul(base_tbl.to(r.device), r),
+                        eg.fixed_base_mul(pub_tbl.to(r.device), r)], dim=-3)
+
+
+def _encrypt_zeros(r, pub_tbl, base_tbl, chunk, phase: str):
     """Fresh zero-encryptions (r·B, r·P) for blinding scalars r (S, 16):
-    per slab, one fixed-base launch on each table."""
-    parts = [torch.stack([eg.fixed_base_mul(base_tbl, r[a:b]),
-                          eg.fixed_base_mul(pub_tbl, r[a:b])], dim=-3)
-             for a, b in _slabs(int(r.shape[0]), chunk)]
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    per slab, one fixed-base launch on each table, the slabs dispatched
+    over the proof plane under `phase`."""
+    from . import proof_plane as plane
+
+    slabs = _slabs(int(r.shape[0]), chunk)
+    if len(slabs) == 1:
+        return _zeros(r, pub_tbl, base_tbl)
+    spread = plane.enabled()
+    parts = plane.dispatch_shards(
+        phase, lambda i, rs: _zeros(rs, pub_tbl, base_tbl), slabs,
+        prefetch=lambda i, a, b: (
+            plane.put_shard(r[a:b], i, r.device) if spread else r[a:b],))
+    return torch.cat(parts)
 
 
 def precompute_rerandomization(pub_tbl, size: int, generator=None,
@@ -220,7 +235,7 @@ def precompute_rerandomization(pub_tbl, size: int, generator=None,
     dev = pub_tbl.device
     base_tbl = base_tbl if base_tbl is not None else eg.BASE_TABLE.table.to(dev)
     r = _draw_scalars(size, generator, dev) if r is None else r.to(dev)
-    return _encrypt_zeros(r, pub_tbl, base_tbl, chunk), r
+    return _encrypt_zeros(r, pub_tbl, base_tbl, chunk, "DROPrecompute"), r
 
 
 def save_precompute(path: str, precomp) -> None:
@@ -258,7 +273,7 @@ def shuffle_rerandomize(cts, pub_tbl, generator=None, base_tbl=None,
     else `r`, else `generator`.
 
     chunk (None = auto above CHUNK, 0 = force monolithic): gather and
-    re-randomize in `chunk`-wide slabs, one after another. The permutation
+    re-randomize in `chunk`-wide slabs over the proof plane. The permutation
     and scalars are the same either way and ct_add is element-wise, so
     chunked output equals unchunked output byte for byte."""
     _require_table(pub_tbl, "shuffle_rerandomize")
@@ -277,11 +292,20 @@ def shuffle_rerandomize(cts, pub_tbl, generator=None, base_tbl=None,
         base_tbl = (base_tbl if base_tbl is not None
                     else eg.BASE_TABLE.table.to(dev))
         r = _draw_scalars(S, generator, dev) if r is None else r.to(dev)
-        zero_ct = _encrypt_zeros(r, pub_tbl, base_tbl, chunk)
-    parts = [eg.ct_add(cts[perm[a:b]], zero_ct[a:b])
-             for a, b in _slabs(S, chunk)]
-    out = parts[0] if len(parts) == 1 else torch.cat(parts)
-    return out, perm, r
+        zero_ct = _encrypt_zeros(r, pub_tbl, base_tbl, chunk, "DRORerand")
+    slabs = _slabs(S, chunk)
+    if len(slabs) == 1:
+        return eg.ct_add(cts[perm], zero_ct), perm, r
+    from . import proof_plane as plane
+
+    # the exact global permutation: each slab gathers its own indices
+    spread = plane.enabled()
+    parts = plane.dispatch_shards(
+        "DROShuffle", lambda i, g, zc: eg.ct_add(g, zc), slabs,
+        prefetch=lambda i, a, b: plane.put_shard(
+            (cts[perm[a:b]], zero_ct[a:b]), i, dev) if spread
+        else (cts[perm[a:b]], zero_ct[a:b]))
+    return torch.cat(parts), perm, r
 
 
 def dro_pipeline(pub_tbl: eg.FixedBase, size: int, mean: float, b: float,

@@ -37,6 +37,11 @@ final exponentiation. A payload that fails to decode, or whose batch makes
 the verifier raise, fails for itself alone; a kernel that fails to build
 or launch (`cuda_build.KernelError`), memory that runs out or a CUDA
 error is a fault of the program or the card and propagates.
+
+Creation's commit stage runs over slices of the value axis when the proof
+plane is enabled or V passes the tile threshold (`_commit_kernel_sharded`),
+and the joint check's pairing work over the plane's shards
+(parallel/proof_mesh.py); both are byte-identical to one dispatch.
 """
 from __future__ import annotations
 
@@ -471,6 +476,40 @@ def _commit_kernel(digits, s, t, m, v, A_tab, ca_tbl, gtA_pow, u: int,
     return D, m_tot, V_pts, a
 
 
+def _commit_kernel_sharded(digits, s, t, m, v, A_tab, ca_tbl, gtA_pow,
+                           u: int, l: int, n_shards: int, spread: bool):
+    """The commitment stage over `n_shards` slices of the value axis, each
+    through `_commit_kernel`, gathered once before the Fiat-Shamir hash to
+    the device of `digits`. spread: shard i runs on the proof plane's
+    `shard_device(i, digits.device)`; else every slice (a tile) stays on
+    the device of `digits`. Byte-identical to one `_commit_kernel` call:
+    every value's commitments are its own, and the shards see the slices
+    of the full-size draws. The signature window tables are built once by
+    the caller and shared by every shard."""
+    from ..parallel import proof_plane as plane
+
+    slices = plane.shard_slices(int(digits.shape[0]), n_shards)
+    if len(slices) <= 1:
+        return _commit_kernel(digits, s, t, m, v, A_tab, ca_tbl, gtA_pow, u,
+                              l)
+
+    def stage(i, a, b):
+        part = (digits[a:b], s[a:b], t[a:b], m[a:b], v[:, a:b])
+        return plane.put_shard(part, i, digits.device) if spread else part
+
+    def commit(i, sd, ss, st, sm, sv):
+        dev = sd.device
+        return _commit_kernel(sd, ss, st, sm, sv, A_tab.to(dev),
+                              ca_tbl.to(dev), gtA_pow.to(dev), u, l)
+
+    parts = plane.dispatch_shards("CreateShard", commit, slices,
+                                  prefetch=stage)
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]),
+            torch.cat([p[2] for p in parts], dim=1),
+            torch.cat([p[3] for p in parts], dim=1))
+
+
 def _response_kernel(digits, c, rs, s, t, m_tot, v):
     """Given the bound challenge c: Zphi_j = s_j - c digit_j,
     Zr = sum m - c r, Zv_ij = t_j - c v_ij."""
@@ -485,7 +524,8 @@ def _response_kernel(digits, c, rs, s, t, m_tot, v):
 def create_range_proofs(secrets, rs, cts, sigs: list[RangeSig], u: int,
                         l: int, ca_pub_table,
                         generator: Optional[torch.Generator] = None,
-                        draws=None) -> RangeProofBatch:
+                        draws=None, tile: Optional[int] = None,
+                        n_shards: Optional[int] = None) -> RangeProofBatch:
     """Proofs for V values at once, on the device of `cts`.
 
     secrets: int64 (V,) plaintexts in [0, u^l); rs: (V, 16) their
@@ -493,7 +533,21 @@ def create_range_proofs(secrets, rs, cts, sigs: list[RangeSig], u: int,
     the collective key, whose fixed-base table is ca_pub_table. The
     randomness s, t, m (V, l, 16) and v (ns, V, l, 16) is drawn from
     `generator` in that order, or given as `draws`.
+
+    n_shards: the proof plane's shard count (None: `proof_plane.n_shards()`,
+    the visible CUDA devices); above 1 the commitment stage is split along
+    the value axis over that many shards, shard i on the plane's
+    `shard_device(i, cts.device)`. tile: bound every commit-stage dispatch
+    by `tile` values (None: `tiles.auto_tile(V)`, tiling above the
+    threshold; 0: never); tiles alone stay on the device of `cts`. The
+    dispatch count is the larger of the two. The draws are made
+    at full size before any split and the challenge is hashed per value
+    over the gathered commitments, so the transcripts are byte-identical
+    to the monolithic ones.
     """
+    from ..encoding import tiles
+    from ..parallel import proof_plane as plane
+
     dev = cts.device
     secrets = np.asarray(torch.as_tensor(secrets).cpu())
     V, ns = secrets.shape[0], len(sigs)
@@ -505,9 +559,13 @@ def create_range_proofs(secrets, rs, cts, sigs: list[RangeSig], u: int,
                  for shape in ((V, l), (V, l), (V, l), (ns, V, l))]
     s, t, m, v = (d.to(dev) for d in draws)
     A_tab = torch.stack([sg.A for sg in sigs]).to(dev)
-    D, m_tot, V_pts, a = _commit_kernel(
+    n_plane = plane.n_shards() if n_shards is None else n_shards
+    if tile is None:
+        tile = tiles.auto_tile(V)
+    k = max(n_plane, tiles.proof_tile_shards(V, tile) if tile else 1)
+    D, m_tot, V_pts, a = _commit_kernel_sharded(
         digits, s, t, m, v, A_tab, ca_pub_table,
-        sig_gt_pow_tables(sigs, dev), u, l)
+        sig_gt_pow_tables(sigs, dev), u, l, k, spread=n_plane > 1)
     # commit -> Fiat-Shamir over the canonical bytes -> respond; the bytes
     # are the wire format too
     wire = _range_wire_dict(cts, D, V_pts, a)
@@ -574,10 +632,12 @@ def group_ranges(ranges) -> dict:
 def create_range_proof_list(secrets, rs, cts, ranges, sigs_by_u: dict,
                             ca_pub_table,
                             generator: Optional[torch.Generator] = None,
-                            draws: Optional[dict] = None) -> RangeProofList:
+                            draws: Optional[dict] = None,
+                            tile: Optional[int] = None) -> RangeProofList:
     """The mixed-range payload of one value vector. ranges: [(u, l)] per
     value; sigs_by_u: {u: [RangeSig per CN]}; draws: {(u, l): (s, t, m, v)}
-    to inject each spec's randomness instead of drawing it."""
+    to inject each spec's randomness instead of drawing it; tile: forwarded
+    to create_range_proofs (None: tiled above the threshold)."""
     secrets = torch.as_tensor(secrets)
     batches = []
     for spec, idx in group_ranges(ranges).items():
@@ -586,7 +646,7 @@ def create_range_proof_list(secrets, rs, cts, ranges, sigs_by_u: dict,
         pb = create_range_proofs(
             secrets[torch.from_numpy(ia).to(secrets.device)], rs[sel],
             cts[sel], sigs_by_u[spec[0]], spec[0], spec[1], ca_pub_table,
-            generator, None if draws is None else draws[spec])
+            generator, None if draws is None else draws[spec], tile=tile)
         batches.append((ia, pb))
     return RangeProofList(n_values=len(ranges), batches=batches)
 
@@ -605,17 +665,19 @@ def _slice_batch(pb: RangeProofBatch, sel: np.ndarray) -> RangeProofBatch:
 
 def create_range_proof_lists_batched(secrets_2d, rs_2d, cts_2d, ranges,
                                      sigs_by_u: dict, ca_pub_table,
-                                     generator=None, draws=None) -> list:
+                                     generator=None, draws=None,
+                                     tile: Optional[int] = None) -> list:
     """All DPs' payloads in one device-batched creation: secrets_2d
     (n_dps, V), rs_2d (n_dps, V, 16), cts_2d (n_dps, V, 2, 3, 16), ranges
     per value (shared by every DP). Returns one RangeProofList per DP, the
-    same bytes as per-DP creation (each value's transcript is its own)."""
+    same bytes as per-DP creation (each value's transcript is its own).
+    tile: forwarded to create_range_proofs over the n_dps * V values."""
     secrets_2d = torch.as_tensor(secrets_2d)
     n_dps, V = secrets_2d.shape
     big = create_range_proof_list(
         secrets_2d.reshape(-1), rs_2d.reshape(-1, NUM_LIMBS),
         cts_2d.reshape(-1, 2, 3, NUM_LIMBS), list(ranges) * n_dps, sigs_by_u,
-        ca_pub_table, generator, draws)
+        ca_pub_table, generator, draws, tile=tile)
     out = []
     for d in range(n_dps):
         batches = []
@@ -801,20 +863,52 @@ def _list_structure_ok(lst: RangeProofList, ranges,
     return set(covered) == {i for idx in want.values() for i in idx}
 
 
+# Batches the sharded verifier raised on (not a fault) that the
+# single-device verifier then judged: each is a fault of the sharded path,
+# logged, and the verdict is the single-device one
+SHARDED_FALLBACKS = 0
+_FALLBACK_LOCK = threading.Lock()
+
+
 def _safe_batch_verify(pb: RangeProofBatch, sigs_pub, ca_pub_table) -> bool:
-    """One batch's RLC verdict, with containment: a payload that makes the
-    verifier raise fails for itself (False), never for its neighbours. A
-    fault of the program or the card (`cuda_build.is_fault`) is not a
-    verdict on the payload and propagates. (The reference's routing to a
-    sharded verifier on a multi-device plane is not ported.)"""
+    """One batch's RLC verdict, routed and contained. With the proof plane
+    enabled the batch goes to the sharded verifier
+    (`proof_mesh.rlc_verify_sharded`), whose verdict equals the
+    single-device one; if it raises something that is not a fault, the
+    single-device verifier checks the batch, and only when that one does
+    not raise too is the batch counted in SHARDED_FALLBACKS and logged (a
+    malformed batch raises in both and is rejected, not counted). A
+    payload that makes the verifier raise fails for itself (False), never
+    for its neighbours. A fault of the program or the card
+    (`cuda_build.is_fault`) is not a verdict on the payload and propagates
+    from either verifier."""
+    global SHARDED_FALLBACKS
+    from ..parallel import proof_plane as plane
+
+    sharded_exc = None
     try:
-        return verify_range_proofs_batch(pb, sigs_pub, ca_pub_table)
+        if plane.enabled():
+            from ..parallel import proof_mesh as pm
+
+            try:
+                return pm.rlc_verify_sharded(pb, sigs_pub, ca_pub_table)
+            except Exception as e:
+                if is_fault(e, ca_pub_table.device):
+                    raise
+                sharded_exc = e
+        ok = verify_range_proofs_batch(pb, sigs_pub, ca_pub_table)
     except Exception as e:
         if is_fault(e, ca_pub_table.device):
             raise
         log.warning("range batch verify raised (payload rejected)",
                     exc_info=True)
         return False
+    if sharded_exc is not None:
+        with _FALLBACK_LOCK:
+            SHARDED_FALLBACKS += 1
+        log.warning("sharded range verify raised on a batch the single "
+                    "device judged", exc_info=sharded_exc)
+    return ok
 
 
 def verify_range_proof_list(lst: RangeProofList, ranges,

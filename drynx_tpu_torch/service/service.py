@@ -88,6 +88,7 @@ from .. import pool as pool_mod
 from ..crypto import curve as C
 from ..crypto import elgamal as eg
 from ..encoding import stats as st
+from ..encoding import tiles
 from ..models import logreg as lr
 from ..parallel import collective as col
 from ..parallel import dro
@@ -139,6 +140,22 @@ def signed_offset(stats: torch.Tensor, ranges) -> int:
         raise ValueError("log-reg encoding exceeds the range proof "
                          f"bound u^l/2 = {offset}")
     return offset
+
+
+def encrypt_tiled(base_table, pub_tbl, stats, enc_rs):
+    """The DPs' encryption of stats (n_dps, V) with blinding enc_rs
+    (n_dps, V, 16), one dispatch per tile of `tiles.plan_tiles(V,
+    auto_tile(V))` along the value axis above the threshold, else one
+    (reference service.py:764-775). enc_rs is drawn at full size and
+    sliced, and the encryption is element-wise, so the tiled ciphertexts
+    equal one dispatch's byte for byte."""
+    V = int(stats.shape[-1])
+    tile = tiles.auto_tile(V)
+    if not tile:
+        return eg.encrypt_ints_with_tables(base_table, pub_tbl, stats, enc_rs)
+    return torch.cat([eg.encrypt_ints_with_tables(
+        base_table, pub_tbl, stats[..., a:b], enc_rs[..., a:b, :])
+        for a, b in tiles.plan_tiles(V, tile).tiles], dim=-4)
 
 
 def collect_with_range_proofs(dp_stats, enc_rs, ranges, sigs_by_u: dict,
@@ -828,9 +845,8 @@ class LocalCluster:
         (enc_rs, range_draws, ks_rs, ks_draws, obf_draws,
          dro_draws) = self._draw(gen, n_dps, V, ranges_v, proofs_on,
                                  q.obfuscation, n_noise)
-        cts = eg.encrypt_ints_with_tables(self.base_table,
-                                          self.coll_tbl.table, dp_stats,
-                                          enc_rs)           # (n_dps, V, 2,3,16)
+        cts = encrypt_tiled(self.base_table, self.coll_tbl.table, dp_stats,
+                            enc_rs)                 # (n_dps, V, 2,3,16)
         _sync(dev)
         if self.link.active:
             # the DPs upload on independent links at once: one delay and

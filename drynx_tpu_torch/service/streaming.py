@@ -67,7 +67,7 @@ from ..resilience import policy as pol
 from ..utils import log
 from ..utils.timers import PhaseTimers
 from . import topology as topo
-from .service import Survey, _once, _sync
+from .service import Survey, _once, _sync, encrypt_tiled
 from .store import pane_key
 
 # Encodings whose window statistic is the exact sum of the panes'
@@ -249,8 +249,8 @@ class StreamEngine:
         with cluster._proof_device_lock:
             enc_rs = eg.random_scalars(stats.shape, self._generator(_ENC, pid),
                                        cluster.device)
-            cts = eg.encrypt_ints_with_tables(
-                cluster.base_table, cluster.coll_tbl.table, stats, enc_rs)
+            cts = encrypt_tiled(cluster.base_table, cluster.coll_tbl.table,
+                                stats, enc_rs)
             fold = topo.fold_cts(cts)
         blobs: dict = {}
         reused = False
