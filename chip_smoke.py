@@ -107,8 +107,9 @@ Phases (any failed check exits non-zero; nothing is caught):
      (the TIFS diffPri.py's first non-zero size, SURVEY.md:434), through
      `LocalCluster.run_survey`, counted as above: (a) with fresh
      precomputation, a first run, then a same-seed run with an equal
-     transcript, timed as the warm run; (b) after `prewarm_dro`, a first
-     run and a warm run, the precompute
+     transcript, timed as the warm run; (b) after `prewarm_dro` for one
+     survey, one run (the cluster warm; one prewarmed run, not two, to
+     keep the script in its time limit), the precompute
      counter flat and every precompute file deleted; (c) once through a
      `CryptoPool` filled by `replenish.refill_to`, whose slabs the survey
      consumes. Each run: the final shuffled noise list, decrypted with the
@@ -154,8 +155,8 @@ Phases (any failed check exits non-zero; nothing is caught):
      Print the flush's time beside the surveys' VerifyRange.
   12. Run the stream of scripts/bench_stream.py's headline through
      `service.streaming.StreamEngine` (2 CNs, 2 DPs, 2 VNs, frequency_count
-     over [0, 15], ranges (16, 4), 12,500-row panes, a window of 16, a
-     third of the headline's 48, for the script's time limit):
+     over [0, 15], ranges (16, 4), 12,500-row panes, a window of 8, a
+     sixth of the headline's 48, for the script's time limit):
      fill the window, advance by 1 pane and by 2, each counted: the result
      equal to the clear counts, the delta window's bytes equal to a
      from-scratch fold of its panes, a 1-pane advance making and checking
@@ -261,6 +262,27 @@ Phases (any failed check exits non-zero; nothing is caught):
      client_run-lr-survey-proofs as bash processes with every server on
      the card: each OK, the LR weights within 1e-9 of the clear-text
      twin with a clean bitmap.
+  17. The static analyzer's runtime cross-checks
+     (`drynx_tpu_torch.analysis.crosscheck`), five processes at once after
+     16d, each a fresh interpreter whose first import is drynx_tpu_torch:
+     (a) under DRYNX_LOCK_TRACE=1, a 2-worker pipelined `SurveyServer`
+     over LocalCluster(1 CN, 2 DPs, 0 VNs, seed 23) takes a burst of 8
+     proofs-off sums (queue 4, shedding at half): something shed and
+     something completed, the observed named-lock edges within the static
+     lock-order graph of drynx_tpu_torch/, B1-B5 launched; (b) under
+     DRYNX_DET_TRACE=1, twice: a proofs-on sum (ranges (4, 2)) through
+     `SurveyServer(max_batch=1)` over LocalCluster(2 CNs, 2 DPs, 2 VNs,
+     seed 13), its transcript, a ProofDB pane put and an epsilon charge:
+     transcript, journal and pane keys written, laundered keys seen, no
+     key's write multiset differing between the runs but the skipchain's
+     blocks, the runs' launches and rows equal; (c) under
+     DRYNX_PROTO_TRACE=1, three slab refills on the card, consume_dro(10),
+     a second store over the root, the checkpoint's cycles and a ConnPool
+     echo conversation: no lifecycle the automata reject, at least 3
+     kinds, 20 events, 3 slabs, 8 conns and 2 checkpoints, B1 launched;
+     (d) `python -m drynx_tpu_torch.analysis` over the shipped tree exits
+     0. Each one's seconds are printed beside the card's name and power
+     limit.
   Phases 7-12 warm their clusters' kernels in their first proofs-on
   survey (`LocalCluster._warm_kernels`), whose PrecompileTraceExec
   is printed beside its time; the warm-up's launches are its own
@@ -271,9 +293,9 @@ Phases (any failed check exits non-zero; nothing is caught):
   and bounds as one JSON line, the card's name and power limit, and the
   contract line {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --only 10a,10b,11,12,13,14a,14b,14c,15a,15b,16a,16b,16c,16d
+    python3 chip_smoke.py --only 10a,10b,11,12,13,14a,14b,14c,15a,15b,16a,16b,16c,16d,17
 
-builds the kernels and runs only the named phases of 10-16 (no JSON line;
+builds the kernels and runs only the named phases of 10-17 (no JSON line;
 16c then makes phases 3 and 5's survey, signatures and payloads itself;
 14c then scores with GD's weights from the clear sums, and holds its kept
 calls itself when no phase of 10-12 runs; 15a holds its weights to GD's
@@ -461,12 +483,12 @@ GROUP_ROWS = 8192
 CUT, HELD = 4, 4
 # the stream: the headline of scripts/bench_stream.py:241-258, 2 CNs, 2 DPs,
 # 2 VNs, LocalCluster seed 7, dlog +-90,000, frequency_count over [0, 15],
-# ranges (16, 4), 12,500-row panes, a window of 16 (200,000 rows a DP; the
-# headline's 48 cut to a third to keep the script in its time limit), rows
-# from default_rng(3), engine seed 21; filled, then advanced by 1 pane and
-# by 2 (19 panes)
+# ranges (16, 4), 12,500-row panes, a window of 8 (100,000 rows a DP; the
+# headline's 48 cut to a sixth to keep the script in its time limit),
+# rows from default_rng(3), engine seed 21;
+# filled, then advanced by 1 pane and by 2 (11 panes)
 STREAM = dict(n_cns=2, n_dps=2, n_vns=2, seed=7, dlog=90_000, V=16,
-              ranges=(16, 4), pw=12_500, w=16, data_seed=3, engine_seed=21)
+              ranges=(16, 4), pw=12_500, w=8, data_seed=3, engine_seed=21)
 # the server and its load: the cluster of scripts/bench_load.py:389-430
 # (child_transcripts): 2 CNs, 2 DPs, 2 VNs, seed 13, dlog +-4,000, two
 # values a DP from default_rng(5) in [0, 4); proofs-on `sum` surveys over
@@ -1715,8 +1737,10 @@ def phase9(zero_launches, launch_counts):
 
     def report(tag, first, warm):
         wall, res, cpu = warm[0], warm[1], warm[5]
-        print(f"phase 9{tag}: first run {first:.3f} s; a warm run "
-              f"{wall:.4f} s; phase timers: " + phase_timers([res])
+        print(f"phase 9{tag}: " + ("" if first is None else
+                                   f"first run {first:.3f} s; ")
+              + f"a warm run {wall:.4f} s; phase timers: "
+              + phase_timers([res])
               + f"; CPU time: Schnorr {sign.calls} signs "
               f"{cpu['sign']:.4f} s + {check.calls} checks "
               f"{cpu['check']:.4f} s ({100 * (cpu['sign'] + cpu['check']) / wall:.1f}"
@@ -1845,24 +1869,23 @@ def phase9(zero_launches, launch_counts):
         # (b) after prewarm_dro: the phase only permutes and adds
         with tempfile.TemporaryDirectory(prefix="drynx_precomp_") as d:
             t0 = time.perf_counter()
-            cluster.prewarm_dro(NOISE_SIZE, n_surveys=2, cache_dir=d)
+            cluster.prewarm_dro(NOISE_SIZE, n_surveys=1, cache_dir=d)
             torch.cuda.synchronize()
             prewarm_s = time.perf_counter() - t0
             calls = dro.PRECOMPUTE_CALLS
-            first_b, _, launches_b, *_ = run(cluster, sq)
-            if launches_b != want[False]:
-                raise SystemExit(f"prewarmed noised sum launches "
-                                 f"{launches_b} differ from {want[False]}")
             warm_b = run(cluster, sq)
+            if warm_b[2] != want[False]:
+                raise SystemExit(f"prewarmed noised sum launches "
+                                 f"{warm_b[2]} differ from {want[False]}")
             left = glob.glob(os.path.join(d, "precomp_*.npz"))
             if dro.PRECOMPUTE_CALLS != calls or left:
                 extra = dro.PRECOMPUTE_CALLS - calls
                 raise SystemExit(f"after prewarm_dro: {extra} fresh "
                                  f"precomputations, {len(left)} files left")
-        print(f"phase 9b: prewarm_dro({NOISE_SIZE}, 2 surveys) "
+        print(f"phase 9b: prewarm_dro({NOISE_SIZE}, 1 survey) "
               f"{prewarm_s:.3f} s; no fresh precomputation, every "
               f"precompute file deleted", flush=True)
-        report("b", first_b, warm_b)
+        report("b", None, warm_b)
         cluster.close()
 
         # (c) once through a CryptoPool filled by replenish.refill_to
@@ -4005,6 +4028,101 @@ def run_16abc(new, ctx, zero_launches, launch_counts, start, names):
               f"its launches {new[name][0]}", flush=True)
 
 
+def phase17():
+    """The runtime recorders' cross-checks on the card and the static
+    analyzer (`drynx_tpu_torch.analysis.crosscheck`): 17a the lock-order
+    child, 17b the same-seed bytes child twice, 17c the lifecycle child,
+    each a fresh interpreter whose first import is drynx_tpu_torch, with
+    its recorder armed, on cuda; 17d `python -m drynx_tpu_torch.analysis`
+    over the tree that was shipped. All five processes run at once; each
+    one's seconds are from the phase's start to its exit. Returns the
+    children's launches, summed."""
+    import os
+    import tempfile
+
+    from drynx_tpu_torch.analysis import crosscheck
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    children = (("17a", "locks"), ("17b run 1", "bytes"),
+                ("17b run 2", "bytes"), ("17c", "lifecycles"))
+    procs, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="drynx_p17_") as d:
+        files = {key: open(os.path.join(d, key), "w+")
+                 for key, _ in children + (("17d", None),)}
+        t0 = time.perf_counter()
+        try:
+            for key, which in children:
+                procs[key] = crosscheck.spawn(which, "cuda",
+                                              stdout=files[key])
+            procs["17d"] = subprocess.Popen(
+                [sys.executable, "-m", "drynx_tpu_torch.analysis"],
+                cwd=root, stdout=files["17d"], stderr=subprocess.STDOUT)
+            static = crosscheck.static_lock_edges()
+            while len(secs) < len(procs):
+                for key, proc in procs.items():
+                    if key not in secs and proc.poll() is not None:
+                        secs[key] = time.perf_counter() - t0
+                time.sleep(0.05)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        texts = {}
+        for key, f in files.items():
+            f.seek(0)
+            texts[key] = f.read()
+            f.close()
+    for key, proc in procs.items():
+        if proc.returncode != 0:
+            raise SystemExit(f"phase {key} exited {proc.returncode}:\n"
+                             f"{texts[key][-4000:]}")
+    out = {key: json.loads(texts[key].strip().splitlines()[-1])
+           for key, _ in children}
+    card = smi("name,power.limit")
+    a = out["17a"]
+    bad = crosscheck.check_locks(a, static)
+    g1 = ("fixed_base_mul", "scalar_mul", "point_reduce", "fp_inv",
+          "point_add")
+    if any(a["launches"].get(k, 0) == 0 for k in g1):
+        bad.append(f"the server drain's B1-B5 launches {a['launches']}")
+    if bad:
+        raise SystemExit(f"phase 17a: {bad}")
+    print(f"phase 17a ({secs['17a']:.1f} s; {card}): a 2-worker server "
+          f"drain of {crosscheck.LOCKS_BURST} sums, {a['shed']} shed, {a['completed']} "
+          f"completed, {a['acquires']} traced acquisitions; observed "
+          f"named-lock edges {a['edges']} within the static graph's "
+          f"{sorted(static)}; launches {a['launches']}", flush=True)
+    b1, b2 = out["17b run 1"], out["17b run 2"]
+    bad = crosscheck.check_bytes(b1, b2)
+    if bad:
+        raise SystemExit(f"phase 17b: {bad}")
+    snap = b1["snapshot"]
+    print(f"phase 17b ({secs['17b run 1']:.1f} s and "
+          f"{secs['17b run 2']:.1f} s; {card}): two same-seed proofs-on "
+          f"sums, {snap['writes']} writes at {len(snap['records'])} keys "
+          f"({len(snap['laundered'])} laundered), no divergence outside "
+          f"{crosscheck.BYTES_EXEMPT}; launches equal, {b1['launches']}",
+          flush=True)
+    c = out["17c"]
+    bad = crosscheck.check_lifecycles(c)
+    if c["launches"].get("fixed_base_mul", 0) == 0:
+        bad.append(f"the refills' launches {c['launches']}")
+    if bad:
+        raise SystemExit(f"phase 17c: {bad}")
+    from drynx_tpu_torch.analysis import prototrace
+    print(f"phase 17c ({secs['17c']:.1f} s; {card}): no violation; "
+          f"coverage {prototrace.coverage(c['snapshot'])}; the refills' "
+          f"launches {c['launches']}", flush=True)
+    print(f"phase 17d ({secs['17d']:.1f} s): python -m "
+          f"drynx_tpu_torch.analysis exit 0: "
+          f"{texts['17d'].strip().splitlines()[-1]}", flush=True)
+    launches = collections.Counter()
+    for o in out.values():
+        launches.update(o["launches"])
+    return launches, [max(secs.values())]
+
+
 def only_ctx(stats, enc_rs, ks_rs, setup, params, fn, need):
     """Phase 16c's inputs when phases 3-6 do not run: phase 3's survey,
     phase 5's signatures and payloads, phase 6's tampered copy."""
@@ -4089,7 +4207,7 @@ def main():
     print(f"setup: V={V} ciphertexts per DP, host keygen + tables "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if only is not None:
-        rest = [p for p in only if p not in ("13", "14b", "15a", "15b")
+        rest = [p for p in only if p not in ("13", "14b", "15a", "15b", "17")
                 and not p.startswith("16")]
         if rest:
             # without phase 7, its weights' stand-in for 14c: GD on the CPU
@@ -4123,6 +4241,11 @@ def main():
                 phase15b(cli)
             if scen is not None:
                 phase16d(scen)
+        if "17" in only:
+            t0 = time.perf_counter()
+            phase17()
+            print(f"phase 17: {time.perf_counter() - t0:.1f} s in all",
+                  flush=True)
         print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
         return 0
     base = eg.BASE_TABLE.table.to(dev)
@@ -5132,6 +5255,12 @@ def main():
         print(f"phase 16d: {time.perf_counter() - t0:.1f} s after 15b",
               flush=True)
 
+    # -- phase 17: the recorders' cross-checks and the analyzer ------------------
+    print(f"-- phase 17 at {time.perf_counter() - start:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    new["17"] = phase17()
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s in all", flush=True)
+
     kernels = []
     for name, tot in summary.items():
         source, replaces = meta[name]
@@ -5156,8 +5285,8 @@ def main():
           "noised sum's, the grouped and the cut survey's, the held batch's, "
           "the stream's 1-pane advance's, phase 13's server surveys and "
           "load, the degraded survey's, the resumed survey's, the "
-          "encrypted prediction's, the TCP survey's warm tree run and "
-          "phase 16a-c's)")
+          "encrypted prediction's, the TCP survey's warm tree run, "
+          "phase 16a-c's and phase 17's children's)")
     print(f"-- done at {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))

@@ -227,7 +227,8 @@ def _slot_constants(which: str, device: str) -> torch.Tensor:
         for _k in range(6):
             consts.append(cur)
             cur = refimpl.fp2_mul(cur, g)
-    return torch.stack([F2.from_ref(c) for c in consts]).to(device)
+    return torch.stack([F2.from_ref(c) for c in consts]).to(
+        device=device, dtype=torch.int32)
 
 
 def _conjugates(which: str) -> bool:

@@ -247,10 +247,10 @@ class DecryptionTable:
 
     def _set(self, limit, keys, xs, ysign, vals):
         self.limit = limit
-        self.keys = torch.as_tensor(np.asarray(keys).astype(np.int64))
-        self.xs = torch.as_tensor(np.asarray(xs).astype(np.int32))
-        self.ysign = torch.as_tensor(np.asarray(ysign).astype(np.int64))
-        self.vals = torch.as_tensor(np.asarray(vals).astype(np.int32))
+        self.keys = torch.as_tensor(np.asarray(keys), dtype=torch.int64)
+        self.xs = torch.as_tensor(np.asarray(xs), dtype=torch.int32)
+        self.ysign = torch.as_tensor(np.asarray(ysign), dtype=torch.int64)
+        self.vals = torch.as_tensor(np.asarray(vals), dtype=torch.int32)
 
     @classmethod
     def from_arrays(cls, keys, xs, ysign, vals) -> "DecryptionTable":

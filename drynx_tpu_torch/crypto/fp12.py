@@ -142,7 +142,7 @@ def _inv(f):
 
 # slots of the cyclotomic square's outputs: 3t - 2f_k for even k, 3t + 2f_k
 # for odd k
-_ODD_SLOT = torch.tensor([k % 2 == 1 for k in range(6)])
+_ODD_SLOT = torch.tensor([k % 2 == 1 for k in range(6)], dtype=torch.bool)
 
 
 def _csqr(f):

@@ -84,7 +84,8 @@ def gt_reduce_prod(x):
     return x[0]
 
 
-def gt_membership_ok(a) -> bool:
+# the membership and order checks return the host's verdict by design
+def gt_membership_ok(a) -> bool:  # drynx: noqa[host-sync-in-hot-path]
     """Every element of `a` lies in GPhi12(p): z^(p^4) z == z^(p^2), i.e.
     z^(p^4 - p^2 + 1) = 1. Outside GPhi12 the cyclotomic square computes an
     unrelated function, so wire values pass this before any cyclotomic
@@ -95,7 +96,7 @@ def gt_membership_ok(a) -> bool:
     return bool(F12.eq(lhs, z2).all())
 
 
-def gt_order_ok(a) -> bool:
+def gt_order_ok(a) -> bool:  # drynx: noqa[host-sync-in-hot-path]
     """Every element of `a` has order dividing n: with t - 1 = p - n,
     frob1(a) == a^(t-1) iff a^(p - (t-1)) = a^n = 1. GPhi12 has order n c
     with 13 | c, so membership alone would let a commit-first forger hide

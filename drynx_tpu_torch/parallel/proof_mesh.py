@@ -45,7 +45,9 @@ def _g1_prep(proof, sigs_pub, r_int):
     proofs."""
     from ..proofs import range_proof as rp
 
-    r = eg.int_to_scalar(torch.from_numpy(r_int).to(proof.zv.device))
+    # the weights are drawn on the host: one upload, not a round trip
+    r = eg.int_to_scalar(torch.from_numpy(  # drynx: noqa[host-roundtrip-in-decode]
+        r_int).to(proof.zv.device))
     # the weights are 62-bit, so their ladder runs 16 windows, not 64
     px, py, _ = C.normalize(C.scalar_mul_short(rp._g1_args(proof, sigs_pub),
                                                r, 64))
@@ -112,7 +114,8 @@ def rlc_total_sharded(mesh, proof, sigs_pub, r_int, gtb_pow_s):
     return _finish(m_all[0], a_all[0].to(m_all[0].device), gtb_pow_s)
 
 
-def rlc_verify_sharded(proof, sigs_pub, ca_pub_table,
+# returns the host's verdict by design
+def rlc_verify_sharded(proof, sigs_pub, ca_pub_table,  # drynx: noqa[host-sync-in-hot-path]
                        rng: Optional[np.random.Generator] = None, *,
                        n_shards: Optional[int] = None) -> bool:
     """One verdict for a RangeProofBatch with its pairing work sharded

@@ -166,7 +166,8 @@ def dispatch_shards(phase: str, fn, shard_args: list, prefetch=None) -> list:
     compute). Results are gathered to the lead device, the one shard 0's
     result lies on (`put_shard` places shard 0 on its batch's lead)."""
     n = len(shard_args)
-    outs, t0s, devs = [], [], set()
+    outs, t0s = [], []
+    devs = set()
     nxt = prefetch(0, *shard_args[0]) if (prefetch and n) else None
     for i, args in enumerate(shard_args):
         cur = nxt if prefetch else args
@@ -185,8 +186,9 @@ def dispatch_shards(phase: str, fn, shard_args: list, prefetch=None) -> list:
             SHARD_TIMERS.add_split(f"{phase}.upload", "host_glue",
                                    time.perf_counter() - tp)
     tb = time.perf_counter()
+    # the batch's one barrier, by design
     for d in sorted(devs, key=lambda d: d.index):
-        torch.cuda.synchronize(d)
+        torch.cuda.synchronize(d)  # drynx: noqa[host-sync-in-hot-path]
     tend = time.perf_counter()
     SHARD_TIMERS.add_split(f"{phase}.block", "device_compute", tend - tb)
     for i in range(n):

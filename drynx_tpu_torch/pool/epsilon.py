@@ -41,6 +41,9 @@ import os
 from ..resilience.policy import named_lock
 from .store import PoolError
 
+# the runtime determinism recorder (analysis/dettrace.py): every line
+_DET_TRACE = os.environ.get("DRYNX_DET_TRACE", "0") == "1"
+
 class EpsilonExhausted(PoolError):
     """A charge would push a (DP, cohort) past its epsilon budget.
 
@@ -103,6 +106,11 @@ class EpsilonLedger:
 
     def _ledger_append(self, ev: dict) -> None:
         line = json.dumps(ev, sort_keys=True)
+        if _DET_TRACE:
+            # laundered: sort_keys canonicalizes the record bytes
+            from ..analysis import dettrace
+            dettrace.record("epsilon.journal", line, line.encode(),
+                            laundered=True)
         with self._lock:
             with open(self._ledger_path, "a", encoding="utf-8") as f:
                 f.write(line + "\n")

@@ -65,6 +65,11 @@ import numpy as np
 
 from ..resilience.policy import named_lock
 
+# The runtime recorders (analysis/dettrace.py, analysis/prototrace.py):
+# every journal line and every write, slab and journal lifecycle event
+_DET_TRACE = os.environ.get("DRYNX_DET_TRACE", "0") == "1"
+_PROTO_TRACE = os.environ.get("DRYNX_PROTO_TRACE", "0") == "1"
+
 
 def mmap_enabled() -> bool:
     """``DRYNX_POOL_MMAP=off`` switches back to eager slab / sig-table
@@ -149,9 +154,10 @@ def key_digest(table) -> str:
     re-randomization (the ciphertexts would no longer decrypt to the
     survey's plaintexts). Content-addressing by the key table makes the
     mixup structurally impossible."""
+    # a digest of the key table is a host value: one readback by design
     if hasattr(table, "detach"):
-        table = table.detach().cpu().numpy()
-    a = np.ascontiguousarray(np.asarray(table).astype(np.uint32))
+        table = table.detach().cpu().numpy()  # drynx: noqa[host-sync-in-hot-path]
+    a = np.ascontiguousarray(np.asarray(table).astype(np.uint32))  # drynx: noqa[host-sync-in-hot-path]
     return hashlib.sha256(a.tobytes()).hexdigest()[:16]
 
 
@@ -174,11 +180,24 @@ def _atomic_write_npz(path: str, **arrays) -> None:
     FileNotFoundError under the DP dispatch fan-out). Distinct tmps make
     concurrent same-digest writes last-writer-wins over identical bytes."""
     tmp = f"{path}.{secrets.token_hex(8)}.tmp"
+    inst = None
+    if _PROTO_TRACE:
+        from ..analysis import prototrace
+        inst = prototrace.new_instance("atomic")
+        prototrace.record(inst, "open")
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
+        if inst:
+            prototrace.record(inst, "write")
         f.flush()
         os.fsync(f.fileno())
+        if inst:
+            prototrace.record(inst, "fsync")
+    if inst:
+        prototrace.record(inst, "close")
     os.replace(tmp, path)
+    if inst:
+        prototrace.record(inst, "rename")
     _fsync_dir(os.path.dirname(path))
 
 
@@ -234,11 +253,21 @@ class CryptoPool:
 
     def _ledger_append(self, ev: dict) -> None:
         line = json.dumps(ev, sort_keys=True)
+        if _DET_TRACE:
+            # laundered: sort_keys canonicalizes the record bytes
+            from ..analysis import dettrace
+            dettrace.record("pool.journal", line, line.encode(),
+                            laundered=True)
         with self._lock:
             with open(self._ledger_path, "a", encoding="utf-8") as f:
                 f.write(line + "\n")
                 f.flush()
                 os.fsync(f.fileno())
+            if _PROTO_TRACE:
+                from ..analysis import prototrace
+                inst = prototrace.new_instance("journal")
+                prototrace.record(inst, "append")
+                prototrace.record(inst, "fsync")
 
     # -- crash recovery ----------------------------------------------------
 
@@ -311,9 +340,16 @@ class CryptoPool:
             # removes a live slab file
             raise DoubleConsumption(
                 f"slab {sid} claimed concurrently") from None
+        inst = None
+        if _PROTO_TRACE:
+            from ..analysis import prototrace
+            inst = prototrace.new_instance("slab")
+            prototrace.record(inst, "claim")
         self._ledger_append({"ev": "consume", "slab": sid,
                              "digest": digest,
                              "elems": _slab_elems(path)})
+        if inst:
+            prototrace.record(inst, "journal")
         with self._lock:
             self._consumed.add(sid)
             self.counters["consumed"] += 1
@@ -327,7 +363,11 @@ class CryptoPool:
         else:
             with np.load(claimed) as d:
                 out = (d["zero_ct"].copy(), d["r"].copy())
+        if inst:
+            prototrace.record(inst, "read")
         os.unlink(claimed)
+        if inst:
+            prototrace.record(inst, "unlink")
         return out
 
     def consume_slab(self, digest: str, slab_id: str):

@@ -103,7 +103,10 @@ def init_range_sig(u: int, rng: np.random.Generator) -> RangeSig:
     pts = [G2.from_ref(refimpl.g2_mul(
         refimpl.G2, pow((x + k) % params.N, params.N - 2, params.N)))
         for k in range(u)]
-    return RangeSig(secret=x, public=pub, A=torch.stack(pts))
+    # the signatures are the range proofs' public table ((x + k)^-1 B2
+    # hides x as a public key does), and nothing reads the signer's x, kept
+    # as the reference keeps it: the set is public
+    return RangeSig(secret=x, public=pub, A=torch.stack(pts))  # drynx: declassify[secret]
 
 
 def to_base(n, b: int, l: int) -> np.ndarray:
@@ -549,7 +552,7 @@ def create_range_proofs(secrets, rs, cts, sigs: list[RangeSig], u: int,
     from ..parallel import proof_plane as plane
 
     dev = cts.device
-    secrets = np.asarray(torch.as_tensor(secrets).cpu())
+    secrets = np.asarray(torch.as_tensor(secrets, dtype=torch.int64).cpu())
     V, ns = secrets.shape[0], len(sigs)
     digits = torch.from_numpy(to_base(secrets, u, l)).to(dev, torch.int64)
     if draws is None:
@@ -638,7 +641,7 @@ def create_range_proof_list(secrets, rs, cts, ranges, sigs_by_u: dict,
     value; sigs_by_u: {u: [RangeSig per CN]}; draws: {(u, l): (s, t, m, v)}
     to inject each spec's randomness instead of drawing it; tile: forwarded
     to create_range_proofs (None: tiled above the threshold)."""
-    secrets = torch.as_tensor(secrets)
+    secrets = torch.as_tensor(secrets, dtype=torch.int64)
     batches = []
     for spec, idx in group_ranges(ranges).items():
         ia = np.asarray(idx, dtype=np.int64)
@@ -672,7 +675,7 @@ def create_range_proof_lists_batched(secrets_2d, rs_2d, cts_2d, ranges,
     per value (shared by every DP). Returns one RangeProofList per DP, the
     same bytes as per-DP creation (each value's transcript is its own).
     tile: forwarded to create_range_proofs over the n_dps * V values."""
-    secrets_2d = torch.as_tensor(secrets_2d)
+    secrets_2d = torch.as_tensor(secrets_2d, dtype=torch.int64)
     n_dps, V = secrets_2d.shape
     big = create_range_proof_list(
         secrets_2d.reshape(-1), rs_2d.reshape(-1, NUM_LIMBS),

@@ -10,6 +10,10 @@ wall-clock and deliberately excluded.)
 from __future__ import annotations
 
 import hashlib
+import os
+
+# the runtime determinism recorder (analysis/dettrace.py): every transcript
+_DET_TRACE = os.environ.get("DRYNX_DET_TRACE", "0") == "1"
 
 
 def survey_transcript(vns, survey_id: str) -> bytes:
@@ -20,7 +24,13 @@ def survey_transcript(vns, survey_id: str) -> bytes:
         for key, code in sorted(vn.bitmap_for(survey_id).items()):
             digest = hashlib.sha256(stored.get(key, b"")).hexdigest()
             lines.append(f"{vn.name} {key} {digest} {code}")
-    return ("\n".join(lines) + "\n").encode()
+    blob = ("\n".join(lines) + "\n").encode()
+    if _DET_TRACE:
+        # laundered: line order is sorted per VN over a roster-order
+        # VN walk, so two same-seed runs must byte-match exactly
+        from ..analysis import dettrace
+        dettrace.record("transcript", survey_id, blob, laundered=True)
+    return blob
 
 
 def transcript_digest(vns, survey_id: str) -> str:

@@ -362,9 +362,12 @@ class DrynxNode:
             if ctx is None:
                 return False
             proof, in_cts, out_cts = safe_loads(data)
+            # the lists come unpickled on the host: one upload each
             return shuffle_proof.verify_shuffle(
-                proof, torch.from_numpy(np.asarray(in_cts, np.int32)).to(dev),
-                torch.from_numpy(np.asarray(out_cts, np.int32)).to(dev),
+                proof, torch.from_numpy(  # drynx: noqa[host-roundtrip-in-decode]
+                    np.asarray(in_cts, np.int32)).to(dev),
+                torch.from_numpy(  # drynx: noqa[host-roundtrip-in-decode]
+                    np.asarray(out_cts, np.int32)).to(dev),
                 C.from_ref(ctx["coll_pub"]).to(dev))
 
         return {"range": vrange, "range_joint": vrange_joint,
@@ -723,9 +726,13 @@ class DrynxNode:
         u_pts = eg.fixed_base_mul(base_table(dev), rs)
         rQ = eg.fixed_base_mul(q_tbl.table, rs)
         xK = C.scalar_mul(K0, x.expand(V, -1))
-        w_pts = C.add(rQ, C.neg(xK))
+        # the switched component w = rQ - xK is ciphertext — a public
+        # protocol output even though the secret key went into it
+        w_pts = C.add(rQ, C.neg(xK))  # drynx: declassify[secret]
         if msg.get("proofs"):
-            pr = ks_proof.create_keyswitch_proofs(
+            # a ZK proof transcript (commitments + responses) is public
+            # by construction; x is an input, never serialized
+            pr = ks_proof.create_keyswitch_proofs(  # drynx: declassify[secret]
                 K0, x[None], rs[None], C.from_ref(client_pub).to(dev),
                 q_tbl.table, u_pts[None], w_pts[None], generator=gen)
             self._send_proof_async("keyswitch", msg["survey_id"],
@@ -1304,6 +1311,7 @@ class DrynxNode:
 
         vn.local_bitmaps[survey_id] = merged
         block = vn.chain.append(
+            # drynx: deterministic[sample_time is excluded from transcripts]
             DataBlock(survey_id=survey_id, sample_time=time.time(),
                       bitmap=merged))
         return {"block_index": block.index, "block_hash": block.hash(),
@@ -1609,8 +1617,9 @@ class RemoteClient:
         self.last_decrypted = dec = self._decrypt(
             _limbs(r["switched"], self.device), dlog)
         if op == "log_reg":
-            Ts = lr.unpack(torch.from_numpy(dec.values).to(self.device),
-                           lr_params)
+            # the discrete-log lookup returns host values: one upload
+            Ts = lr.unpack(torch.from_numpy(  # drynx: noqa[host-roundtrip-in-decode]
+                dec.values).to(self.device), lr_params)
             result = lr.train(Ts, lr_params).cpu().numpy()
         elif group_by:
             result = st.decode_grouped(op, dec, st.group_grid(group_by),

@@ -17,6 +17,16 @@ import os
 
 from ..resilience.policy import named_lock
 
+# DRYNX_DET_TRACE: hash every ProofDB write into the runtime determinism
+# recorder (analysis/dettrace.py); pane:/ckpt: blobs, skipchain blocks and
+# checkpoint persistence all land here.
+_DET_TRACE = os.environ.get("DRYNX_DET_TRACE", "0") == "1"
+
+# DRYNX_PROTO_TRACE: report SurveyCheckpoint lifecycle events
+# (ctor/load/enter/save) to the runtime protocol recorder
+# (analysis/prototrace.py).
+_PROTO_TRACE = os.environ.get("DRYNX_PROTO_TRACE", "0") == "1"
+
 
 class ProofDB:
     """Keyed byte store, last-write-wins, persistent across reopen."""
@@ -48,6 +58,10 @@ class ProofDB:
 
     def put(self, key: str | bytes, value: bytes) -> None:
         k = key.encode() if isinstance(key, str) else key
+        if _DET_TRACE:
+            from ..analysis import dettrace
+            dettrace.record("proofdb", k.decode("utf-8", "replace"),
+                            value)
         with self._lock:
             with open(self.path, "ab") as f:
                 f.write(len(k).to_bytes(4, "little")
@@ -101,9 +115,24 @@ class SurveyCheckpoint:
     phase_entries: dict = dataclasses.field(default_factory=dict)
     progress: dict = dataclasses.field(default_factory=dict)
 
+    def _proto_event(self, event: str) -> None:
+        """Report a lifecycle event to the runtime protocol recorder. The
+        token is minted at the first event, so the ``from_bytes`` that
+        :meth:`load` calls records no ``ctor`` before its ``load``."""
+        from ..analysis import prototrace
+        inst = getattr(self, "_proto_inst", None)
+        if inst is None:
+            inst = prototrace.new_instance("ckpt")
+            self._proto_inst = inst
+            if event != "load":
+                prototrace.record(inst, "ctor")
+        prototrace.record(inst, event)
+
     def enter(self, phase: str) -> "SurveyCheckpoint":
         """Record entry into a phase (idempotent re-entries increment
         the counter — that asymmetry is the resume evidence)."""
+        if _PROTO_TRACE:
+            self._proto_event("enter")
         self.phase = phase
         self.phase_entries[phase] = self.phase_entries.get(phase, 0) + 1
         return self
@@ -117,6 +146,8 @@ class SurveyCheckpoint:
         return cls(**json.loads(raw.decode()))
 
     def save(self, db: "ProofDB | None") -> None:
+        if _PROTO_TRACE:
+            self._proto_event("save")
         if db is not None:
             db.put(_CKPT_PREFIX + self.survey_id.encode(),
                    self.to_bytes())
@@ -127,7 +158,12 @@ class SurveyCheckpoint:
         if db is None:
             return None
         raw = db.get(_CKPT_PREFIX + survey_id.encode())
-        return cls.from_bytes(raw) if raw else None
+        if not raw:
+            return None
+        ck = cls.from_bytes(raw)
+        if _PROTO_TRACE:
+            ck._proto_event("load")
+        return ck
 
 
 __all__ = ["ProofDB", "SurveyCheckpoint", "pane_key"]

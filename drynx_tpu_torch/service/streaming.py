@@ -50,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import pickle
 import secrets
 from typing import Optional
@@ -69,6 +70,10 @@ from ..utils.timers import PhaseTimers
 from . import topology as topo
 from .service import Survey, _once, _sync, encrypt_tiled
 from .store import pane_key
+
+# DRYNX_PROTO_TRACE: report pane seal / proof-commit lifecycle events to
+# the runtime protocol recorder (analysis/prototrace.py).
+_PROTO_TRACE = os.environ.get("DRYNX_PROTO_TRACE", "0") == "1"
 
 # Encodings whose window statistic is the exact sum of the panes'
 # encodings, the precondition for subtracting an expired pane.
@@ -284,6 +289,9 @@ class StreamEngine:
             pane.block = self._deliver_pane_proofs(pane)
         self._panes.append(pane)
         self.counters["panes_sealed"] += 1
+        if _PROTO_TRACE:
+            from ..analysis import prototrace
+            prototrace.record(prototrace.new_instance("seal"), "seal")
         tm.end("PaneSeal")
         return pane
 
@@ -306,7 +314,12 @@ class StreamEngine:
                     "range", psid, d.name, f"range-{d.name}-p{pane.pane_id}",
                     0, pane.blobs[d.name], d.secret)
                 cluster.vns.deliver(req)
-        return cluster.vns.end_verification(psid, timeout=pol.VN_GROUP_WAIT_S)
+        block = cluster.vns.end_verification(psid,
+                                             timeout=pol.VN_GROUP_WAIT_S)
+        if _PROTO_TRACE:
+            from ..analysis import prototrace
+            prototrace.record(prototrace.new_instance("seal"), "commit")
+        return block
 
     # -- epsilon accounting ---------------------------------------------------
 

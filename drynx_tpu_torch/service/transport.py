@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import socket
 import socketserver
 import threading
@@ -64,6 +65,19 @@ from ..resilience import faults
 from ..resilience import policy as rp
 from ..utils.device import resolve
 from ..utils.timers import PhaseTimers
+
+# DRYNX_PROTO_TRACE: record every Conn lifecycle event (checkout, use,
+# break, put/discard/close) into the runtime protocol recorder
+# (analysis/prototrace.py), whose automaton is the
+# conn-checkout-discipline rule's.
+_PROTO_TRACE = os.environ.get("DRYNX_PROTO_TRACE", "0") == "1"
+
+
+def _proto_record(conn: "Conn", event: str) -> None:
+    inst = getattr(conn, "_proto_inst", None)
+    if inst:
+        from ..analysis import prototrace
+        prototrace.record(inst, event)
 
 
 # ---------------------------------------------------------------------------
@@ -517,7 +531,9 @@ def send_frame(sock: socket.socket, obj: dict, wire: int = 1,
                peer: str = "") -> None:
     frame = encode_frame(obj, wire)
     link_model().charge(len(frame), peer)
-    sock.sendall(frame)
+    # the only lock a sender holds here is its Conn's, which serializes
+    # one socket conversation by design (Conn.call)
+    sock.sendall(frame)  # drynx: noqa[blocking-call-under-lock]
 
 
 def recv_frame(sock: socket.socket, wire: int = 1,
@@ -559,7 +575,7 @@ def recv_msg(sock: socket.socket,
 def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
     buf = b""
     while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
+        chunk = sock.recv(n - len(buf))  # drynx: noqa[blocking-call-under-lock]
         if not chunk:
             return None
         buf += chunk
@@ -574,16 +590,19 @@ def _send_faulted_frame(sock: socket.socket, frame: bytes,
     header length exceeds any body."""
     if act.kind == "drop":
         return True                      # the frame vanishes on the wire
+    # as send_frame: the caller holds only its Conn's own lock
     if act.kind == "delay":
-        time.sleep(act.delay_s)
-        sock.sendall(frame)
+        time.sleep(act.delay_s)  # drynx: noqa[blocking-call-under-lock]
+        sock.sendall(frame)  # drynx: noqa[blocking-call-under-lock]
         return True
     if act.kind == "corrupt":
-        sock.sendall(frame[:4] + b"\xff" + frame[5:])
+        sock.sendall(  # drynx: noqa[blocking-call-under-lock]
+            frame[:4] + b"\xff" + frame[5:])
         return True
     if act.kind == "close_mid_frame":
         body = len(frame) - 4
-        sock.sendall(frame[:4 + max(1, body // 2)])
+        sock.sendall(  # drynx: noqa[blocking-call-under-lock]
+            frame[:4 + max(1, body // 2)])
         try:
             sock.shutdown(socket.SHUT_RDWR)
         except OSError:
@@ -742,6 +761,12 @@ class Conn:
         except OSError as e:
             raise ConnectError(f"connect to {self.peer} failed: {e}") from e
         self._negotiate(int(wire))
+        if _PROTO_TRACE:
+            # minted only for fully constructed conns: a failed
+            # negotiation raises before any caller holds a checkout
+            from ..analysis import prototrace
+            self._proto_inst = prototrace.new_instance("conn")
+            prototrace.record(self._proto_inst, "checkout")
 
     def _negotiate(self, want: int) -> None:
         if want < 2:
@@ -773,6 +798,8 @@ class Conn:
         if self.broken or self.closed:
             raise ConnectionClosed(
                 f"connection to {self.peer} already broken")
+        if _PROTO_TRACE:
+            _proto_record(self, "use")
         with self._lock:
             self.sent = False
             try:
@@ -797,10 +824,11 @@ class Conn:
                             f"connection to {self.peer} lost after partial "
                             f"write of {mtype!r} (fault plan)")
                 else:
-                    send_frame(self.sock, obj, self.wire, peer=self.peer)
+                    send_frame(  # drynx: noqa[blocking-call-under-lock]
+                        self.sock, obj, self.wire, peer=self.peer)
                     self.sent = True
-                reply = recv_frame(self.sock, self.wire,
-                                   rx_node=current_node() or "client")
+                reply = recv_frame(  # drynx: noqa[blocking-call-under-lock]
+                    self.sock, self.wire, rx_node=current_node() or "client")
             except ConnectionClosed:
                 raise
             except socket.timeout as e:
@@ -825,13 +853,19 @@ class Conn:
         return reply
 
     def _mark_broken(self) -> None:
-        self.broken = True
+        if _PROTO_TRACE and not self.broken:
+            _proto_record(self, "timeout")
+        # a Conn is checked out by one thread at a time (the pool hands
+        # each worker its own), and the flag only ever turns True
+        self.broken = True  # drynx: noqa[unguarded-shared-mutation]
         try:
             self.sock.close()
         except OSError:
             pass
 
     def close(self) -> None:
+        if _PROTO_TRACE and not self.closed:
+            _proto_record(self, "close")
         self.closed = True
         self.sock.close()
 
@@ -891,6 +925,12 @@ class ConnPool:
                 with self._lock:
                     self.reuses += 1
                 conn._timeout = float(timeout)
+                if _PROTO_TRACE:
+                    # a reuse starts a fresh checkout lifecycle: the
+                    # previous token ended at its accepting "returned"
+                    from ..analysis import prototrace
+                    conn._proto_inst = prototrace.new_instance("conn")
+                    prototrace.record(conn._proto_inst, "checkout")
                 return conn
             self.discard(conn)
         conn = Conn(host, port, timeout=timeout, peer=peer, wire=self.wire)
@@ -931,6 +971,8 @@ class ConnPool:
         if conn.broken or conn.closed:
             self.discard(conn)
             return
+        if _PROTO_TRACE:
+            _proto_record(conn, "put")
         key = self._key(conn)
         evicted: list[Conn] = []
         pooled = False
@@ -977,6 +1019,8 @@ class ConnPool:
                 suspect: bool = True) -> None:
         if conn is None:
             return
+        if _PROTO_TRACE and not conn.closed:
+            _proto_record(conn, "discard")
         with self._lock:
             self.discards += 1
             if suspect:

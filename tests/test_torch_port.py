@@ -898,3 +898,22 @@ def test_wire_decode_lands_on_the_card_by_default(cuda):
             assert got.device.type == "cuda"
             assert got.dtype == getattr(torch, wide)
             assert np.array_equal(got.cpu().numpy(), a)
+
+
+@pytest.mark.gpu
+def test_recorder_crosschecks_on_the_card(cuda):
+    """chip_smoke.py's phase 17a-c: the three cross-check children on the
+    card, each a fresh interpreter with its recorder armed, through the
+    same gates."""
+    from drynx_tpu_torch.analysis import crosscheck
+
+    procs = {w: crosscheck.spawn(w, "cuda")
+             for w in ("locks", "bytes", "lifecycles")}
+    second = crosscheck.spawn("bytes", "cuda")
+    out = {w: crosscheck.result(p, w) for w, p in procs.items()}
+    assert crosscheck.check_locks(out["locks"],
+                                  crosscheck.static_lock_edges()) == []
+    assert crosscheck.check_bytes(out["bytes"],
+                                  crosscheck.result(second, "bytes")) == []
+    assert crosscheck.check_lifecycles(out["lifecycles"]) == []
+    assert out["lifecycles"]["launches"].get("fixed_base_mul", 0) > 0
